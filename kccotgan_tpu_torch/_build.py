@@ -65,6 +65,14 @@ def load_library() -> ctypes.CDLL:
         i, p, ll, p, p, p, p, p, p, p, ll, i, i, i, i, i, i, p,
     ]
     lib.kccot_convlstm_fwd_step.restype = i
+    f = ctypes.c_float
+    lib.kccot_sinkhorn_fwd.argtypes = [p, p, p, p, i, i, i, f, p]
+    lib.kccot_sinkhorn_fwd.restype = i
+    lib.kccot_sinkhorn_bwd.argtypes = [p, p, p, p, p, i, i, i, f, p]
+    lib.kccot_sinkhorn_bwd.restype = i
+    for name in ("kccot_sinkhorn_fwd_max_batch", "kccot_sinkhorn_bwd_max_batch"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = i
     lib.kccot_error_string.argtypes = [i]
     lib.kccot_error_string.restype = ctypes.c_char_p
     return lib

@@ -7,8 +7,10 @@ and tests compare like with like.  Each layer rounds where the JAX layer
 rounds: convolutions take their inputs in the compute dtype and hand
 back ``out_dtype``; the ConvLSTM carry and gate math stay float32.
 
-Only the inference path is ported (the rollout); dropout and sequence
-parallelism raise instead of being ignored.
+The generator's layers serve the rollout and, on their plain path, the
+training step (autograd differentiates them); the discriminator's
+``Conv2D``, ``BatchNorm`` and dense ``LSTM`` are plain PyTorch.  Dropout
+and sequence parallelism raise instead of being ignored.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from torch import nn
 from .conv import same_conv
 from .cuda_convlstm import convlstm_scan, convlstm_scan_reference
 
-__all__ = ["ConvLSTM2D", "ConvTranspose2D", "LayerNorm"]
+__all__ = ["LSTM", "BatchNorm", "Conv2D", "ConvLSTM2D", "ConvTranspose2D", "LayerNorm", "leaky_relu"]
 
 _ACTIVATIONS = {"tanh": torch.tanh, "sigmoid": torch.sigmoid}
 
@@ -63,15 +65,17 @@ def _glorot_uniform_(w, fan_in: int, fan_out: int, generator):
 
 
 class ConvLSTM2D(nn.Module):
-    """Keras-semantics ConvLSTM2D for inference, input conv hoisted.
+    """Keras-semantics ConvLSTM2D, input conv hoisted.
 
     ``forward(x [B, T, H, W, C] f32)`` returns ``(y [B, T, H', W', f]
     f32, (h, c) f32)`` with ``H' = ceil(H / stride)``.  The input conv
     over all T frames runs once and streams in the compute dtype; the
     recurrence (recurrent conv, bias, Keras gates [i, f, c, o]) is
-    ``convlstm_scan``, which launches the Hopper kernel for CUDA tensors
-    and runs the plain version on the CPU.  ``plain = True`` runs the
-    plain version on any device (the kernel's reference on the card).
+    ``convlstm_scan``, which launches the forward-only Hopper kernel for
+    CUDA tensors and runs the plain version on the CPU.  ``plain = True``
+    runs the plain version on any device: the kernel's reference on the
+    card, and the training step's recurrence under ``kernel_impl='scan'``,
+    which autograd differentiates.
     """
 
     plain = False
@@ -184,3 +188,127 @@ class ConvTranspose2D(nn.Module):
         if self.activation is not None:
             out = _ACTIVATIONS[self.activation](out)
         return out
+
+
+def leaky_relu(x, negative_slope: float = 0.3):
+    """Keras LeakyReLU (slope 0.3) as ``where(x >= 0, x, slope * x)``: its
+    gradient at 0 is 1, where ``F.leaky_relu``'s is the slope."""
+    return torch.where(x >= 0, x, negative_slope * x)
+
+
+class Conv2D(nn.Module):
+    """TF-'SAME' Conv2D on ``[N, H, W, C]`` with an HWIO kernel and an f32
+    bias; inputs in the compute dtype, result f32."""
+
+    def __init__(
+        self,
+        in_channels: int,
+        filters: int,
+        kernel_size: tuple[int, int],
+        strides: tuple[int, int] = (1, 1),
+        compute_dtype: str = "float32",
+    ):
+        super().__init__()
+        kh, kw = kernel_size
+        self.strides = tuple(strides)
+        self.cdt = _torch_dtype(compute_dtype)
+        self.kernel = nn.Parameter(torch.empty(kh, kw, in_channels, filters))
+        self.bias = nn.Parameter(torch.empty(filters))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        kh, kw, c, f = self.kernel.shape
+        _glorot_uniform_(self.kernel, kh * kw * c, kh * kw * f, generator)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x):
+        return same_conv(x, self.kernel, self.strides, self.cdt) + self.bias
+
+
+class BatchNorm(nn.Module):
+    """flax ``BatchNorm`` in training mode with the discriminator's momentum
+    0.99 and eps 1e-3, written out (``torch.nn``'s differs in layout,
+    momentum convention and running variance).
+
+    ``forward(x, mean, var)`` normalizes over every axis but the last
+    (``[N, H, W, C]`` and ``[B, T, U]`` alike) with the batch's statistics,
+    the fast variance ``max(E[x^2] - E[x]^2, 0)`` in f32, and returns
+    ``(y, (mean', var'))`` with the running statistics
+    ``momentum * old + (1 - momentum) * batch`` (biased variance), which
+    carry no gradient.
+    """
+
+    momentum = 0.99
+    eps = 1e-3
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.scale = nn.Parameter(torch.empty(features))
+        self.bias = nn.Parameter(torch.empty(features))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        del generator
+        nn.init.ones_(self.scale)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x, mean, var):
+        dims = tuple(range(x.dim() - 1))
+        mu = x.mean(dims)
+        batch_var = ((x * x).mean(dims) - mu * mu).clamp_min(0.0)
+        y = (x - mu) * (torch.rsqrt(batch_var + self.eps) * self.scale) + self.bias
+        m = self.momentum
+        new_mean = m * mean + (1.0 - m) * mu.detach()
+        new_var = m * var + (1.0 - m) * batch_var.detach()
+        return y, (new_mean, new_var)
+
+
+class LSTM(nn.Module):
+    """Keras-semantics dense LSTM over ``[B, T, F]`` -> ``[B, T, units]`` f32.
+
+    The input projection is hoisted to one ``[B*T, F] @ [F, 4U]`` product in
+    the compute dtype; each step adds ``(x_t + bias) + h @ R`` in f32 (the
+    recurrent product rounded to the compute dtype and back), applies the
+    Keras gates [i, f, c, o] and rounds its output to the compute dtype.
+    The recurrence is a plain loop (the JAX package's ``lax.scan``).
+    """
+
+    def __init__(
+        self,
+        in_features: int,
+        units: int,
+        activation: str = "tanh",
+        compute_dtype: str = "float32",
+    ):
+        super().__init__()
+        self.units = units
+        self.act = _ACTIVATIONS[activation]
+        self.cdt = _torch_dtype(compute_dtype)
+        self.kernel = nn.Parameter(torch.empty(in_features, 4 * units))
+        self.recurrent_kernel = nn.Parameter(torch.empty(units, 4 * units))
+        self.bias = nn.Parameter(torch.empty(4 * units))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """glorot-uniform kernel, orthogonal recurrent kernel, unit forget
+        bias (as flax/Keras)."""
+        f, u4 = self.kernel.shape
+        _glorot_uniform_(self.kernel, f, u4, generator)
+        with torch.no_grad():
+            nn.init.orthogonal_(self.recurrent_kernel, generator=generator)
+            self.bias.zero_()
+            self.bias[self.units : 2 * self.units] = 1.0
+
+    def forward(self, x_seq):
+        b, t, feat = x_seq.shape
+        u, cdt = self.units, self.cdt
+        xproj = (x_seq.reshape(b * t, feat).to(cdt) @ self.kernel.to(cdt)).reshape(b, t, 4 * u)
+        rk = self.recurrent_kernel.to(cdt)
+        h = x_seq.new_zeros(b, u, dtype=torch.float32)
+        c = torch.zeros_like(h)
+        outs = []
+        for s in range(t):
+            z = (xproj[:, s].float() + self.bias) + (h.to(cdt) @ rk).float()
+            i = torch.sigmoid(z[:, :u])
+            fg = torch.sigmoid(z[:, u : 2 * u])
+            c = fg * c + i * self.act(z[:, 2 * u : 3 * u])
+            h = torch.sigmoid(z[:, 3 * u :]) * self.act(c)
+            outs.append(h.to(cdt))
+        return torch.stack(outs, dim=1).float()

@@ -1,12 +1,14 @@
-"""Generator of the KCCOT-GAN in PyTorch: ConvLSTM context encoder and
-U-Net ConvLSTM decoder, inference path only.
+"""KCCOT-GAN in PyTorch: ConvLSTM context encoder, U-Net ConvLSTM
+decoder (teacher-forcing training path and single-frame inference path)
+and the per-frame CNN + LSTM video discriminator.
 
-Counterparts of ``VideoEncoder`` and ``VideoDecoder`` in
-``kccotgan_tpu/models/video.py``, with the same submodule and parameter
-names (``encoder1``, ``norm1``, ``conv_transpose1``, ``decoder2_norm``,
-...) so flax parameter trees map onto ``state_dict`` keys by joining the
-path with dots.  Videos are film-strips ``[B, H, T, W, C]`` at the
-boundaries; pyramid levels are ``[B, T, h, w, c]``.
+Counterparts of ``VideoEncoder``, ``VideoDecoder`` and
+``VideoDiscriminator`` in ``kccotgan_tpu/models/video.py``, with the same
+submodule and parameter names (``encoder1``, ``norm1``,
+``conv_transpose1``, ``decoder2_norm``, ``conv1``, ``bn1``, ``lstm1``,
+``rnn_bn1``, ...) so flax parameter trees map onto ``state_dict`` keys by
+joining the path with dots.  Videos are film-strips ``[B, H, T, W, C]`` at
+the boundaries; pyramid levels are ``[B, T, h, w, c]``.
 """
 
 from __future__ import annotations
@@ -14,9 +16,15 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .layers import ConvLSTM2D, ConvTranspose2D, LayerNorm
+from .layers import LSTM, BatchNorm, Conv2D, ConvLSTM2D, ConvTranspose2D, LayerNorm, leaky_relu
 
-__all__ = ["VideoDecoder", "VideoEncoder", "generator_modules"]
+__all__ = [
+    "VideoDecoder",
+    "VideoDiscriminator",
+    "VideoEncoder",
+    "discriminator_modules",
+    "generator_modules",
+]
 
 _LN_EPS = 1e-3  # Keras LayerNormalization default
 
@@ -86,11 +94,13 @@ def _decoder_geometry(x_height: int, x_width: int):
 
 
 class VideoDecoder(nn.Module):
-    """U-Net ConvLSTM decoder, inference path: every stage consumes the
-    encoder's features of the last frame only.
+    """U-Net ConvLSTM decoder.
 
-    ``forward(pyramid, z)`` takes the encoder's 5-level pyramid and noise
-    ``z [B, 1, h4, w4, z_channels]`` and returns frames ``[B, H, 1, W, C]``.
+    ``forward(pyramid, z, training=False)`` takes the encoder's 5-level
+    pyramid and noise ``z [B, T_z, h4, w4, z_channels]`` and returns frames
+    ``[B, H, T_z, W, C]``.  Training (teacher forcing) consumes the skip
+    frames ``[:, :-1]``, so ``T_z`` is the pyramid's time minus one;
+    inference consumes the last frame's features only, with ``T_z = 1``.
     """
 
     def __init__(
@@ -149,11 +159,11 @@ class VideoDecoder(nn.Module):
     def _norm(self, h, name):
         return getattr(self, name)(h) if self.use_norm else h
 
-    def forward(self, pyramid, z):
+    def forward(self, pyramid, z, training=False):
         b, t = z.shape[0], z.shape[1]
 
         def skip(level):
-            return pyramid[level][:, -1:]
+            return pyramid[level][:, :-1] if training else pyramid[level][:, -1:]
 
         def fold(seq):  # [B, T, h, w, c] -> [B*T, h, w, c]
             return seq.reshape((b * t,) + tuple(seq.shape[2:]))
@@ -191,3 +201,88 @@ def generator_modules(cfg):
         output_activation=m.output_activation, **common,
     )
     return encoder, decoder
+
+
+class VideoDiscriminator(nn.Module):
+    """Per-frame CNN (three 5x5 stride-2 Conv2D, f*4, f*8, f*16, optional
+    BatchNorm, LeakyReLU 0.3) then three LSTMs (f*8, f*4, then
+    ``state_size`` sigmoid units, BatchNorm between them) ->
+    ``[B, T, state_size]``.
+
+    ``forward(video, stats)`` runs in training mode: every BatchNorm
+    normalizes by its batch and ``stats`` (``{"bn1.mean": ..., "bn1.var":
+    ..., "rnn_bn2.var": ...}``, the flax ``batch_stats`` paths joined by
+    dots) comes back updated as ``(out, new_stats)``.  Each frame's conv
+    output is flattened in NHWC order, as in the JAX package, so lstm1's
+    kernel rows line up.
+    """
+
+    def __init__(
+        self,
+        x_height: int,
+        x_width: int,
+        n_channels: int = 1,
+        state_size: int = 8,
+        filter_size: int = 8,
+        use_batch_norm: bool = False,
+        compute_dtype: str = "float32",
+    ):
+        super().__init__()
+        f = filter_size
+        self.use_batch_norm = use_batch_norm
+        c_in, h, w = n_channels, x_height, x_width
+        for i, filters in enumerate((f * 4, f * 8, f * 16)):
+            self.add_module(f"conv{i + 1}", Conv2D(
+                c_in, filters, (5, 5), strides=(2, 2), compute_dtype=compute_dtype
+            ))
+            if use_batch_norm:
+                self.add_module(f"bn{i + 1}", BatchNorm(filters))
+            c_in, h, w = filters, -(-h // 2), -(-w // 2)
+        self.lstm1 = LSTM(h * w * c_in, f * 8, compute_dtype=compute_dtype)
+        self.lstm2 = LSTM(f * 8, f * 4, compute_dtype=compute_dtype)
+        self.lstm3 = LSTM(f * 4, state_size, activation="sigmoid", compute_dtype=compute_dtype)
+        if use_batch_norm:
+            self.rnn_bn1 = BatchNorm(f * 8)
+            self.rnn_bn2 = BatchNorm(f * 4)
+
+    def init_stats(self) -> dict:
+        """Fresh running statistics: means 0, variances 1 (as flax)."""
+        stats = {}
+        for name, module in self.named_children():
+            if isinstance(module, BatchNorm):
+                stats[f"{name}.mean"] = torch.zeros_like(module.scale)
+                stats[f"{name}.var"] = torch.ones_like(module.scale)
+        return stats
+
+    def forward(self, video, stats):
+        new_stats = {}
+
+        def norm(x, name):
+            if not self.use_batch_norm:
+                return x
+            x, (mean, var) = getattr(self, name)(x, stats[f"{name}.mean"], stats[f"{name}.var"])
+            new_stats[f"{name}.mean"], new_stats[f"{name}.var"] = mean, var
+            return x
+
+        b, h, t, w, c = video.shape
+        x = video.permute(0, 2, 1, 3, 4).reshape(b * t, h, w, c)
+        for i in range(3):
+            x = leaky_relu(norm(getattr(self, f"conv{i + 1}")(x), f"bn{i + 1}"))
+        x = x.reshape(b, t, -1)
+        x = norm(self.lstm1(x), "rnn_bn1")
+        x = norm(self.lstm2(x), "rnn_bn2")
+        return self.lstm3(x), new_stats
+
+
+def discriminator_modules(cfg):
+    """The two identical discriminators ``(h, m)`` a ``TrainConfig``
+    describes, created on the current default device."""
+    m = cfg.model
+    return tuple(
+        VideoDiscriminator(
+            m.x_height, m.x_width, m.n_channels, state_size=m.d_state_size,
+            filter_size=m.d_filter_size, use_batch_norm=m.use_norm,
+            compute_dtype=cfg.compute_dtype,
+        )
+        for _ in range(2)
+    )

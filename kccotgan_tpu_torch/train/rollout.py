@@ -19,7 +19,7 @@ from ..models.video import generator_modules
 __all__ = ["build_rollout"]
 
 
-def build_rollout(cfg, *, device, plain=False) -> Callable:
+def build_rollout(cfg, *, device="cuda", plain=False) -> Callable:
     """Returns ``rollout(params, context, generator=None, z=None)``.
 
     ``params`` is ``{"encoder": ..., "decoder": ...}``, each a mapping of
@@ -28,8 +28,10 @@ def build_rollout(cfg, *, device, plain=False) -> Callable:
     ``[B, H, Tc + pred_time_steps, W, C]`` with the context unchanged.
     ``z``, if given, is ``[pred_time_steps, B, 1, z_h, z_w, z_c]``;
     otherwise each step draws ``torch.randn`` from ``generator``.
-    ``plain=True`` runs the ConvLSTM recurrences' plain PyTorch version
-    on any device instead of the CUDA kernel: the kernel path's reference.
+    ``context`` and ``z`` live on ``device``, the card unless the caller
+    asks for the CPU.  ``plain=True`` runs the ConvLSTM recurrences'
+    plain PyTorch version on any device instead of the CUDA kernel: the
+    kernel path's reference.
     """
     m = cfg.model
     num_steps = cfg.pred_time_steps

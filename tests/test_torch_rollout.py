@@ -16,7 +16,6 @@ over the tiny config's 8 to 64 channels divides such a difference by the
 features' spread, and every generated frame is encoded again.
 """
 
-import dataclasses
 import subprocess
 import sys
 import types
@@ -31,25 +30,14 @@ import torch
 from kccotgan_tpu.config import ModelConfig, TrainConfig
 from kccotgan_tpu.train.rollout import build_rollout as jax_build_rollout
 from kccotgan_tpu.train.state import GanModules
-from kccotgan_tpu_torch import config as port_config
 from kccotgan_tpu_torch.models import generator_modules
 from kccotgan_tpu_torch.train import build_rollout
 from kccotgan_tpu_torch.weights import generator_params_from_jax, init_generator_params
+from tests._torch_port import port_cfg
 
 torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parent.parent
-
-
-def port_cfg(cfg):
-    """The port's config holding the JAX config's values."""
-    model = port_config.ModelConfig(
-        **{f.name: getattr(cfg.model, f.name) for f in dataclasses.fields(port_config.ModelConfig)}
-    )
-    return port_config.TrainConfig(model=model, **{
-        f.name: getattr(cfg, f.name)
-        for f in dataclasses.fields(port_config.TrainConfig) if f.name != "model"
-    })
 
 
 def tiny_cfg(compute_dtype="float32"):
@@ -221,19 +209,27 @@ def test_init_generator_params(setup):
 
 def test_port_never_imports_jax():
     """Neither the port nor ``chip_smoke.py`` imports JAX, flax or the JAX
-    package, which the GPU machine lacks."""
+    package, which the GPU machine lacks: every module of the port is
+    imported, and a tiny rollout and a tiny training iteration run, before
+    ``sys.modules`` is read."""
     code = (
-        "import sys, torch\n"
-        "import chip_smoke\n"
+        "import importlib, pkgutil, sys, torch\n"
+        "import chip_smoke, kccotgan_tpu_torch\n"
+        "for mod in pkgutil.walk_packages(kccotgan_tpu_torch.__path__, 'kccotgan_tpu_torch.'):\n"
+        "    importlib.import_module(mod.name)\n"
         "from kccotgan_tpu_torch.config import ModelConfig, TrainConfig\n"
-        "from kccotgan_tpu_torch.train import build_rollout\n"
+        "from kccotgan_tpu_torch.train import build_rollout, build_train_step, create_train_state\n"
         "from kccotgan_tpu_torch.weights import init_generator_params\n"
         "torch.set_num_threads(1)\n"
-        "cfg = TrainConfig(batch_size=1, total_time_steps=3, int_time_steps=2, model=ModelConfig(\n"
-        "    x_height=16, x_width=16, g_filter_size=1, z_channels=2, z_height=1, z_width=1))\n"
+        "cfg = TrainConfig(batch_size=2, total_time_steps=3, int_time_steps=2, sinkhorn_l=3, model=ModelConfig(\n"
+        "    x_height=16, x_width=16, g_filter_size=1, d_filter_size=1, d_state_size=2,\n"
+        "    z_channels=2, z_height=1, z_width=1))\n"
         "g = torch.Generator().manual_seed(0)\n"
-        "out = build_rollout(cfg, device='cpu')(init_generator_params(cfg, g), torch.rand(1, 16, 2, 16, 1), g)\n"
-        "assert out.shape == (1, 16, 3, 16, 1)\n"
+        "out = build_rollout(cfg, device='cpu')(init_generator_params(cfg, g), torch.rand(2, 16, 2, 16, 1), g)\n"
+        "assert out.shape == (2, 16, 3, 16, 1)\n"
+        "state = create_train_state(cfg, device='cpu')\n"
+        "state, metrics = build_train_step(cfg, device='cpu')(state, torch.rand(2, 16, 3, 16, 1), g)\n"
+        "assert state.step == 1 and torch.isfinite(metrics['sinkhorn_loss'])\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'kccotgan_tpu'))\n"
         "assert not bad, bad\n"
     )
