@@ -3,20 +3,28 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from ``kccotgan_tpu_torch/csrc`` and drives both
+Builds the CUDA kernels from ``kccotgan_tpu_torch/csrc`` and drives the
 ported paths at the ``mmnist_full`` preset (B=32, 64x64x1, 10 context +
 10 predicted frames, bf16 convs, seeded random weights):
 
 * kernels vs their plain PyTorch versions: the ConvLSTM forward at the 8
   ConvLSTM layer shapes (f32 and bf16), the Sinkhorn forward and
-  backward at [3, 32, 32] and [3, 128, 128] with L=100;
+  backward at [3, 32, 32] and [3, 128, 128] with L=100; the ConvLSTM
+  backward (and the forward's c stack) at the 8 layer shapes with the
+  training T, and the LSTM forward and backward at lstm1-3, B=32, T=20,
+  f32 and bf16, beside cuDNN's LSTM at lstm1 and lstm2;
 * the conditioned rollout through the kernel and the plain path, timed,
   and per path where its device time goes (CUDA-graph replay beside the
   eager rollout, and one rollout under ``torch.profiler``);
 * two training iterations (``kernel_impl='scan'``, L=100) through the
   Sinkhorn kernels and two through the plain loop from the same state,
   compared, timed in turns, with peak memory and one iteration of each
-  under ``torch.profiler``.
+  under ``torch.profiler``;
+* two training iterations under ``kernel_impl='pallas'`` (every ConvLSTM
+  and LSTM recurrence through its forward and backward kernels) against
+  two under ``'scan'`` from the same state, video and z, in f32 and in
+  bf16, with every kernel's calls and launches counted per iteration;
+  then both engines timed in turns and profiled.
 
 Each path's kernel launches are counted from zero around its run.  Every
 phase raises on failure.  The last lines are the kernels' JSON record,
@@ -36,7 +44,21 @@ import torch
 
 from kccotgan_tpu_torch._build import load_library
 from kccotgan_tpu_torch.config import get_preset
-from kccotgan_tpu_torch.models.cuda_convlstm import convlstm_scan, convlstm_scan_reference
+from kccotgan_tpu_torch.models.cuda_convlstm import (
+    convlstm_bwd,
+    convlstm_bwd_reference,
+    convlstm_fwd,
+    convlstm_fwd_reference,
+    convlstm_scan,
+    convlstm_scan_reference,
+)
+from kccotgan_tpu_torch.models.cuda_lstm import (
+    lstm_bwd,
+    lstm_bwd_reference,
+    lstm_fwd,
+    lstm_scan_reference,
+)
+from kccotgan_tpu_torch.models.layers import LSTM
 from kccotgan_tpu_torch.ot.cuda_sinkhorn import (
     sinkhorn_bwd,
     sinkhorn_bwd_reference,
@@ -49,6 +71,8 @@ from kccotgan_tpu_torch.roofline import (
     bound_ms,
     convlstm_layers,
     convlstm_work,
+    lstm_layers,
+    lstm_work,
     sinkhorn_work,
 )
 from kccotgan_tpu_torch.train import build_rollout, build_train_step, create_train_state
@@ -58,6 +82,13 @@ PRESET = "mmnist_full"
 B, T = 32, 10
 # name: (spatial H = W, filters f, kernel k) of each ConvLSTM on the rollout path
 LAYERS = convlstm_layers(get_preset(PRESET))
+
+
+def train_t(name):
+    """Steps of a ConvLSTM layer in a training iteration: the encoder runs
+    over all frames, the decoder over the predicted ones."""
+    cfg = get_preset(PRESET)
+    return cfg.total_time_steps if name.startswith("enc") else cfg.pred_time_steps
 # f32 (TF32 off): only the summation order of the recurrent conv differs.
 # bf16: a different summation order can round the recurrent conv or y one
 # bf16 ulp apart (2**-8 = 3.9e-3 for y in [0.5, 1)); the gates carry such
@@ -86,7 +117,79 @@ KERNELS = {
         "source": "kccotgan_tpu_torch/csrc/sinkhorn_bwd.cu",
         "replaces": "kccotgan_tpu/ot/pallas_sinkhorn.py:138",
     },
+    "convlstm_bwd": {
+        "name": "convlstm_bwd",
+        "route": "cuda",
+        "source": "kccotgan_tpu_torch/csrc/convlstm_bwd.cu",
+        "replaces": "kccotgan_tpu/models/pallas_convlstm.py:311",
+    },
+    "lstm_fwd": {
+        "name": "lstm_fwd",
+        "route": "cuda",
+        "source": "kccotgan_tpu_torch/csrc/lstm_fwd.cu",
+        "replaces": "kccotgan_tpu/models/pallas_lstm.py:93",
+    },
+    "lstm_bwd": {
+        "name": "lstm_bwd",
+        "route": "cuda",
+        "source": "kccotgan_tpu_torch/csrc/lstm_bwd.cu",
+        "replaces": "kccotgan_tpu/models/pallas_lstm.py:186",
+    },
 }
+# Backward kernels vs their plain versions, each gradient within a share
+# of its largest entry.  f32 (TF32 off): the same products summed in
+# another order, the longest sums (drk: B*T*H*W = 655,360 terms at enc1)
+# in f32 runs whose rounding error grows like sqrt(K) * 2**-24 of the
+# terms (~5e-5 at K = 655,360 in the worst case of no cancellation), so
+# 1e-4.  bf16: both round the recomputed recurrent conv, y and dz to bf16
+# at the same points, but another summation order can put a rounding one
+# bf16 ulp (2**-8 = 3.9e-3 relative) apart; that moves a gate, its dz and
+# every later step's dh by about as much, so 2e-2 of the largest entry.
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# The discriminator's LSTMs, B=32, T=20.
+LSTM_B, LSTM_T = 32, 20
+# Training engines, 'pallas' vs 'scan', same state, video and z.  The
+# first iteration's losses, pM and every group's Adam first moment (half
+# the first gradient) are compared; parameters are not (Keras Adam turns
+# rounding-level gradients into full steps, and the engines round dh_prev
+# differently: f32 in the kernels, compute dtype under autograd).
+# f32 (TF32 off): only summation orders differ.  Losses and pM at rtol
+# 1e-4 (the Sinkhorn divergence's cancellation magnifies a few ulp of its
+# three costs).  The generator's moments at 1e-4 of each group's largest:
+# gradients through two recurrent stacks summed in another order.  The
+# discriminators' at 1e-2: their conv kernels sit behind three
+# BatchNorms, whose backward subtracts the batch mean of the incoming
+# gradient, so those weight gradients are small differences of large
+# sums and carry the upstream ulps magnified (measured on the H100:
+# 1.5e-3 at h's conv1 against 3.4e-6 in the generator).
+# bf16: the forward recurrences may round a conv or y one ulp (2**-8)
+# apart and the scan rounds dz and dh_prev to bf16 where the kernels
+# keep f32.  Losses and pM at rtol 1e-3: one ulp of a discriminator
+# output moves the ~750 costs by far less than that.  Moments at 2e-2 of
+# the largest in the generator (a few ulp carried through the steps),
+# 0.2 in the discriminators (the same ulps behind the BatchNorms' magnifier).
+ENGINE_TOL = {
+    "float32": {"loss_rtol": 1e-4, "pm_rtol": 1e-4,
+                "mu_rel": {"enc": 1e-4, "dec": 1e-4, "h": 1e-2, "m": 1e-2}},
+    "bfloat16": {"loss_rtol": 1e-3, "pm_rtol": 1e-3,
+                 "mu_rel": {"enc": 2e-2, "dec": 2e-2, "h": 0.2, "m": 0.2}},
+}
+# Per 'pallas' iteration at mmnist_full: (calls, launches) of each kernel.
+# ConvLSTM forward: the encoder's 4 layers over 20 steps, the decoder's 4
+# over 10 in each phase, one launch a step.  Backward (generator phase
+# only): two launches a step and two for the weight gradient.  LSTM: 3
+# layers x 8 discriminator passes forward, x 6 differentiated passes
+# backward (one launch, and two for dR and db).  Sinkhorn: one forward
+# and one backward a phase.
+PALLAS_COUNTS = {
+    "convlstm_fwd": (12, 4 * 20 + 8 * 10),
+    "convlstm_bwd": (8, 4 * (2 * 20 + 2) + 4 * (2 * 10 + 2)),
+    "lstm_fwd": (24, 24),
+    "lstm_bwd": (18, 54),
+    "sinkhorn_fwd": (2, 2),
+    "sinkhorn_bwd": (2, 2),
+}
+RECURRENCE_KERNELS = ("convlstm_fwd", "convlstm_bwd", "lstm_fwd", "lstm_bwd")
 # The training step's Sinkhorn solves: xy, xx, yy at the batch size.
 SINK_K, SINK_L, SINK_EPS = 3, 100, 1.0
 # Sinkhorn kernel vs plain version, f32: costs at rtol 1e-5 and c_bar at
@@ -121,13 +224,13 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def layer_inputs(hw, f, k, dtype, dev, seed):
+def layer_inputs(hw, f, k, dtype, dev, seed, t=T):
     g = torch.Generator().manual_seed(seed)
 
     def randn(*shape, scale=1.0):
         return (torch.randn(*shape, generator=g) * scale).to(dev)
 
-    xconv = randn(B, T, hw, hw, 4 * f).to(dtype)
+    xconv = randn(B, t, hw, hw, 4 * f).to(dtype)
     h0, c0 = randn(B, hw, hw, f, scale=0.5), randn(B, hw, hw, f, scale=0.5)
     rk = randn(k, k, f, 4 * f, scale=(k * k * f) ** -0.5)
     bias = randn(4 * f, scale=0.1)
@@ -169,10 +272,12 @@ def check_rollout(cfg, params, context, z, dtype_name):
     dev = context.device
     rollout_k = build_rollout(cfg, device=dev)
     rollout_p = build_rollout(cfg, device=dev, plain=True)
-    convlstm_scan.launches = sinkhorn_fwd.launches = sinkhorn_bwd.launches = 0
+    reset_counts()
     out = rollout_k(params, context, z=z)
     torch.cuda.synchronize()
-    launches = convlstm_scan.launches
+    launches = convlstm_fwd.launches
+    if convlstm_bwd.launches or lstm_fwd.launches or lstm_bwd.launches:
+        raise RuntimeError("the rollout launched a backward or LSTM kernel")
     if sinkhorn_fwd.launches or sinkhorn_bwd.launches:
         raise RuntimeError("the rollout launched a Sinkhorn kernel")
     tc, tp = cfg.int_time_steps, cfg.pred_time_steps
@@ -309,20 +414,11 @@ def _all_finite(state, metrics):
 def check_training(cfg, dev):
     """Two flagship training iterations on the kernel path, counted, and
     two on the plain path from the same state, video and z."""
-    state0 = create_train_state(cfg, torch.Generator().manual_seed(0), device=dev)
-    m = cfg.model
-    video = torch.from_numpy(
-        np.random.default_rng(1).uniform(
-            size=(cfg.batch_size, m.x_height, cfg.total_time_steps, m.x_width, m.n_channels)
-        ).astype(np.float32)
-    ).to(dev)
-    zg = torch.Generator(device=dev).manual_seed(2)
-    z_shape = (cfg.batch_size, cfg.pred_time_steps, m.z_height, m.z_width, m.z_channels)
-    zs = [tuple(torch.randn(z_shape, generator=zg, device=dev) for _ in range(2)) for _ in range(2)]
+    state0, video, zs = training_inputs(cfg, dev)
     step_k = build_train_step(cfg, device=dev)
     step_p = build_train_step(dataclasses.replace(cfg, sinkhorn_solver="scan"), device=dev)
 
-    sinkhorn_fwd.launches = sinkhorn_bwd.launches = convlstm_scan.launches = 0
+    reset_counts()
     state_k, mets_k = state0, []
     for i in range(2):
         f0, b0 = sinkhorn_fwd.launches, sinkhorn_bwd.launches
@@ -333,7 +429,9 @@ def check_training(cfg, dev):
             raise RuntimeError(f"iteration {i}: Sinkhorn launches (fwd, bwd) = {per_iter}, expected (2, 2)")
         mets_k.append(met)
     launches = {"sinkhorn_fwd": sinkhorn_fwd.launches, "sinkhorn_bwd": sinkhorn_bwd.launches,
-                "convlstm_fwd": convlstm_scan.launches}
+                "convlstm_fwd": convlstm_fwd.launches}
+    if any(fn.launches for fn in (convlstm_fwd, convlstm_bwd, lstm_fwd, lstm_bwd)):
+        raise RuntimeError(f"the 'scan' iteration launched a recurrence kernel: {launches}")
     state_p, mets_p = state0, []
     for i in range(2):
         state_p, met = step_p(state_p, video, z=zs[i])
@@ -369,18 +467,23 @@ def check_training(cfg, dev):
     return state0, video, zs, step_k, step_p, launches
 
 
-def time_training(card, cfg, state0, video, zs, step_k, step_p):
-    """ms per iteration (CUDA events, paths in turns), frames/s, peak
-    memory, and one iteration per path under ``torch.profiler``."""
-    ms = {"plain": [], "kernel": []}
-    for path in ("plain", "kernel", "kernel", "plain"):
-        fn = step_k if path == "kernel" else step_p
-        ms[path].append(cuda_ms(lambda: fn(state0, video, z=zs[0]), reps=2))
+def time_training(card, cfg, state0, video, zs, paths, marker, what):
+    """ms per iteration (CUDA events, the two paths in turns: reference,
+    kernel, kernel, reference), frames/s, peak memory, and one iteration
+    per path under ``torch.profiler``.  ``paths`` is ``((reference name,
+    step), (kernel name, step))``; device time in kernels whose name holds
+    ``marker`` must show in the kernel path's trace and only there."""
+    (ref, _), (kern, _) = paths
+    fns = dict(paths)
+    ms = {ref: [], kern: []}
+    for path in (ref, kern, kern, ref):
+        ms[path].append(cuda_ms(lambda: fns[path](state0, video, z=zs[0]), reps=2))
     step_ms = {p: sum(v) / len(v) for p, v in ms.items()}
     frames = cfg.batch_size * cfg.total_time_steps
     peak = {}
     profiles = {}
-    for path, fn in (("plain", step_p), ("kernel", step_k)):
+    for path in (ref, kern):
+        fn = fns[path]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         fn(state0, video, z=zs[0])
@@ -392,9 +495,9 @@ def time_training(card, cfg, state0, video, zs, step_k, step_p):
             fn(state0, video, z=zs[0])
             torch.cuda.synchronize()
         busy_ms, span_ms, n_events, by_name = device_intervals_ms(prof)
-        sink_ms = sum(t for n, t in by_name.items() if "sinkhorn" in n)
-        if (sink_ms > 0) != (path == "kernel"):
-            raise RuntimeError(f"training, {path} path: {sink_ms} ms of Sinkhorn kernel in the trace")
+        marked_ms = sum(t for n, t in by_name.items() if marker in n)
+        if (marked_ms > 0) != (path == kern):
+            raise RuntimeError(f"{what}, {path} path: {marked_ms} ms of '{marker}' kernels in the trace")
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
         profiles[path] = {
             "eager_ms": step_ms[path],
@@ -402,11 +505,11 @@ def time_training(card, cfg, state0, video, zs, step_k, step_p):
             "profiled_span_ms": span_ms,
             "idle_share_eager": 1.0 - busy_ms / step_ms[path],
             "device_events": n_events,
-            "sinkhorn_kernel_ms": sink_ms,
+            f"{marker}_kernel_ms": marked_ms,
             "top_ms": [[n[:80], t] for n, t in top],
         }
-        print(json.dumps({"profile_training": {"path": path, **profiles[path]}}), flush=True)
-    print(json.dumps({"training_timings": {
+        print(json.dumps({"profile_training": {"what": what, "path": path, **profiles[path]}}), flush=True)
+    print(json.dumps({what: {
         "card": card,
         "preset": PRESET,
         "compute_dtype": cfg.compute_dtype,
@@ -416,7 +519,252 @@ def time_training(card, cfg, state0, video, zs, step_k, step_p):
         "training_frames_per_s": {p: frames / (t / 1e3) for p, t in step_ms.items()},
         "peak_memory_gib": peak,
     }}), flush=True)
-    return step_ms
+    return step_ms, profiles
+
+
+COUNTED = {
+    "convlstm_fwd": convlstm_fwd, "convlstm_bwd": convlstm_bwd, "lstm_fwd": lstm_fwd,
+    "lstm_bwd": lstm_bwd, "sinkhorn_fwd": sinkhorn_fwd, "sinkhorn_bwd": sinkhorn_bwd,
+}
+
+
+def reset_counts():
+    for fn in COUNTED.values():
+        fn.launches = 0
+        if hasattr(fn, "calls"):
+            fn.calls = 0
+
+
+def counts():
+    return {name: [getattr(fn, "calls", fn.launches), fn.launches] for name, fn in COUNTED.items()}
+
+
+def rel_err(got, want):
+    """max |got - want| over the largest |want|, for each pair."""
+    return max(
+        float((g.float() - w.float()).abs().max()) / max(float(w.float().abs().max()), 1e-30)
+        for g, w in zip(got, want)
+    )
+
+
+def check_convlstm_bwd(dev):
+    """The ConvLSTM backward kernels (and the forward's c stack) vs their
+    plain versions at the 8 layer shapes with the training T (20 encoder,
+    10 decoder), nonzero h0, c0, dh_n and dc_n, f32 and bf16; bf16 times
+    of each layer's backward, kernel and plain."""
+    errs, times, failed = {}, {}, []
+    for i, (name, (hw, f, k)) in enumerate(LAYERS.items()):
+        t = train_t(name)
+        for dtype in (torch.float32, torch.bfloat16):
+            args = layer_inputs(hw, f, k, dtype, dev, seed=100 + i, t=t)
+            g = torch.Generator().manual_seed(200 + i)
+            y_p, cs_p, h_p, c_p = convlstm_fwd_reference(*args)
+            y_k, cs_k, h_k, c_k = convlstm_fwd(*args, with_c_stack=True)
+            cot = (
+                torch.randn(y_p.shape, generator=g).to(dev, dtype),
+                torch.randn(h_p.shape, generator=g).to(dev),
+                torch.randn(c_p.shape, generator=g).to(dev),
+            )
+            got = convlstm_bwd(*args, y_p, cs_p, *cot)
+            want = convlstm_bwd_reference(*args, y_p, cs_p, *cot)
+            torch.cuda.synchronize()
+            tag = f"{name} T={t} {str(dtype).removeprefix('torch.')}"
+            e_fwd = max_err((y_k, cs_k, h_k, c_k), (y_p, cs_p, h_p, c_p))
+            e_bwd = {n: rel_err([a], [b]) for n, a, b in zip(("dx", "dh0", "dc0", "drk", "db"), got, want)}
+            print(f"[convlstm_bwd] {tag}: forward+c stack max abs err {e_fwd:.3e} (tol {TOL[dtype]:.0e}); "
+                  f"gradients, err / largest: {json.dumps(e_bwd)} (tol {GRAD_TOL[dtype]:.0e}); "
+                  f"max abs err {max_err(got, want):.3e}", flush=True)
+            if not (e_fwd <= TOL[dtype] and max(e_bwd.values()) <= GRAD_TOL[dtype]):
+                failed.append(tag)
+            errs[tag] = max_err(got, want)
+        args = layer_inputs(hw, f, k, torch.bfloat16, dev, seed=100 + i, t=t)
+        y, cs, h, c = convlstm_fwd(*args, with_c_stack=True)
+        cot = (torch.ones_like(y), torch.zeros_like(h), torch.zeros_like(c))
+        times[name] = {
+            "kernel_ms": cuda_ms(lambda: convlstm_bwd(*args, y, cs, *cot), reps=3),
+            "plain_ms": cuda_ms(lambda: convlstm_bwd_reference(*args, y, cs, *cot), reps=1),
+        }
+    print(json.dumps({"convlstm_bwd_ms_bf16_B32": times}), flush=True)
+    if failed:
+        raise RuntimeError(f"convlstm_bwd disagrees with its plain version: {failed}")
+    return errs, times
+
+
+def lstm_inputs(in_features, u, dtype, dev, seed):
+    g = torch.Generator().manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to(dev)
+
+    xproj = randn(LSTM_B, LSTM_T, 4 * u).to(dtype)
+    h0, c0 = randn(LSTM_B, u, scale=0.5), randn(LSTM_B, u, scale=0.5)
+    rk = randn(u, 4 * u, scale=u ** -0.5)
+    bias = randn(4 * u, scale=0.1)
+    return xproj, h0, c0, rk, bias
+
+
+def time_cudnn(in_features, u, dtype, dev):
+    """cuDNN's LSTM (``torch.nn.LSTM``, batch-first) at one layer's shape:
+    forward, the backward call alone, and forward + backward."""
+    x = torch.randn(LSTM_B, LSTM_T, in_features, device=dev, dtype=dtype, requires_grad=True)
+    cudnn = torch.nn.LSTM(in_features, u, batch_first=True).to(dev, dtype)
+    cudnn.flatten_parameters()
+    out, _ = cudnn(x)
+    gout = torch.ones_like(out)
+    params = [x, *cudnn.parameters()]
+    with torch.no_grad():
+        fwd = cuda_ms(lambda: cudnn(x), reps=10)
+    return {
+        "cudnn_fwd_ms": fwd,
+        "cudnn_bwd_ms": cuda_ms(lambda: torch.autograd.grad(out, params, gout, retain_graph=True), reps=10),
+        "cudnn_fwd_bwd_ms": cuda_ms(lambda: cudnn(x)[0].backward(gout), reps=10),
+    }
+
+
+def time_port_layer(in_features, u, dtype, dev):
+    """The port's whole ``LSTM`` layer (hoisted product + kernels) at the
+    same shape: forward, and forward + backward."""
+    port = LSTM(in_features, u, compute_dtype=str(dtype).removeprefix("torch."))
+    port.reset_parameters(torch.Generator().manual_seed(0))
+    port = port.to(dev)
+    x = torch.randn(LSTM_B, LSTM_T, in_features, device=dev, requires_grad=True)
+
+    def fwd_bwd():
+        y = port(x)
+        y.backward(torch.ones_like(y))
+
+    with torch.no_grad():
+        fwd = cuda_ms(lambda: port(x), reps=10)
+    return {"port_layer_fwd_ms": fwd, "port_layer_fwd_bwd_ms": cuda_ms(fwd_bwd, reps=10)}
+
+
+def check_lstm(dev):
+    """The LSTM forward and backward kernels vs their plain versions at
+    lstm1-3 (lstm3 with its sigmoid output), B=32, T=20, nonzero h0, c0
+    and cotangents, f32 and bf16; bf16 times, and cuDNN's LSTM at lstm1
+    and lstm2 (lstm3's sigmoid output has no cuDNN counterpart)."""
+    layers = lstm_layers(get_preset(PRESET))
+    errs = {"fwd": 0.0, "bwd": 0.0}
+    times, failed = {}, []
+    for i, (name, (feat, u)) in enumerate(layers.items()):
+        act = "sigmoid" if name == "lstm3" else "tanh"
+        for dtype in (torch.float32, torch.bfloat16):
+            args = lstm_inputs(feat, u, dtype, dev, seed=300 + i)
+            g = torch.Generator().manual_seed(400 + i)
+            y_p, cs_p, h_p, c_p = lstm_scan_reference(*args, act)
+            fwd_k = lstm_fwd(*args, act, with_c_stack=True)
+            cot = (
+                torch.randn(y_p.shape, generator=g).to(dev, dtype),
+                torch.randn(h_p.shape, generator=g).to(dev),
+                torch.randn(c_p.shape, generator=g).to(dev),
+            )
+            got = lstm_bwd(*args, y_p, cs_p, *cot, act)
+            want = lstm_bwd_reference(*args, y_p, cs_p, *cot, act)
+            torch.cuda.synchronize()
+            tag = f"{name} U={u} {act} {str(dtype).removeprefix('torch.')}"
+            e_fwd = max_err(fwd_k, (y_p, cs_p, h_p, c_p))
+            e_bwd = {n: rel_err([a], [b]) for n, a, b in zip(("dx", "dh0", "dc0", "dR", "db"), got, want)}
+            print(f"[lstm] {tag}: forward max abs err {e_fwd:.3e} (tol {TOL[dtype]:.0e}); "
+                  f"gradients, err / largest: {json.dumps(e_bwd)} (tol {GRAD_TOL[dtype]:.0e}); "
+                  f"max abs err {max_err(got, want):.3e}", flush=True)
+            if not (e_fwd <= TOL[dtype] and max(e_bwd.values()) <= GRAD_TOL[dtype]):
+                failed.append(tag)
+            errs["fwd"] = max(errs["fwd"], e_fwd)
+            errs["bwd"] = max(errs["bwd"], max_err(got, want))
+        args = lstm_inputs(feat, u, torch.bfloat16, dev, seed=300 + i)
+        y, cs, h, c = lstm_fwd(*args, act, with_c_stack=True)
+        cot = (torch.ones_like(y), torch.zeros_like(h), torch.zeros_like(c))
+        times[name] = {
+            "fwd_kernel_ms": cuda_ms(lambda: lstm_fwd(*args, act, with_c_stack=True), reps=20),
+            "fwd_plain_ms": cuda_ms(lambda: lstm_scan_reference(*args, act), reps=3),
+            "bwd_kernel_ms": cuda_ms(lambda: lstm_bwd(*args, y, cs, *cot, act), reps=20),
+            "bwd_plain_ms": cuda_ms(lambda: lstm_bwd_reference(*args, y, cs, *cot, act), reps=3),
+        }
+        if act == "tanh":
+            for dtype in (torch.float32, torch.bfloat16):
+                tag = str(dtype).removeprefix("torch.")
+                times[name][f"port_layer_{tag}"] = time_port_layer(feat, u, dtype, dev)
+                try:  # the yardstick only: cuDNN may not take bf16 RNNs
+                    times[name][f"cudnn_{tag}"] = time_cudnn(feat, u, dtype, dev)
+                except RuntimeError as err:
+                    times[name][f"cudnn_{tag}"] = {"error": str(err)[:300]}
+    print(json.dumps({"lstm_ms_B32_T20": times}), flush=True)
+    if failed:
+        raise RuntimeError(f"LSTM kernels disagree with their plain versions: {failed}")
+    return errs, times
+
+
+def check_engines(base, dev):
+    """Two flagship iterations under 'pallas' against two under 'scan'
+    from the same state, video and z, in f32 and in the preset's bf16;
+    every kernel's calls and launches counted per 'pallas' iteration."""
+    results = {}
+    for cdt in ("float32", base.compute_dtype):
+        cfg = dataclasses.replace(base, compute_dtype=cdt)
+        state0, video, zs = training_inputs(cfg, dev)
+        steps = {impl: build_train_step(dataclasses.replace(cfg, kernel_impl=impl), device=dev)
+                 for impl in ("pallas", "scan")}
+        runs, per_iter, totals = {}, [], None
+        for impl, step in steps.items():
+            reset_counts()
+            st, mets, before = state0, [], counts()
+            for i in range(2):
+                st, met = step(st, video, z=zs[i])
+                torch.cuda.synchronize()
+                now = counts()
+                mets.append((met, st))
+                if impl == "pallas":
+                    per_iter.append({n: [a - b for a, b in zip(now[n], before[n])] for n in now})
+                before = now
+            if impl == "pallas":
+                totals = counts()
+            elif any(counts()[n][1] for n in RECURRENCE_KERNELS):
+                raise RuntimeError(f"the 'scan' iteration launched a recurrence kernel: {counts()}")
+            if not all(_all_finite(s, m) for m, s in mets):
+                raise RuntimeError(f"{cdt} {impl}: non-finite loss, pM, parameter or statistic")
+            runs[impl] = mets
+        for i, it in enumerate(per_iter):
+            want = {n: list(c) for n, c in PALLAS_COUNTS.items()}
+            if it != want:
+                raise RuntimeError(f"{cdt} 'pallas' iteration {i}: (calls, launches) {it}, expected {want}")
+        (mp_, sp), (ms_, ss) = runs["pallas"][0], runs["scan"][0]
+        cmp = {
+            "sinkhorn_loss": [float(mp_["sinkhorn_loss"]), float(ms_["sinkhorn_loss"])],
+            "pm": [float(mp_["pm"]), float(ms_["pm"])],
+            "max_rel_dmu": {},
+            "second_iteration_loss": [float(runs[i][1][0]["sinkhorn_loss"]) for i in ("pallas", "scan")],
+        }
+        cmp["worst_dmu"] = {}
+        for group in ("enc", "dec", "h", "m"):
+            mk, mq = getattr(sp, f"{group}_opt").mu, getattr(ss, f"{group}_opt").mu
+            scale = max(float(v.abs().max()) for v in mq.values())
+            per = {k: float((mk[k] - mq[k]).abs().max()) / scale for k in mq}
+            cmp["max_rel_dmu"][group] = max(per.values())
+            cmp["worst_dmu"][group] = sorted(per.items(), key=lambda kv: -kv[1])[:3]
+        tol = ENGINE_TOL[cdt]
+        print(json.dumps({"engines_check": {"compute_dtype": cdt, "per_iteration": per_iter[0],
+                                            "tol": tol, **cmp}}), flush=True)
+        (lp, ls), (pp, ps) = cmp["sinkhorn_loss"], cmp["pm"]
+        if not (abs(lp - ls) <= tol["loss_rtol"] * abs(ls) and abs(pp - ps) <= tol["pm_rtol"] * abs(ps)
+                and all(cmp["max_rel_dmu"][g] <= tol["mu_rel"][g] for g in tol["mu_rel"])):
+            raise RuntimeError(f"{cdt}: 'pallas' and 'scan' iterations disagree: {cmp}")
+        results[cdt] = (state0, video, zs, steps, per_iter, totals)
+    return results[base.compute_dtype]
+
+
+def training_inputs(cfg, dev):
+    """The seeded state, video and the two iterations' (z1, z2)."""
+    state0 = create_train_state(cfg, torch.Generator().manual_seed(0), device=dev)
+    m = cfg.model
+    video = torch.from_numpy(
+        np.random.default_rng(1).uniform(
+            size=(cfg.batch_size, m.x_height, cfg.total_time_steps, m.x_width, m.n_channels)
+        ).astype(np.float32)
+    ).to(dev)
+    zg = torch.Generator(device=dev).manual_seed(2)
+    z_shape = (cfg.batch_size, cfg.pred_time_steps, m.z_height, m.z_width, m.z_channels)
+    zs = [tuple(torch.randn(z_shape, generator=zg, device=dev) for _ in range(2)) for _ in range(2)]
+    return state0, video, zs
 
 
 def main():
@@ -482,41 +830,65 @@ def main():
     for path, fn in (("plain", rollout_p), ("kernel", rollout_k)):
         profile_rollout(path, lambda: fn(params, context, z=z))
 
-    # Phase 6: the training path, through the Sinkhorn kernels and plain.
+    # Phase 6: the 'scan' training path, through the Sinkhorn kernels and plain.
     state0, video, zs, step_k, step_p, train_launches = check_training(base, dev)
-    time_training(card, base, state0, video, zs, step_k, step_p)
+    time_training(card, base, state0, video, zs, (("plain", step_p), ("kernel", step_k)),
+                  "sinkhorn", "training_timings")
 
-    # Bounds of the work timed below: the 8 T=10 layer scans of phase 2,
-    # and one Sinkhorn launch at the training step's [3, B, B], L.
+    # Phase 7: the recurrence kernels' backward and the LSTM kernels alone.
+    bwd_errs, bwd_times = check_convlstm_bwd(dev)
+    lstm_errs, lstm_times = check_lstm(dev)
+
+    # Phase 8: the 'pallas' training path (every recurrence through its
+    # kernels) against 'scan', counted per iteration, then timed.
+    state0, video, zs, steps, per_iter, pallas_counts = check_engines(base, dev)
+    time_training(card, base, state0, video, zs, (("scan", steps["scan"]), ("pallas", steps["pallas"])),
+                  "lstm", "engine_timings")
+
+    # Bounds of the work timed: the 8 T=10 layer scans of phase 2, one
+    # Sinkhorn launch at the training step's [3, B, B], L, the 8 layer
+    # backwards at the training T, and lstm1 + lstm2 at B=32, T=20.
     c_bound, c_by = bound_ms(*convlstm_work(LAYERS, B, lambda _: T), PEAK_BF16)
     f_bound, f_by = bound_ms(*sinkhorn_work(SINK_K, base.batch_size, base.sinkhorn_l), PEAK_F32)
     b_bound, b_by = bound_ms(
         *sinkhorn_work(SINK_K, base.batch_size, base.sinkhorn_l, backward=True), PEAK_F32
     )
+    cb_bound, cb_by = bound_ms(*convlstm_work(LAYERS, B, train_t, backward=True), PEAK_BF16)
+    tanh_layers = {n: v for n, v in lstm_layers(base).items() if n != "lstm3"}
+    lf_bound, lf_by = bound_ms(*lstm_work(tanh_layers, LSTM_B, LSTM_T), PEAK_BF16)
+    lb_bound, lb_by = bound_ms(*lstm_work(tanh_layers, LSTM_B, LSTM_T, backward=True), PEAK_BF16)
+
+    def tanh_sum(key):
+        return sum(lstm_times[n][key] for n in tanh_layers)
+
+    def cudnn_sum(key):
+        runs = [lstm_times[n]["cudnn_bfloat16"] for n in tanh_layers]
+        return sum(r[key] for r in runs) if all(key in r for r in runs) else None
+
+    def entry(name, ms, plain_ms, bound, by, library_ms, max_abs_err):
+        return dict(KERNELS[name], launches=pallas_counts[name][1], max_abs_err=max_abs_err, ms=ms,
+                    plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=library_ms)
+
     kernels = [
-        dict(
-            KERNELS["convlstm_fwd"],
-            launches=launches,
-            max_abs_err=max(errs.values()),
-            ms=sum(t["kernel_ms"] for t in layer_times.values()),
-            plain_ms=sum(t["plain_ms"] for t in layer_times.values()),
-            bound_ms=c_bound, bound_by=c_by, library_ms=None,
-        ),
-        dict(
-            KERNELS["sinkhorn_fwd"],
-            launches=train_launches["sinkhorn_fwd"],
-            max_abs_err=sink_errs["fwd"],
-            ms=sink_times["fwd_ms"], plain_ms=sink_times["fwd_plain_ms"],
-            bound_ms=f_bound, bound_by=f_by, library_ms=None,
-        ),
-        dict(
-            KERNELS["sinkhorn_bwd"],
-            launches=train_launches["sinkhorn_bwd"],
-            max_abs_err=sink_errs["bwd"],
-            ms=sink_times["bwd_ms"], plain_ms=sink_times["bwd_plain_ms"],
-            bound_ms=b_bound, bound_by=b_by, library_ms=None,
-        ),
+        entry("convlstm_fwd", sum(t["kernel_ms"] for t in layer_times.values()),
+              sum(t["plain_ms"] for t in layer_times.values()), c_bound, c_by, None, max(errs.values())),
+        entry("convlstm_bwd", sum(t["kernel_ms"] for t in bwd_times.values()),
+              sum(t["plain_ms"] for t in bwd_times.values()), cb_bound, cb_by, None, max(bwd_errs.values())),
+        entry("lstm_fwd", tanh_sum("fwd_kernel_ms"), tanh_sum("fwd_plain_ms"), lf_bound, lf_by,
+              cudnn_sum("cudnn_fwd_ms"), lstm_errs["fwd"]),
+        entry("lstm_bwd", tanh_sum("bwd_kernel_ms"), tanh_sum("bwd_plain_ms"), lb_bound, lb_by,
+              cudnn_sum("cudnn_bwd_ms"), lstm_errs["bwd"]),
+        entry("sinkhorn_fwd", sink_times["fwd_ms"], sink_times["fwd_plain_ms"], f_bound, f_by, None,
+              sink_errs["fwd"]),
+        entry("sinkhorn_bwd", sink_times["bwd_ms"], sink_times["bwd_plain_ms"], b_bound, b_by, None,
+              sink_errs["bwd"]),
     ]
+    missing = [k["name"] for k in kernels if not k["launches"]]
+    if missing:
+        raise RuntimeError(f"the 'pallas' iteration launched no {missing}")
+    print(json.dumps({"pallas_iteration_counts": {"two_iterations": pallas_counts, "first": per_iter[0]},
+                      "rollout_convlstm_fwd_launches": launches,
+                      "scan_iteration_sinkhorn_launches": train_launches}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({

@@ -1,10 +1,11 @@
 """Build the CUDA sources under ``csrc/`` and load them with ctypes.
 
 The sources have a plain C interface, so ``nvcc`` builds them in seconds
-without PyTorch's headers.  The shared library goes to
+without PyTorch's headers: one ``nvcc`` per ``.cu``, all started
+together, then one link.  The shared library goes to
 ``build/kccotgan_tpu_torch/`` at the repository root, named by a hash of
-the sources and flags: an edited ``.cu`` is rebuilt at first use, never
-served stale.  Nothing here runs at import time.
+the sources (headers included) and flags: an edited source is rebuilt at
+first use, never served stale.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kccotgan_tpu_torch"
 _FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
 
@@ -43,28 +44,53 @@ def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernels' shared library."""
     sources = sorted(_CSRC.glob("*.cu"))
     digest = hashlib.sha256(" ".join(_FLAGS).encode())
-    for src in sources:
+    for src in sorted(_CSRC.glob("*.cu*")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
-    lib_path = BUILD_DIR / f"libkccot_{digest.hexdigest()[:16]}.so"
+    tag = digest.hexdigest()[:16]
+    lib_path = BUILD_DIR / f"libkccot_{tag}.so"
     if not lib_path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *_FLAGS, "-o", str(tmp), *map(str, sources)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}"
+        suffix = f"{tag}.{os.getpid()}"
+        objects = [BUILD_DIR / f"{src.stem}.{suffix}.o" for src in sources]
+        nvcc = _nvcc()
+        procs = [
+            (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+            for cmd in (
+                [nvcc, *_FLAGS, "-c", "-o", str(obj), str(src)] for src, obj in zip(sources, objects)
             )
+        ]
+        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+        link = [nvcc, "-shared", "-o", str(tmp), *map(str, objects)]
+        for cmd, proc in [*procs, (link, None)]:
+            if proc is None:
+                proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                for _, other in procs:
+                    other.kill()
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{err}")
         os.replace(tmp, lib_path)
+        for obj in objects:
+            obj.unlink()
     lib = ctypes.CDLL(str(lib_path))
     # Every pointer and the stream are c_void_p: ctypes' default int is
     # 32 bits and would cut a device pointer.
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.kccot_convlstm_fwd_step.argtypes = [
-        i, p, ll, p, p, p, p, p, p, p, ll, i, i, i, i, i, i, p,
-    ]
-    lib.kccot_convlstm_fwd_step.restype = i
+    argtypes = {
+        "kccot_convlstm_fwd_step": [i, p, ll, p, p, p, p, p, p, p, ll, p, ll, i, i, i, i, i, i, p],
+        "kccot_convlstm_bwd_step": [
+            i, p, ll, p, ll, p, ll, p, p, p, ll, p, p, p, ll, p, i, i, i, i, i, i, p,
+        ],
+        "kccot_convlstm_bwd_dh": [i, p, ll, p, p, i, i, i, i, i, i, p],
+        "kccot_convlstm_bwd_rows": [i, i, i, i],
+        "kccot_recurrent_wgrad": [i, p, p, p, p, i, ll, p, i, p, p, i, i, i, i, i, i, i, p],
+        "kccot_lstm_fwd": [i, i, p, p, p, p, p, p, p, p, p, i, i, i, p],
+        "kccot_lstm_bwd": [i, i, p, p, p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, p],
+    }
+    for name, types in argtypes.items():
+        getattr(lib, name).argtypes = types
+        getattr(lib, name).restype = i
     f = ctypes.c_float
     lib.kccot_sinkhorn_fwd.argtypes = [p, p, p, p, i, i, i, f, p]
     lib.kccot_sinkhorn_fwd.restype = i

@@ -68,7 +68,12 @@ class TrainConfig:
     # parameters and the Sinkhorn stay f32
     compute_dtype: str = "bfloat16"
     # recurrence engine of the training step: 'scan' (and 'auto', which
-    # resolves to it) runs every recurrence's plain version
+    # resolves to it) runs every recurrence's plain loop under autograd;
+    # 'pallas' the fused ConvLSTM and LSTM recurrences (the Hopper kernels
+    # on the card, forward and backward).  The port's 'pallas' is JAX's
+    # 'pallas' in its batch-major, unpacked layout (time_major=False,
+    # conv_packing='off'): JAX's defaults (time_major=True,
+    # conv_packing='auto') send the generator's layers back to the scan.
     kernel_impl: str = "scan"
     share_context_encoding: bool = True
     fused_discriminators: bool = False
@@ -100,17 +105,14 @@ def check_trainable(cfg: TrainConfig) -> None:
         raise NotImplementedError(
             "fused_discriminators=True is not ported (ROADMAP Queue 1, train/steps.py options)"
         )
-    if cfg.kernel_impl not in ("scan", "auto"):
-        raise NotImplementedError(
-            f"kernel_impl={cfg.kernel_impl!r} under training needs the ConvLSTM backward and the "
-            "LSTM forward and backward kernels (ROADMAP Queue 2, the next slice)"
-        )
     if m.dropout > 0.0 or m.rnn_dropout > 0.0:
         raise NotImplementedError(
             "dropout and rnn_dropout are not ported (ROADMAP Queue 1, dropout masks)"
         )
     if cfg.sinkhorn_solver not in ("auto", "pallas", "scan"):
         raise ValueError(f"unknown sinkhorn_solver: {cfg.sinkhorn_solver!r}")
+    if cfg.kernel_impl not in ("auto", "pallas", "scan"):
+        raise ValueError(f"unknown kernel_impl: {cfg.kernel_impl!r}")
 
 
 PRESETS = {

@@ -7,10 +7,13 @@ and tests compare like with like.  Each layer rounds where the JAX layer
 rounds: convolutions take their inputs in the compute dtype and hand
 back ``out_dtype``; the ConvLSTM carry and gate math stay float32.
 
-The generator's layers serve the rollout and, on their plain path, the
-training step (autograd differentiates them); the discriminator's
-``Conv2D``, ``BatchNorm`` and dense ``LSTM`` are plain PyTorch.  Dropout
-and sequence parallelism raise instead of being ignored.
+``ConvLSTM2D`` and ``LSTM`` choose their recurrence engine as the JAX
+layers do under ``kernel_impl``: the fused recurrence (``convlstm_scan``,
+``lstm_scan``: the Hopper kernels for CUDA tensors, under autograd
+through their backward kernels) unless ``plain`` is set, which runs the
+plain loop under autograd (the ``'scan'`` engine, and the kernels'
+reference).  The other layers are plain PyTorch.  Dropout and sequence
+parallelism raise instead of being ignored.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from torch import nn
 
 from .conv import same_conv
 from .cuda_convlstm import convlstm_scan, convlstm_scan_reference
+from .cuda_lstm import lstm_scan, lstm_scan_reference
 
 __all__ = ["LSTM", "BatchNorm", "Conv2D", "ConvLSTM2D", "ConvTranspose2D", "LayerNorm", "leaky_relu"]
 
@@ -71,14 +75,12 @@ class ConvLSTM2D(nn.Module):
     f32, (h, c) f32)`` with ``H' = ceil(H / stride)``.  The input conv
     over all T frames runs once and streams in the compute dtype; the
     recurrence (recurrent conv, bias, Keras gates [i, f, c, o]) is
-    ``convlstm_scan``, which launches the forward-only Hopper kernel for
-    CUDA tensors and runs the plain version on the CPU.  ``plain = True``
-    runs the plain version on any device: the kernel's reference on the
-    card, and the training step's recurrence under ``kernel_impl='scan'``,
-    which autograd differentiates.
+    ``convlstm_scan``, which launches the Hopper kernels for CUDA tensors
+    (forward, and backward under autograd) and runs their plain versions
+    on the CPU.  ``plain=True`` runs the plain loop on any device, which
+    autograd differentiates: the kernels' reference on the card, and the
+    training step's recurrence under ``kernel_impl='scan'``.
     """
-
-    plain = False
 
     def __init__(
         self,
@@ -91,8 +93,10 @@ class ConvLSTM2D(nn.Module):
         dropout: float = 0.0,
         recurrent_dropout: float = 0.0,
         seq_axis: str | None = None,
+        plain: bool = False,
     ):
         super().__init__()
+        self.plain = plain
         if dropout > 0.0 or recurrent_dropout > 0.0:
             raise NotImplementedError(
                 "ConvLSTM2D: dropout and recurrent_dropout are not ported"
@@ -268,7 +272,9 @@ class LSTM(nn.Module):
     the compute dtype; each step adds ``(x_t + bias) + h @ R`` in f32 (the
     recurrent product rounded to the compute dtype and back), applies the
     Keras gates [i, f, c, o] and rounds its output to the compute dtype.
-    The recurrence is a plain loop (the JAX package's ``lax.scan``).
+    The recurrence is ``lstm_scan`` (the Hopper kernels for CUDA tensors,
+    their plain versions on the CPU), or with ``plain=True`` the plain
+    loop under autograd (the JAX package's ``lax.scan``).
     """
 
     def __init__(
@@ -277,10 +283,14 @@ class LSTM(nn.Module):
         units: int,
         activation: str = "tanh",
         compute_dtype: str = "float32",
+        plain: bool = False,
     ):
         super().__init__()
+        if activation not in _ACTIVATIONS:
+            raise ValueError(f"LSTM: unsupported activation {activation!r}")
         self.units = units
-        self.act = _ACTIVATIONS[activation]
+        self.activation = activation
+        self.plain = plain
         self.cdt = _torch_dtype(compute_dtype)
         self.kernel = nn.Parameter(torch.empty(in_features, 4 * units))
         self.recurrent_kernel = nn.Parameter(torch.empty(units, 4 * units))
@@ -300,15 +310,11 @@ class LSTM(nn.Module):
         b, t, feat = x_seq.shape
         u, cdt = self.units, self.cdt
         xproj = (x_seq.reshape(b * t, feat).to(cdt) @ self.kernel.to(cdt)).reshape(b, t, 4 * u)
-        rk = self.recurrent_kernel.to(cdt)
-        h = x_seq.new_zeros(b, u, dtype=torch.float32)
-        c = torch.zeros_like(h)
-        outs = []
-        for s in range(t):
-            z = (xproj[:, s].float() + self.bias) + (h.to(cdt) @ rk).float()
-            i = torch.sigmoid(z[:, :u])
-            fg = torch.sigmoid(z[:, u : 2 * u])
-            c = fg * c + i * self.act(z[:, 2 * u : 3 * u])
-            h = torch.sigmoid(z[:, 3 * u :]) * self.act(c)
-            outs.append(h.to(cdt))
-        return torch.stack(outs, dim=1).float()
+        h0 = x_seq.new_zeros(b, u, dtype=torch.float32)
+        c0 = torch.zeros_like(h0)
+        args = (xproj, h0, c0, self.recurrent_kernel, self.bias, self.activation)
+        if self.plain:
+            y = lstm_scan_reference(*args)[0]
+        else:
+            y, _ = lstm_scan(*args)
+        return y.float()

@@ -8,7 +8,10 @@ submodule and parameter names (``encoder1``, ``norm1``,
 ``conv_transpose1``, ``decoder2_norm``, ``conv1``, ``bn1``, ``lstm1``,
 ``rnn_bn1``, ...) so flax parameter trees map onto ``state_dict`` keys by
 joining the path with dots.  Videos are film-strips ``[B, H, T, W, C]`` at
-the boundaries; pyramid levels are ``[B, T, h, w, c]``.
+the boundaries; pyramid levels are ``[B, T, h, w, c]``.  ``plain=True``
+sends every ConvLSTM / LSTM recurrence to its plain loop instead of the
+fused recurrence (``layers.py``); ``generator_modules`` and
+``discriminator_modules`` set it from ``cfg.kernel_impl``.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ class VideoEncoder(nn.Module):
         dropout: float = 0.0,
         rnn_dropout: float = 0.0,
         compute_dtype: str = "float32",
+        plain: bool = False,
     ):
         super().__init__()
         self.int_time_steps = int_time_steps
@@ -52,7 +56,7 @@ class VideoEncoder(nn.Module):
             self.add_module(f"encoder{i + 1}", ConvLSTM2D(
                 c_in, filters, (k, k), strides=(2, 2), use_bias=False,
                 compute_dtype=compute_dtype, dropout=dropout,
-                recurrent_dropout=rnn_dropout,
+                recurrent_dropout=rnn_dropout, plain=plain,
             ))
             if use_norm:
                 self.add_module(f"norm{i + 1}", LayerNorm(filters, _LN_EPS))
@@ -115,6 +119,7 @@ class VideoDecoder(nn.Module):
         rnn_dropout: float = 0.0,
         output_activation: str = "sigmoid",
         compute_dtype: str = "float32",
+        plain: bool = False,
     ):
         super().__init__()
         f = filter_size
@@ -125,7 +130,7 @@ class VideoDecoder(nn.Module):
         def convlstm(c_in, filters, k, bias):
             return ConvLSTM2D(
                 c_in, filters, k, use_bias=bias, compute_dtype=compute_dtype,
-                dropout=dropout, recurrent_dropout=rnn_dropout,
+                dropout=dropout, recurrent_dropout=rnn_dropout, plain=plain,
             )
 
         def conv_t(c_in, filters, k, s, act="tanh"):
@@ -187,13 +192,19 @@ class VideoDecoder(nn.Module):
         return y.permute(0, 2, 1, 3, 4)  # film-strip [B, H, T, W, C]
 
 
+def _plain(cfg) -> bool:
+    """``kernel_impl`` 'scan' (and 'auto', which resolves to it) runs the
+    plain loops; 'pallas' the fused recurrences."""
+    return cfg.kernel_impl != "pallas"
+
+
 def generator_modules(cfg):
     """The ``(VideoEncoder, VideoDecoder)`` pair a ``TrainConfig``
     describes, created on the current default device."""
     m = cfg.model
     common = dict(
         filter_size=m.g_filter_size, use_norm=m.use_norm, dropout=m.dropout,
-        rnn_dropout=m.rnn_dropout, compute_dtype=cfg.compute_dtype,
+        rnn_dropout=m.rnn_dropout, compute_dtype=cfg.compute_dtype, plain=_plain(cfg),
     )
     encoder = VideoEncoder(cfg.int_time_steps, m.n_channels, **common)
     decoder = VideoDecoder(
@@ -226,6 +237,7 @@ class VideoDiscriminator(nn.Module):
         filter_size: int = 8,
         use_batch_norm: bool = False,
         compute_dtype: str = "float32",
+        plain: bool = False,
     ):
         super().__init__()
         f = filter_size
@@ -238,9 +250,10 @@ class VideoDiscriminator(nn.Module):
             if use_batch_norm:
                 self.add_module(f"bn{i + 1}", BatchNorm(filters))
             c_in, h, w = filters, -(-h // 2), -(-w // 2)
-        self.lstm1 = LSTM(h * w * c_in, f * 8, compute_dtype=compute_dtype)
-        self.lstm2 = LSTM(f * 8, f * 4, compute_dtype=compute_dtype)
-        self.lstm3 = LSTM(f * 4, state_size, activation="sigmoid", compute_dtype=compute_dtype)
+        common = dict(compute_dtype=compute_dtype, plain=plain)
+        self.lstm1 = LSTM(h * w * c_in, f * 8, **common)
+        self.lstm2 = LSTM(f * 8, f * 4, **common)
+        self.lstm3 = LSTM(f * 4, state_size, activation="sigmoid", **common)
         if use_batch_norm:
             self.rnn_bn1 = BatchNorm(f * 8)
             self.rnn_bn2 = BatchNorm(f * 4)
@@ -282,7 +295,7 @@ def discriminator_modules(cfg):
         VideoDiscriminator(
             m.x_height, m.x_width, m.n_channels, state_size=m.d_state_size,
             filter_size=m.d_filter_size, use_batch_norm=m.use_norm,
-            compute_dtype=cfg.compute_dtype,
+            compute_dtype=cfg.compute_dtype, plain=_plain(cfg),
         )
         for _ in range(2)
     )

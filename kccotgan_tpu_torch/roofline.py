@@ -5,9 +5,9 @@ HBM rate and its operations over the peak rate for their type.
 
     python -m kccotgan_tpu_torch.roofline [preset]   # one JSON line a kernel
 
-``chip_smoke.py`` takes the bounds of the ported kernels from here; the
-rows of the kernels still to port are for ``PERF.md``'s table.  Rates are
-the published peaks of one H100 SXM at its 700 W limit.
+``chip_smoke.py`` takes the bounds of the kernels it times from here;
+the ``table`` rows, at one main-path call each, are for ``PERF.md``'s
+table.  Rates are the published peaks of one H100 SXM at its 700 W limit.
 """
 
 from __future__ import annotations

@@ -2,8 +2,7 @@
 generator phase.
 
 Counterpart of ``kccotgan_tpu/train/steps.py`` under its usual
-configuration (``kernel='none'``, no dropout, sequential discriminators,
-``kernel_impl='scan'``):
+configuration (``kernel='none'``, no dropout, sequential discriminators):
 
 * the context is encoded once (``share_context_encoding``): the
   discriminator phase reads the pyramid detached, and the generator phase
@@ -18,10 +17,17 @@ configuration (``kernel='none'``, no dropout, sequential discriminators,
   starting from the statistics the discriminator phase left; ``loss`` is
   minimized over the encoder and the decoder.
 
-Every generator recurrence runs its plain version (``ConvLSTM2D.plain``),
-the counterpart of ``lax.scan``; the Sinkhorn solves go through the fused
-kernels (``ot/cuda_sinkhorn.py``: one forward and one backward launch a
-phase) unless ``cfg.sinkhorn_solver`` is ``'scan'``.
+Recurrence engine, ``cfg.kernel_impl``: under ``'scan'`` (and ``'auto'``)
+every ConvLSTM and LSTM recurrence runs its plain loop under autograd,
+the counterpart of ``lax.scan``.  Under ``'pallas'`` each runs the fused
+recurrence, as JAX's ``'pallas'`` does in its batch-major, unpacked
+layout (``time_major=False, conv_packing='off'``): on the card the
+ConvLSTM and LSTM forward kernels, and their backward kernels wherever
+autograd needs a gradient.  The discriminator phase's decoder needs none
+(its parameters, pyramid and noise carry no gradient), so it runs the
+forward kernel alone.  The Sinkhorn solves go through the fused kernels
+(``ot/cuda_sinkhorn.py``: one forward and one backward launch a phase)
+unless ``cfg.sinkhorn_solver`` is ``'scan'``.
 """
 
 from __future__ import annotations
@@ -32,7 +38,6 @@ import torch
 from torch.func import functional_call
 
 from ..config import check_trainable
-from ..models.layers import ConvLSTM2D
 from ..models.video import discriminator_modules, generator_modules
 from ..ot import compute_sinkhorn_loss, martingale_regularization
 from .state import TrainState, make_optimizers
@@ -42,15 +47,13 @@ __all__ = ["build_train_step", "gan_forward"]
 
 class GanModules:
     """The four modules a config describes, on the meta device: they only
-    describe the computation, every parameter comes from the state."""
+    describe the computation, every parameter comes from the state.  Their
+    recurrences take the engine ``cfg.kernel_impl`` names."""
 
     def __init__(self, cfg):
         with torch.device("meta"):
             self.encoder, self.decoder = generator_modules(cfg)
             self.disc_h, self.disc_m = discriminator_modules(cfg)
-        for module in (*self.encoder.modules(), *self.decoder.modules()):
-            if isinstance(module, ConvLSTM2D):
-                module.plain = True
 
 
 def gan_forward(mods, cfg, dec_params, h_params, m_params, h_stats, m_stats, real_data, z,
@@ -96,9 +99,10 @@ def build_train_step(cfg, *, device="cuda") -> Callable:
     otherwise both are drawn with ``torch.randn`` from ``generator`` on
     ``device``.  ``metrics`` is ``{"sinkhorn_loss", "pm", "sigma"}`` as
     0-d tensors (the generator phase's loss, the discriminator phase's
-    pM).  ``cfg.sinkhorn_solver='scan'`` solves the Sinkhorn problems with
-    the plain loop under autograd, the kernels' reference.  The state
-    passed in is left as it was.
+    pM).  ``cfg.kernel_impl`` picks the recurrences' engine (module
+    docstring); ``cfg.sinkhorn_solver='scan'`` solves the Sinkhorn
+    problems with the plain loop under autograd, the kernels' reference.
+    The state passed in is left as it was.
     """
     check_trainable(cfg)
     mods = GanModules(cfg)

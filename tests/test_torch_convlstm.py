@@ -19,7 +19,7 @@ import torch
 
 from kccotgan_tpu.models import layers as jl
 from kccotgan_tpu.models.pallas_convlstm import convlstm_scan_pallas
-from kccotgan_tpu_torch.models.cuda_convlstm import convlstm_scan, convlstm_scan_reference
+from kccotgan_tpu_torch.models.cuda_convlstm import convlstm_fwd, convlstm_scan, convlstm_scan_reference
 from kccotgan_tpu_torch.models.conv import same_conv
 from kccotgan_tpu_torch.models.layers import ConvLSTM2D, ConvTranspose2D
 
@@ -150,7 +150,7 @@ def test_cpu_tensors_take_plain_path_without_launch():
     ]
     got = convlstm_scan(*args)
     want = convlstm_scan_reference(*args)
-    assert convlstm_scan.launches == 0
+    assert convlstm_fwd.launches == 0
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 

@@ -10,13 +10,19 @@ is registered in ``pyproject.toml``.)  The ConvLSTM shapes are
 the awkward ones ``chip_smoke.py`` does not reach: frames whose pixel
 count is not a multiple of a thread's pixel run, channel counts that are not a
 multiple of its 32-channel tile, a rectangular frame, and shared memory
-beyond the default 48 KiB.  The Sinkhorn sizes cover fewer rows than a
+beyond the default 48 KiB; the backward adds B=1 and f=2.  The LSTM
+shapes: B=1, U=3 (an odd U, and fewer units than a warp), ragged row
+blocks (B=5), and U=64, whose staged recurrent kernel needs more than
+48 KiB of shared memory.  The Sinkhorn sizes cover fewer rows than a
 warp (2, 6), a ragged second warp column (33) and shared memory beyond
 48 KiB (128), at eps 0.7.
 
-Tolerances: ConvLSTM f32 (TF32 off) at 2e-5 abs, summation order only;
-bf16 at 2e-2 abs, one bf16 ulp of the once-rounded recurrent conv or of
-y, carried over the steps.  Sinkhorn (f32): costs at rtol 1e-5 and
+Tolerances: ConvLSTM and LSTM forward f32 (TF32 off) at 2e-5 abs,
+summation order only; bf16 at 2e-2 abs, one bf16 ulp of the once-rounded
+recurrent conv or of y, carried over the steps.  Backward kernels: each
+gradient within 1e-5 (f32) or 2e-2 (bf16) of its largest entry, the same
+argument, the bf16 one as the CPU tests against JAX's VJP
+(``test_torch_lstm.py``, ``test_torch_convlstm_grad.py``).  Sinkhorn (f32): costs at rtol 1e-5 and
 c_bar at rtol 1e-4 / atol 1e-6, the JAX package's tolerances for its
 fused kernel against the scan (``tests/test_pallas_sinkhorn.py``), and
 the histories at 1e-4 abs (the duals of B <= 128 points, of order 1 to
@@ -26,7 +32,15 @@ the histories at 1e-4 abs (the duals of B <= 128 points, of order 1 to
 import pytest
 import torch
 
-from kccotgan_tpu_torch.models.cuda_convlstm import convlstm_scan, convlstm_scan_reference
+from kccotgan_tpu_torch.models.cuda_convlstm import (
+    convlstm_bwd,
+    convlstm_bwd_reference,
+    convlstm_fwd,
+    convlstm_fwd_reference,
+    convlstm_scan,
+    convlstm_scan_reference,
+)
+from kccotgan_tpu_torch.models.cuda_lstm import lstm_bwd, lstm_bwd_reference, lstm_fwd, lstm_scan_reference
 from kccotgan_tpu_torch.ot.cuda_sinkhorn import (
     sinkhorn_batch,
     sinkhorn_bwd,
@@ -38,6 +52,7 @@ from kccotgan_tpu_torch.ot.cuda_sinkhorn import (
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+GRAD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}  # of each gradient's largest entry
 
 
 @pytest.fixture
@@ -68,12 +83,12 @@ def _inputs(b, t, h, w, f, k, dtype, dev, seed=0):
 )
 def test_kernel_matches_plain(cuda, h, w, f, k, dtype):
     args = _inputs(2, 3, h, w, f, k, dtype, cuda)
-    before = convlstm_scan.launches
+    before = convlstm_fwd.launches
     with torch.no_grad():
         y_k, (h_k, c_k) = convlstm_scan(*args)
         y_p, (h_p, c_p) = convlstm_scan_reference(*args)
     torch.cuda.synchronize()
-    assert convlstm_scan.launches == before + 3
+    assert convlstm_fwd.launches == before + 3
     assert y_k.dtype == dtype and h_k.dtype == c_k.dtype == torch.float32
     for got, want in ((y_k, y_p), (h_k, h_p), (c_k, c_p)):
         torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=TOL[dtype])
@@ -81,11 +96,91 @@ def test_kernel_matches_plain(cuda, h, w, f, k, dtype):
     torch.testing.assert_close(args[1], _inputs(2, 3, h, w, f, k, dtype, cuda)[1], rtol=0, atol=0)
 
 
-def test_kernel_is_forward_only(cuda):
-    xconv, h0, c0, rk, bias = _inputs(1, 2, 4, 4, 4, 3, torch.float32, cuda)
-    rk.requires_grad_(True)
-    with pytest.raises(NotImplementedError):
-        convlstm_scan(xconv, h0, c0, rk, bias)
+def _assert_grads_close(got, want, dtype, names):
+    for g, w, name in zip(got, want, names):
+        assert g.dtype == w.dtype, name
+        scale = float(w.float().abs().max())
+        torch.testing.assert_close(g.float(), w.float(), rtol=0, atol=GRAD_TOL[dtype] * scale, msg=name)
+
+
+def test_convlstm_scan_gradient_matches_autograd(cuda):
+    """Under autograd the forward kernel keeps the c stack and the backward
+    kernels give the gradients of autograd through the plain loop (f32)."""
+    args = _inputs(1, 2, 4, 4, 4, 3, torch.float32, cuda)
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    ref = [a.clone().requires_grad_(True) for a in args]
+    counts = (convlstm_fwd.launches, convlstm_bwd.calls)
+    y, (h, c) = convlstm_scan(*leaves)
+    y_p, (h_p, c_p) = convlstm_scan_reference(*ref)
+    w = torch.randn(y.shape, generator=torch.Generator().manual_seed(5)).to(cuda)
+    ((y * w).sum() + (h * c).sum()).backward()
+    ((y_p * w).sum() + (h_p * c_p).sum()).backward()
+    torch.cuda.synchronize()
+    assert (convlstm_fwd.launches, convlstm_bwd.calls) == (counts[0] + 2, counts[1] + 1)
+    _assert_grads_close([x.grad for x in leaves], [x.grad for x in ref], torch.float32,
+                        ("dx", "dh0", "dc0", "drk", "db"))
+
+
+def _bwd_args(fwd_ref, args, dev, seed):
+    """The forward's stacks and random cotangents for a backward call."""
+    y, cs, h, c = fwd_ref(*args)
+    g = torch.Generator().manual_seed(seed)
+    dy = torch.randn(y.shape, generator=g).to(dev, y.dtype)
+    dh, dc = (torch.randn(h.shape, generator=g).to(dev) for _ in range(2))
+    return (y, cs), (y, cs, h, c), (dy, dh, dc)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "b,h,w,f,k",
+    [(1, 6, 6, 2, 3), (2, 5, 7, 4, 4), (2, 9, 13, 40, 5), (2, 7, 7, 8, 8), (2, 4, 4, 256, 5),
+     (2, 3, 18, 33, 2), (1, 20, 20, 16, 8)],
+)
+def test_convlstm_backward_matches_plain(cuda, b, h, w, f, k, dtype):
+    args = _inputs(b, 4, h, w, f, k, dtype, cuda, seed=f + k)
+    with torch.no_grad():
+        (y, cs), fwd_k, cot = _bwd_args(convlstm_fwd_reference, args, cuda, seed=k)
+        got_fwd = convlstm_fwd(*args, with_c_stack=True)
+        launches = convlstm_bwd.launches
+        got = convlstm_bwd(*args, y, cs, *cot)
+        want = convlstm_bwd_reference(*args, y, cs, *cot)
+    torch.cuda.synchronize()
+    assert convlstm_bwd.launches == launches + 2 * 4 + 2
+    for g, r in zip(got_fwd, fwd_k):
+        torch.testing.assert_close(g.float(), r.float(), rtol=0, atol=TOL[dtype])
+    _assert_grads_close(got, want, dtype, ("dx", "dh0", "dc0", "drk", "db"))
+
+
+def _lstm_inputs(b, t, u, dtype, dev, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    xproj = torch.randn(b, t, 4 * u, generator=g).to(dev, dtype)
+    h0 = (torch.randn(b, u, generator=g) * 0.5).to(dev)
+    c0 = (torch.randn(b, u, generator=g) * 0.5).to(dev)
+    rk = (torch.randn(u, 4 * u, generator=g) * u ** -0.5).to(dev)
+    bias = (torch.randn(4 * u, generator=g) * 0.1).to(dev)
+    return xproj, h0, c0, rk, bias
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,u,act", [(1, 3, 3, "tanh"), (5, 4, 3, "sigmoid"), (3, 6, 64, "tanh"),
+                                       (4, 5, 8, "sigmoid")])
+def test_lstm_kernels_match_plain(cuda, b, t, u, act, dtype):
+    args = _lstm_inputs(b, t, u, dtype, cuda, seed=u)
+    with torch.no_grad():
+        (y, cs), fwd_p, cot = _bwd_args(lambda *a: lstm_scan_reference(*a, act), args, cuda, seed=b)
+        calls = (lstm_fwd.launches, lstm_bwd.launches)
+        got_fwd = lstm_fwd(*args, act, with_c_stack=True)
+        got = lstm_bwd(*args, y, cs, *cot, act)
+        want = lstm_bwd_reference(*args, y, cs, *cot, act)
+    torch.cuda.synchronize()
+    assert (lstm_fwd.launches, lstm_bwd.launches) == (calls[0] + 1, calls[1] + 3)
+    for g, r in zip(got_fwd, fwd_p):
+        torch.testing.assert_close(g.float(), r.float(), rtol=0, atol=TOL[dtype])
+    _assert_grads_close(got, want, dtype, ("dx", "dh0", "dc0", "dR", "db"))
+    with pytest.raises(TypeError):
+        lstm_fwd(args[0].half(), *args[1:], act)
+    with pytest.raises(ValueError, match="contiguous"):
+        lstm_fwd(torch.cat([args[0], args[0]], dim=-1)[..., ::2], *args[1:], act)
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):

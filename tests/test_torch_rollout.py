@@ -210,8 +210,8 @@ def test_init_generator_params(setup):
 def test_port_never_imports_jax():
     """Neither the port nor ``chip_smoke.py`` imports JAX, flax or the JAX
     package, which the GPU machine lacks: every module of the port is
-    imported, and a tiny rollout and a tiny training iteration run, before
-    ``sys.modules`` is read."""
+    imported, and a tiny rollout and a tiny training iteration under each
+    recurrence engine run, before ``sys.modules`` is read."""
     code = (
         "import importlib, pkgutil, sys, torch\n"
         "import chip_smoke, kccotgan_tpu_torch\n"
@@ -230,6 +230,10 @@ def test_port_never_imports_jax():
         "state = create_train_state(cfg, device='cpu')\n"
         "state, metrics = build_train_step(cfg, device='cpu')(state, torch.rand(2, 16, 3, 16, 1), g)\n"
         "assert state.step == 1 and torch.isfinite(metrics['sinkhorn_loss'])\n"
+        "import dataclasses\n"
+        "pallas = build_train_step(dataclasses.replace(cfg, kernel_impl='pallas'), device='cpu')\n"
+        "state, metrics = pallas(state, torch.rand(2, 16, 3, 16, 1), g)\n"
+        "assert state.step == 2 and torch.isfinite(metrics['sinkhorn_loss'])\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'kccotgan_tpu'))\n"
         "assert not bad, bad\n"
     )
