@@ -26,6 +26,13 @@ ported paths at the ``mmnist_full`` preset (B=32, 64x64x1, 10 context +
   bf16, with every kernel's calls and launches counted per iteration;
   then both engines timed in turns and profiled.
 
+The bf16 engine runs the ConvLSTM's recurrent conv, dh and drk on the
+tensor cores: each ConvLSTM layer's bf16 backward is profiled and split
+into its recompute step, dh and weight-gradient kernels, beside each
+layer's achieved TFLOP/s (``roofline.convlstm_work`` over the time), and
+the four tensor-core kernels must show by name in the bf16 rollout's and
+``'pallas'`` iteration's traces.
+
 Each path's kernel launches are counted from zero around its run.  Every
 phase raises on failure.  The last lines are the kernels' JSON record,
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -37,6 +44,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import subprocess
+import sys
 import time
 
 import numpy as np
@@ -263,7 +271,31 @@ def check_layers(dev):
             "kernel_ms": cuda_ms(lambda: convlstm_scan(*args), reps=5),
             "plain_ms": cuda_ms(lambda: convlstm_scan_reference(*args), reps=5),
         }
+        times[name]["kernel_tflops"] = layer_tflops(name, T, times[name]["kernel_ms"])
     return errs, times
+
+
+def layer_tflops(name, t, ms, backward=False):
+    """Achieved TFLOP/s of one layer's recurrence at batch B and t steps:
+    the operations ``roofline.convlstm_work`` counts, over ``ms``."""
+    ops, _ = convlstm_work({name: LAYERS[name]}, B, lambda _: t, backward=backward)
+    return ops / (ms * 1e-3) / 1e12
+
+
+# The bf16 engine's tensor-core kernels, by the name they show in a
+# torch.profiler trace: forward step; backward recompute step, dh, drk.
+TC_KERNELS = ("convlstm_step_tc_kernel", "convlstm_bwd_step_tc_kernel", "convlstm_bwd_dh_tc_kernel",
+              "recurrent_wgrad_tc_kernel")
+# Parts of one ConvLSTM backward call in a trace: the recompute-and-adjoint
+# step, the dh transposed conv, and the weight gradient (GEMM + finalize).
+BWD_PARTS = {"step": ("bwd_step",), "dh": ("bwd_dh",), "wgrad": ("wgrad", "finalize")}
+
+
+def require_kernels(by_name, names, what):
+    """Raise unless every kernel in ``names`` ran (shows in ``by_name``)."""
+    missing = [n for n in names if not any(n in k for k in by_name)]
+    if missing:
+        raise RuntimeError(f"{what}: no {missing} in the trace")
 
 
 def check_rollout(cfg, params, context, z, dtype_name):
@@ -305,12 +337,30 @@ def check_rollout(cfg, params, context, z, dtype_name):
     return launches, diff, rollout_k, rollout_p
 
 
-def device_intervals_ms(prof):
+def profiled(fn, attempts=3):
+    """One ``fn()`` under ``torch.profiler`` (CPU and CUDA activity): busy
+    time (union of device activity), span and count of its device events,
+    and device ms by kernel name.  ``fn`` always launches device work, so a
+    trace without a device event is CUPTI's loss, not ``fn``'s: such a
+    trace is taken again, ``attempts`` times in all, and then it raises."""
+    for attempt in range(1, attempts + 1):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        ) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            return device_intervals_ms(events)
+        print(f"[profile] no device event in the trace, attempt {attempt} of {attempts}",
+              file=sys.stderr, flush=True)
+    raise RuntimeError(f"torch.profiler recorded no device activity in {attempts} attempts")
+
+
+def device_intervals_ms(events):
     """Busy time (union of device activity), span and count of the
-    device events in a ``torch.profiler`` trace, and time per name."""
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not events:
-        raise RuntimeError("torch.profiler recorded no device activity")
+    device ``events`` of a ``torch.profiler`` trace, and time per name."""
     spans = sorted((e.time_range.start, e.time_range.end) for e in events)
     busy, lo, hi = 0.0, spans[0][0], spans[0][1]
     for start, end in spans[1:]:
@@ -324,7 +374,7 @@ def device_intervals_ms(prof):
     return busy / 1e3, (spans[-1][1] - spans[0][0]) / 1e3, len(events), by_name
 
 
-def profile_rollout(name, fn, reps=5):
+def profile_rollout(name, fn, tc, reps=5):
     """Phase 5: where one rollout's device time goes."""
     eager_ms = cuda_ms(fn, reps)
     graph = torch.cuda.CUDAGraph()
@@ -337,15 +387,12 @@ def profile_rollout(name, fn, reps=5):
         fn()
     graph_ms = cuda_ms(graph.replay, reps)
     del graph
-    with torch.profiler.profile(
-        activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    ) as prof:
-        fn()
-        torch.cuda.synchronize()
-    busy_ms, span_ms, n_events, by_name = device_intervals_ms(prof)
+    busy_ms, span_ms, n_events, by_name = profiled(fn)
     convlstm_ms = sum(t for n, t in by_name.items() if "convlstm" in n)
     if (convlstm_ms > 0) != (name == "kernel"):
         raise RuntimeError(f"{name} path: {convlstm_ms} ms of ConvLSTM kernel in the trace")
+    if name == "kernel" and tc:
+        require_kernels(by_name, TC_KERNELS[:1], "bf16 rollout")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     print(json.dumps({"profile": {
         "path": name,
@@ -467,12 +514,13 @@ def check_training(cfg, dev):
     return state0, video, zs, step_k, step_p, launches
 
 
-def time_training(card, cfg, state0, video, zs, paths, marker, what):
+def time_training(card, cfg, state0, video, zs, paths, marker, what, required=()):
     """ms per iteration (CUDA events, the two paths in turns: reference,
     kernel, kernel, reference), frames/s, peak memory, and one iteration
     per path under ``torch.profiler``.  ``paths`` is ``((reference name,
     step), (kernel name, step))``; device time in kernels whose name holds
-    ``marker`` must show in the kernel path's trace and only there."""
+    ``marker`` must show in the kernel path's trace and only there, and
+    every kernel named in ``required`` in the kernel path's."""
     (ref, _), (kern, _) = paths
     fns = dict(paths)
     ms = {ref: [], kern: []}
@@ -489,15 +537,12 @@ def time_training(card, cfg, state0, video, zs, paths, marker, what):
         fn(state0, video, z=zs[0])
         torch.cuda.synchronize()
         peak[path] = torch.cuda.max_memory_allocated() / 2**30
-        with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        ) as prof:
-            fn(state0, video, z=zs[0])
-            torch.cuda.synchronize()
-        busy_ms, span_ms, n_events, by_name = device_intervals_ms(prof)
+        busy_ms, span_ms, n_events, by_name = profiled(lambda: fn(state0, video, z=zs[0]))
         marked_ms = sum(t for n, t in by_name.items() if marker in n)
         if (marked_ms > 0) != (path == kern):
             raise RuntimeError(f"{what}, {path} path: {marked_ms} ms of '{marker}' kernels in the trace")
+        if path == kern:
+            require_kernels(by_name, required, f"{what}, {path} path")
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
         profiles[path] = {
             "eager_ms": step_ms[path],
@@ -584,6 +629,11 @@ def check_convlstm_bwd(dev):
             "kernel_ms": cuda_ms(lambda: convlstm_bwd(*args, y, cs, *cot), reps=3),
             "plain_ms": cuda_ms(lambda: convlstm_bwd_reference(*args, y, cs, *cot), reps=1),
         }
+        times[name]["kernel_tflops"] = layer_tflops(name, t, times[name]["kernel_ms"], backward=True)
+        by_name = profiled(lambda: convlstm_bwd(*args, y, cs, *cot))[3]
+        require_kernels(by_name, TC_KERNELS[1:], f"{name} bf16 backward")
+        for part, keys in BWD_PARTS.items():
+            times[name][f"{part}_ms"] = sum(v for n, v in by_name.items() if any(x in n for x in keys))
     print(json.dumps({"convlstm_bwd_ms_bf16_B32": times}), flush=True)
     if failed:
         raise RuntimeError(f"convlstm_bwd disagrees with its plain version: {failed}")
@@ -828,7 +878,7 @@ def main():
     print(json.dumps({"timings": timings}))
     # Phase 5: per path, where the rollout's device time goes.
     for path, fn in (("plain", rollout_p), ("kernel", rollout_k)):
-        profile_rollout(path, lambda: fn(params, context, z=z))
+        profile_rollout(path, lambda: fn(params, context, z=z), tc=base.compute_dtype == "bfloat16")
 
     # Phase 6: the 'scan' training path, through the Sinkhorn kernels and plain.
     state0, video, zs, step_k, step_p, train_launches = check_training(base, dev)
@@ -843,7 +893,8 @@ def main():
     # kernels) against 'scan', counted per iteration, then timed.
     state0, video, zs, steps, per_iter, pallas_counts = check_engines(base, dev)
     time_training(card, base, state0, video, zs, (("scan", steps["scan"]), ("pallas", steps["pallas"])),
-                  "lstm", "engine_timings")
+                  "lstm", "engine_timings",
+                  required=TC_KERNELS if base.compute_dtype == "bfloat16" else ())
 
     # Bounds of the work timed: the 8 T=10 layer scans of phase 2, one
     # Sinkhorn launch at the training step's [3, B, B], L, the 8 layer

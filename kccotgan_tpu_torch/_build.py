@@ -78,12 +78,15 @@ def load_library() -> ctypes.CDLL:
     # 32 bits and would cut a device pointer.
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     argtypes = {
-        "kccot_convlstm_fwd_step": [i, p, ll, p, p, p, p, p, p, p, ll, p, ll, i, i, i, i, i, i, p],
+        "kccot_convlstm_fwd_step": [
+            i, p, ll, p, p, ll, p, p, p, p, p, p, ll, p, ll, i, i, i, i, i, i, p,
+        ],
         "kccot_convlstm_bwd_step": [
             i, p, ll, p, ll, p, ll, p, p, p, ll, p, p, p, ll, p, i, i, i, i, i, i, p,
         ],
         "kccot_convlstm_bwd_dh": [i, p, ll, p, p, i, i, i, i, i, i, p],
-        "kccot_convlstm_bwd_rows": [i, i, i, i],
+        "kccot_convlstm_bwd_rows": [i, i, i, i, i],
+        "kccot_recurrent_wgrad_tiles": [i, i, i],
         "kccot_recurrent_wgrad": [i, p, p, p, p, i, ll, p, i, p, p, i, i, i, i, i, i, i, p],
         "kccot_lstm_fwd": [i, i, p, p, p, p, p, p, p, p, p, i, i, i, p],
         "kccot_lstm_bwd": [i, i, p, p, p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, p],

@@ -9,39 +9,53 @@
 // step is two launches, because dh_{t-1} at a pixel needs dz at every
 // pixel of its halo:
 //
-// 1. convlstm_bwd_step_kernel, per (sample, pixel, channel j):
-//      recompute z_t from cdt(h_{t-1}) (y[t-1], or cdt(h0) at t=0),
-//      the x stack, bias and c_{t-1} (c stack, or c0), exactly as the
-//      forward did; then the cell adjoint
+// 1. The step kernel, per (sample, pixel, channel j): recompute z_t from
+//    cdt(h_{t-1}) (y[t-1], or cdt(h0) at t=0), the x stack, bias and
+//    c_{t-1} (c stack, or c0), exactly as the forward did; then the cell
+//    adjoint
 //        dh = dh_carry + dy_t;  dc = dc_carry + dh*o*(1 - tanh(c_t)^2)
 //        dz = [dc*g*i(1-i), dc*c_{t-1}*f(1-f), dc*i*(1-g^2), dh*tanh(c_t)*o(1-o)]
-//      dx_t = cdt(dz); dc_carry = dc * f; and the block's sum of the
-//      f32 dz per channel into its own row of a db partial (each block
-//      owns its row across all steps: no atomics, deterministic).
-// 2. convlstm_bwd_dh_kernel: dh_carry = the transposed 'SAME' conv of
-//    cdt(dz) (read back from dx_t) with cdt(rk), accumulated in f32 and
-//    kept f32, with the flipped pads (k-1-lo before, lo after).
-// 3. After the loop, recurrent_wgrad_kernel: drk[ky,kx,ci,n] =
-//    sum over t, samples and pixels of cdt(h_{t-1})[shifted by ky,kx][ci]
-//    * dx_t[n] -- the TPU kernel's per-step drk update, done once over
-//    the saved y and dx stacks (dx_t is exactly cdt(dz_t)).  An implicit
-//    GEMM, M = kh*kw*f, N = 4f, K = B*T*H*W, split over K into per-split
-//    partial sums; recurrent_finalize_kernel adds the splits and the db
-//    partials in a fixed order.  The dense LSTM's dR is the same sum with
-//    H = W = kh = kw = 1 (models/cuda_lstm.py calls it so).
+//    dx_t = cdt(dz); dc_carry = dc * f; and the block's sum of the f32
+//    dz per channel into its own row of a db partial (each block owns
+//    its row across all steps: no atomics, deterministic).
+// 2. The dh kernel: dh_carry = the transposed 'SAME' conv of cdt(dz)
+//    (read back from dx_t) with cdt(rk), accumulated in f32 and kept
+//    f32, with the flipped pads (k-1-lo before, lo after).
+// 3. After the loop, the weight gradient: drk[ky,kx,ci,n] = sum over t,
+//    samples and pixels of cdt(h_{t-1})[shifted by ky,kx][ci] * dx_t[n]
+//    -- the TPU kernel's per-step drk update, done once over the saved y
+//    and dx stacks (dx_t is exactly cdt(dz_t)).  An implicit GEMM, M =
+//    kh*kw*f, N = 4f, K = B*T*H*W, split over K into per-split partial
+//    sums; recurrent_finalize_kernel adds the splits and the db partials
+//    in a fixed order, so drk and db are bitwise deterministic.  The
+//    dense LSTM's dR is the same sum with H = W = kh = kw = 1
+//    (models/cuda_lstm.py calls it so).
 //
 // What bounds it: three convs' worth of multiply-adds a step (the
 // recomputed rconv, dh and drk; about 3 TFLOP an iteration at
-// mmnist_full), run here on the CUDA cores in f32, so FMA throughput and the
-// loads that feed it.  What the design does about that: kernels 1 and 2
-// stage their input tile (halo included) in shared memory and keep kPix
-// pixels' sums in registers per weight load, as the forward does; kernel
-// 2 chunks the 4f input channels so the staged tile fits, and reads four
-// of them per 16-byte load; the drk GEMM uses 64x64 output tiles with a
-// 4x4 register tile per thread, and splits K until about 4 blocks per SM
-// are in flight, which is what keeps enc4 (4x4 frames, K = B*T*16) and
-// dec5 (M = 512, N = 32) from starving the card.  Tensor cores (bf16
-// mma with f32 sums is exact for the bf16 path) are later work.
+// mmnist_full) -- on the tensor cores, the latency of the per-step
+// launches and their K loops rather than the MMA rate.  Two engines,
+// by dtype:
+// * bf16 (dtype 1): all three products on the tensor cores through the
+//   implicit-GEMM block of convlstm_tile.cuh (mma.sync m16n8k16, ldmatrix,
+//   cp.async in three stages).  Every operand is already bf16 (y, dx,
+//   cdt(h0), and the weights the wrapper packs once per call: cdt(rk)
+//   with interleaved gate columns for the step, cdt(rk) transposed,
+//   [kh*kw*4f, 8*ceil(f/8)], for dh), so the products are exact in f32
+//   and only the order of the f32 sums differs.  The step kernel's
+//   epilogue holds the four gates of a (pixel, j) in one thread and runs
+//   the adjoint on them; its db partial is reduced in a fixed order
+//   (shuffles, then the block's warp rows) into the row of its M tile.
+//   The drk GEMM reads A = shifted cdt(h_{t-1}) transposed (ldmatrix
+//   .trans) and B = dx, split over K until about 4 blocks an SM are in
+//   flight.  Tiles are chosen per layer so a launch has at least one
+//   block per SM where the shape allows.
+// * f32 (dtype 0): the CUDA cores in f32 FMA (TF32 would miss the f32
+//   tolerances): kernels 1 and 2 stage their input tile (halo included)
+//   in shared memory and keep kPix pixels' sums in registers per weight
+//   load; kernel 2 chunks the 4f input channels so the staged tile fits;
+//   the drk GEMM uses 64x64 output tiles with a 4x4 register tile a
+//   thread.
 
 #include "convlstm_tile.cuh"
 
@@ -49,15 +63,15 @@ namespace {
 
 using namespace kccot;
 
-template <typename T, int kPix>
+template <int kPix>
 __global__ void __launch_bounds__(kThreads)
-convlstm_bwd_step_kernel(const T* __restrict__ x, long long x_bstride,
-                         const T* __restrict__ hp, long long hp_bstride,
+convlstm_bwd_step_kernel(const float* __restrict__ x, long long x_bstride,
+                         const float* __restrict__ hp, long long hp_bstride,
                          const float* __restrict__ c_prev, long long cp_bstride,
                          const float4* __restrict__ rk4, const float* __restrict__ bias,
-                         const T* __restrict__ dy, long long dy_bstride,
+                         const float* __restrict__ dy, long long dy_bstride,
                          const float* __restrict__ dh, float* __restrict__ dc,
-                         T* __restrict__ dx, long long dx_bstride, float* __restrict__ dbpart,
+                         float* __restrict__ dx, long long dx_bstride, float* __restrict__ dbpart,
                          int H, int W, int f, int kh, int kw,
                          int tile_h, int tile_w, int tiles_w) {
   extern __shared__ float hs[];  // [tile_h+kh-1][tile_w+kw-1][f], then the db reduction
@@ -66,7 +80,7 @@ convlstm_bwd_step_kernel(const T* __restrict__ x, long long x_bstride,
   const int ty0 = (blockIdx.x / tiles_w) * tile_h;
   const int tx0 = (blockIdx.x % tiles_w) * tile_w;
   const int sw = tile_w + kw - 1;
-  stage_h<T>(hs, hp + b * hp_bstride, H, W, f, kh, kw, ty0, tx0, tile_h, tile_w);
+  stage_h(hs, hp + b * hp_bstride, H, W, f, kh, kw, ty0, tx0, tile_h, tile_w);
   __syncthreads();
 
   const int j = blockIdx.y * blockDim.x + threadIdx.x;
@@ -91,26 +105,26 @@ convlstm_bwd_step_kernel(const T* __restrict__ x, long long x_bstride,
     const int gy = ty0 + q / tile_w, gx = tx0 + q % tile_w;
     if (!valid_j || q >= tile_h * tile_w || gy >= H || gx >= W) continue;
     const long long pix = (long long)gy * W + gx;
-    const T* xp = x + b * x_bstride + pix * f4 + j;
+    const float* xp = x + b * x_bstride + pix * f4 + j;
     float z[4];
 #pragma unroll
     for (int g = 0; g < 4; ++g)
-      z[g] = (to_f32(xp[g * f]) + bias[g * f + j]) + round_to<T>(acc[p][g]);
+      z[g] = (xp[g * f] + bias[g * f + j]) + acc[p][g];
     const float i = sigmoid(z[0]), fg = sigmoid(z[1]), gg = tanhf(z[2]), o = sigmoid(z[3]);
     const float cp = c_prev[b * cp_bstride + pix * f + j];
     const float tc = tanhf(fg * cp + i * gg);
     const long long s = ((long long)b * H * W + pix) * f + j;
-    const float dhv = dh[s] + to_f32(dy[b * dy_bstride + pix * f + j]);
+    const float dhv = dh[s] + dy[b * dy_bstride + pix * f + j];
     const float dcv = dc[s] + dhv * o * (1.0f - tc * tc);
     float dz[4];
     dz[0] = dcv * gg * i * (1.0f - i);
     dz[1] = dcv * cp * fg * (1.0f - fg);
     dz[2] = dcv * i * (1.0f - gg * gg);
     dz[3] = dhv * tc * o * (1.0f - o);
-    T* dxp = dx + b * dx_bstride + pix * f4 + j;
+    float* dxp = dx + b * dx_bstride + pix * f4 + j;
 #pragma unroll
     for (int g = 0; g < 4; ++g) {
-      dxp[g * f] = from_f32<T>(dz[g]);
+      dxp[g * f] = dz[g];
       dbp[g] += dz[g];
     }
     dc[s] = dcv * fg;
@@ -140,9 +154,9 @@ convlstm_bwd_step_kernel(const T* __restrict__ x, long long x_bstride,
 // one 16-byte load holds four consecutive n of one ci.  The dz tile is
 // staged nc channels at a time, [tile_h+kh-1][tile_w+kw-1][nc], its row
 // r holding frame row ty0 - (kh-1-lo_h) + r.
-template <typename T, int kPix>
+template <int kPix>
 __global__ void __launch_bounds__(kThreads)
-convlstm_bwd_dh_kernel(const T* __restrict__ dx, long long dx_bstride,
+convlstm_bwd_dh_kernel(const float* __restrict__ dx, long long dx_bstride,
                        const float4* __restrict__ rkT4, float* __restrict__ dh,
                        int H, int W, int f, int kh, int kw, int nc,
                        int tile_h, int tile_w, int tiles_w) {
@@ -160,7 +174,7 @@ convlstm_bwd_dh_kernel(const T* __restrict__ dx, long long dx_bstride,
   const bool valid = ci < f;
   const int nruns = blockDim.y;
   const int f4 = 4 * f;
-  const T* dxb = dx + b * dx_bstride;
+  const float* dxb = dx + b * dx_bstride;
 
   int off[kPix];
 #pragma unroll
@@ -181,7 +195,7 @@ convlstm_bwd_dh_kernel(const T* __restrict__ dx, long long dx_bstride,
       const int gx = tx0 - before_w + r % sw;
       float v = 0.0f;
       if (gy >= 0 && gy < H && gx >= 0 && gx < W)
-        v = to_f32(dxb[((long long)gy * W + gx) * f4 + n0 + cc]);
+        v = dxb[((long long)gy * W + gx) * f4 + n0 + cc];
       dzs[r * nc + cc] = v;
     }
     __syncthreads();
@@ -223,10 +237,9 @@ constexpr int kTileM = 64, kTileN = 64, kTileK = 16;
 // A[p][m] = cdt(h_{t-1})[b, y+ky-lo_h, x+kx-lo_w, ci] (zero outside the
 // frame), m = (ky*kw + kx)*f + ci, p = ((b*T + t)*H + y)*W + x.
 // h_{t-1} is y[b, t-1] for t >= 1 and h0c[b] (cdt(h0)) at t = 0.
-template <typename T>
 __global__ void __launch_bounds__(256)
-recurrent_wgrad_kernel(const T* __restrict__ y, const T* __restrict__ h0c,
-                       const T* __restrict__ dx, float* __restrict__ part,
+recurrent_wgrad_kernel(const float* __restrict__ y, const float* __restrict__ h0c,
+                       const float* __restrict__ dx, float* __restrict__ part,
                        int T_, int H, int W, int f, int kh, int kw,
                        long long P, long long chunk) {
   __shared__ __align__(16) float As[kTileK][kTileM];
@@ -268,11 +281,11 @@ recurrent_wgrad_kernel(const T* __restrict__ y, const T* __restrict__ h0c,
           const int yy = py + dy_, xx = px + dx_;
           if (yy >= 0 && yy < H && xx >= 0 && xx < W) {
             const long long pix = (long long)yy * W + xx;
-            av = t == 0 ? to_f32(h0c[(bb * H * W + pix) * f + ci])
-                        : to_f32(y[((bb * T_ + t - 1) * H * W + pix) * f + ci]);
+            av = t == 0 ? h0c[(bb * H * W + pix) * f + ci]
+                        : y[((bb * T_ + t - 1) * H * W + pix) * f + ci];
           }
         }
-        if (n_ok) bv = to_f32(dx[p * N + n]);
+        if (n_ok) bv = dx[p * N + n];
       }
       As[kk][mm] = av;
       Bs[kk][nn] = bv;
@@ -322,7 +335,361 @@ __global__ void recurrent_finalize_kernel(const float* __restrict__ part, int sp
   }
 }
 
-template <typename T, int kPix>
+// ---------------------------------------------------------------------------
+// bf16, tensor cores.
+
+// Kernel 1: the recomputed conv (A = hp gathered, B = wpk as in the
+// forward) and the cell adjoint on the accumulators; the block's db
+// partial goes to row blockIdx.x (its M tile).
+template <class Cfg, bool kVec>
+__global__ void __launch_bounds__(Cfg::kThreads)
+convlstm_bwd_step_tc_kernel(const bf16* __restrict__ x, long long x_bstride,
+                            const bf16* __restrict__ hp, long long hp_bstride,
+                            const float* __restrict__ c_prev, long long cp_bstride,
+                            const bf16* __restrict__ wpk, int npad, const float* __restrict__ bias,
+                            const bf16* __restrict__ dy, long long dy_bstride,
+                            const float* __restrict__ dh, float* __restrict__ dc,
+                            bf16* __restrict__ dx, long long dx_bstride,
+                            float* __restrict__ dbpart, int B, int H, int W, int f, int kh,
+                            int kw) {
+  extern __shared__ __align__(16) unsigned char bwd_tc_smem[];
+  __shared__ float red[Cfg::WM][Cfg::BN];
+  const int HW = H * W, M = B * HW, K = kh * kw * f;
+  const int m0 = blockIdx.x * Cfg::BM, n0 = blockIdx.y * Cfg::BN;
+  int kt0, kt1;
+  split_range((K + Cfg::BK - 1) / Cfg::BK, blockIdx.z, gridDim.z, kt0, kt1);
+  ConvGatherA<Cfg, kVec> load_a(hp, hp_bstride, H, W, f, kw, K, 1, -(kh - 1) / 2, -(kw - 1) / 2,
+                                m0, M, kt0);
+  const DenseB<Cfg> load_b{wpk, K, npad, n0};
+  float acc[2][Cfg::NI][4];
+  tc_gemm<Cfg, false>(acc, reinterpret_cast<bf16*>(bwd_tc_smem), kt0, kt1, load_a, load_b);
+  if (!cluster_sum<Cfg>(acc, bwd_tc_smem, gridDim.z)) return;
+
+  const int f4 = 4 * f;
+  float dbp[Cfg::NI / 2][4];
+#pragma unroll
+  for (int p = 0; p < Cfg::NI / 2; ++p) dbp[p][0] = dbp[p][1] = dbp[p][2] = dbp[p][3] = 0.0f;
+  for_each_gate_quad<Cfg>(acc, m0, n0, [&](int m, int j, int p, const float(&a)[4]) {
+    if (m >= M || j >= f) return;
+    const int b = m / HW, pix = m - b * HW;
+    const bf16* xp = x + b * x_bstride + (long long)pix * f4 + j;
+    float z[4];
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+      z[g] = (to_f32(xp[g * f]) + bias[g * f + j]) + round_to<bf16>(a[g]);
+    const float i = sigmoid(z[0]), fg = sigmoid(z[1]), gg = tanhf(z[2]), o = sigmoid(z[3]);
+    const float cp = c_prev[b * cp_bstride + (long long)pix * f + j];
+    const float tc = tanhf(fg * cp + i * gg);
+    const long long s = (long long)m * f + j;
+    const float dhv = dh[s] + to_f32(dy[b * dy_bstride + (long long)pix * f + j]);
+    const float dcv = dc[s] + dhv * o * (1.0f - tc * tc);
+    float dz[4];
+    dz[0] = dcv * gg * i * (1.0f - i);
+    dz[1] = dcv * cp * fg * (1.0f - fg);
+    dz[2] = dcv * i * (1.0f - gg * gg);
+    dz[3] = dhv * tc * o * (1.0f - o);
+    bf16* dxp = dx + b * dx_bstride + (long long)pix * f4 + j;
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      dxp[g * f] = from_f32<bf16>(dz[g]);
+      dbp[p][g] += dz[g];
+    }
+    dc[s] = dcv * fg;
+  });
+
+  // db: each channel's sum over the warp's rows (lanes lane%4 apart: a
+  // fixed butterfly), then over the block's warp rows in order.
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp % Cfg::WM, wn = warp / Cfg::WM;
+#pragma unroll
+  for (int p = 0; p < Cfg::NI / 2; ++p)
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      float v = dbp[p][g];
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      if (lane < 4) red[wm][wn * 8 * Cfg::NI + p * 16 + g * 4 + lane] = v;
+    }
+  __syncthreads();
+  for (int c = threadIdx.x; c < Cfg::BN; c += Cfg::kThreads) {
+    const int j = (n0 + (c / 16) * 16) / 4 + c % 4, g = (c % 16) / 4;
+    if (j >= f) continue;
+    float sum = 0.0f;
+#pragma unroll
+    for (int r = 0; r < Cfg::WM; ++r) sum += red[r][c];
+    dbpart[(long long)blockIdx.x * f4 + g * f + j] += sum;
+  }
+}
+
+// Kernel 2: dh[m][ci] = sum_k A[m][k] wT[k][ci], A the transposed conv's
+// gather of dx_t (C = 4f, sgn = -1, o = +lo: the flipped pads).
+template <class Cfg, bool kVec>
+__global__ void __launch_bounds__(Cfg::kThreads)
+convlstm_bwd_dh_tc_kernel(const bf16* __restrict__ dx, long long dx_bstride,
+                          const bf16* __restrict__ wT, int npad, float* __restrict__ dh,
+                          int B, int H, int W, int f, int kh, int kw) {
+  extern __shared__ __align__(16) unsigned char dh_tc_smem[];
+  const int M = B * H * W, K = kh * kw * 4 * f;
+  const int m0 = blockIdx.x * Cfg::BM, n0 = blockIdx.y * Cfg::BN;
+  int kt0, kt1;
+  split_range((K + Cfg::BK - 1) / Cfg::BK, blockIdx.z, gridDim.z, kt0, kt1);
+  ConvGatherA<Cfg, kVec> load_a(dx, dx_bstride, H, W, 4 * f, kw, K, -1, (kh - 1) / 2,
+                                (kw - 1) / 2, m0, M, kt0);
+  const DenseB<Cfg> load_b{wT, K, npad, n0};
+  float acc[2][Cfg::NI][4];
+  tc_gemm<Cfg, false>(acc, reinterpret_cast<bf16*>(dh_tc_smem), kt0, kt1, load_a, load_b);
+  if (!cluster_sum<Cfg>(acc, dh_tc_smem, gridDim.z)) return;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp % Cfg::WM, wn = warp / Cfg::WM;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < Cfg::NI; ++ni)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int m = m0 + wm * 32 + mi * 16 + (r >> 1) * 8 + (lane >> 2);
+        const int n = n0 + wn * 8 * Cfg::NI + ni * 8 + 2 * (lane & 3) + (r & 1);
+        if (m < M && n < f) dh[(long long)m * f + n] = acc[mi][ni][r];
+      }
+}
+
+// The drk GEMM's A, stored transposed ([BK pixels][BM]): A^T[p][m] =
+// cdt(h_{t-1})[b, y+ky-lo_h, x+kx-lo_w, ci], m = (ky*kw + kx)*f + ci,
+// p = ((b*T + t)*H + y)*W + x, over pixels [p_begin, p_end); h_{t-1} is
+// y[b, t-1] for t >= 1 and h0c[b] at t = 0.  A thread copies the same
+// pixel row of every k-tile, kCols 8-wide columns of it: it keeps its
+// columns' taps and walks its pixel (b, t, y, x) forward by BK a k-tile,
+// without divisions.  kVec: f is a multiple of 8, so 8 consecutive m are
+// 8 channels of one tap, one cp.async; else element by element.
+template <class Cfg, bool kVec>
+struct WgradA {
+  static constexpr int kTpr = Cfg::kThreads / Cfg::BK;  // threads a pixel row
+  static constexpr int kCols = Cfg::BM / 8 / kTpr;
+  static_assert(Cfg::kThreads % Cfg::BK == 0 && (Cfg::BM / 8) % kTpr == 0, "wgrad A layout");
+  const bf16 *y, *h0c;
+  int T, H, W, f, kh, kw, M, m_first;
+  int p, p_end, b, t, py, px;  // this thread's pixel in the next k-tile
+  int dy[kCols], dx[kCols], ci[kCols];
+
+  __device__ __forceinline__ WgradA(const bf16* y_, const bf16* h0c_, int T_, int H_, int W_,
+                                    int f_, int kh_, int kw_, int m0, int p_begin, int p_end_)
+      : y(y_), h0c(h0c_), T(T_), H(H_), W(W_), f(f_), kh(kh_), kw(kw_), M(kh_ * kw_ * f_),
+        p_end(p_end_) {
+    m_first = m0 + (int)(threadIdx.x % kTpr) * 8;
+    p = p_begin + (int)threadIdx.x / kTpr;
+    px = p % W;
+    const int r = p / W;
+    py = r % H;
+    t = (r / H) % T;
+    b = r / H / T;
+#pragma unroll
+    for (int i = 0; i < kCols; ++i) {
+      const int m = m_first + i * kTpr * 8;
+      const int tap = m / f;
+      ci[i] = m < M ? m - tap * f : -1;
+      dy[i] = tap / kw - (kh - 1) / 2;
+      dx[i] = tap % kw - (kw - 1) / 2;
+    }
+  }
+
+  // h_{t-1} at this thread's pixel shifted by (sy, sx), channel c: false
+  // outside the frame.
+  __device__ __forceinline__ bool at(int sy, int sx, int c, const bf16*& src,
+                                     long long& off) const {
+    const int yy = py + sy, xx = px + sx;
+    if (yy < 0 || yy >= H || xx < 0 || xx >= W) return false;
+    const long long pix = (long long)yy * W + xx;
+    src = t == 0 ? h0c : y;
+    off = (t == 0 ? (long long)b * H * W + pix : ((long long)b * T + t - 1) * H * W + pix) * f + c;
+    return true;
+  }
+
+  __device__ __forceinline__ void operator()(bf16* dst) {
+    const int row = (int)threadIdx.x / kTpr;
+    const bool p_ok = p < p_end;
+#pragma unroll
+    for (int i = 0; i < kCols; ++i) {
+      bf16* d = dst + row * Cfg::AT_LD + ((int)(threadIdx.x % kTpr) + i * kTpr) * 8;
+      const bf16* src = y;
+      long long off = 0;
+      if constexpr (kVec) {
+        const bool ok = p_ok && ci[i] >= 0 && at(dy[i], dx[i], ci[i], src, off);
+        cp_async16(d, ok ? src + off : y, ok);
+      } else {
+        for (int e = 0; e < 8; ++e) {
+          const int m = m_first + i * kTpr * 8 + e, tap = m / f;
+          const bool ok = p_ok && m < M &&
+                          at(tap / kw - (kh - 1) / 2, tap % kw - (kw - 1) / 2, m - tap * f, src, off);
+          d[e] = ok ? src[off] : __float2bfloat16(0.0f);
+        }
+      }
+    }
+    p += Cfg::BK;
+    px += Cfg::BK;
+    while (px >= W) {
+      px -= W;
+      if (++py == H) {
+        py = 0;
+        if (++t == T) t = 0, ++b;
+      }
+    }
+  }
+};
+
+// The drk GEMM's B: dx[p][n0 .. n0+BN], [BK pixels][BN], each thread the
+// same pixel row of every k-tile.
+template <class Cfg, bool kVec>
+struct WgradB {
+  static constexpr int kTpr = Cfg::kThreads / Cfg::BK, kCols = Cfg::BN / 8 / kTpr;
+  static_assert((Cfg::BN / 8) % kTpr == 0, "wgrad B layout");
+  const bf16* dx;
+  int N, n0, p_begin, p_end;
+  __device__ __forceinline__ void operator()(int kt, bf16* dst) const {
+    const int row = (int)threadIdx.x / kTpr;
+    const int p = p_begin + kt * Cfg::BK + row;
+#pragma unroll
+    for (int i = 0; i < kCols; ++i) {
+      const int cc = (int)(threadIdx.x % kTpr) + i * kTpr, n = n0 + cc * 8;
+      bf16* d = dst + row * Cfg::B_LD + cc * 8;
+      if constexpr (kVec) {
+        const bool ok = p < p_end && n < N;
+        cp_async16(d, ok ? dx + (long long)p * N + n : dx, ok);
+      } else {
+        for (int e = 0; e < 8; ++e)
+          d[e] = p < p_end && n + e < N ? dx[(long long)p * N + n + e] : __float2bfloat16(0.0f);
+      }
+    }
+  }
+};
+
+// part[s][m][n] = sum over the pixels of split s of A[p][m] * dx[p][n].
+template <class Cfg, bool kVec>
+__global__ void __launch_bounds__(Cfg::kThreads)
+recurrent_wgrad_tc_kernel(const bf16* __restrict__ y, const bf16* __restrict__ h0c,
+                          const bf16* __restrict__ dx, float* __restrict__ part,
+                          int T_, int H, int W, int f, int kh, int kw, long long P,
+                          long long chunk) {
+  extern __shared__ __align__(16) unsigned char wgrad_tc_smem[];
+  const int M = kh * kw * f, N = 4 * f;
+  const int m0 = blockIdx.x * Cfg::BM, n0 = blockIdx.y * Cfg::BN;
+  const int p_begin = (int)(blockIdx.z * chunk);
+  const int p_end = (int)(p_begin + chunk < P ? p_begin + chunk : P);
+  const int nk = p_end > p_begin ? (p_end - p_begin + Cfg::BK - 1) / Cfg::BK : 0;
+  WgradA<Cfg, kVec> load_a(y, h0c, T_, H, W, f, kh, kw, m0, p_begin, p_end);
+  const WgradB<Cfg, kVec> load_b{dx, N, n0, p_begin, p_end};
+  float acc[2][Cfg::NI][4];
+  tc_gemm<Cfg, true>(acc, reinterpret_cast<bf16*>(wgrad_tc_smem), 0, nk, load_a, load_b);
+  float* out = part + (long long)blockIdx.z * M * N;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp % Cfg::WM, wn = warp / Cfg::WM;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < Cfg::NI; ++ni)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int m = m0 + wm * 32 + mi * 16 + (r >> 1) * 8 + (lane >> 2);
+        const int n = n0 + wn * 8 * Cfg::NI + ni * 8 + 2 * (lane & 3) + (r & 1);
+        if (m < M && n < N) out[(long long)m * N + n] = acc[mi][ni][r];
+      }
+}
+
+// The gate GEMM's tile at this shape (vec: f a multiple of 8).
+inline TcShape gate_shape(int B, int H, int W, int f) {
+  if (f % 8 != 0) return k64x64;
+  return pick_shape((long long)B * H * W, 16 * ((f + 3) / 4));
+}
+
+template <class Cfg, bool kVec>
+cudaError_t launch_step_tc(const void* x, long long x_bstride, const void* hp,
+                           long long hp_bstride, const void* c_prev, long long cp_bstride,
+                           const void* wpk, const void* bias, const void* dy, long long dy_bstride,
+                           const void* dh, void* dc, void* dx, long long dx_bstride,
+                           void* dbpart, int B, int H, int W, int f, int kh, int kw,
+                           cudaStream_t stream) {
+  const int npad = 16 * ((f + 3) / 4);
+  const long long M = (long long)B * H * W;
+  const dim3 grid((unsigned)((M + Cfg::BM - 1) / Cfg::BM), (npad + Cfg::BN - 1) / Cfg::BN);
+  const int split = pick_split(grid.x * grid.y, (kh * kw * f + Cfg::BK - 1) / Cfg::BK);
+  return launch_split<Cfg>(
+      convlstm_bwd_step_tc_kernel<Cfg, kVec>, grid, split, stream, static_cast<const bf16*>(x),
+      x_bstride, static_cast<const bf16*>(hp), hp_bstride, static_cast<const float*>(c_prev),
+      cp_bstride, static_cast<const bf16*>(wpk), npad, static_cast<const float*>(bias),
+      static_cast<const bf16*>(dy), dy_bstride, static_cast<const float*>(dh),
+      static_cast<float*>(dc), static_cast<bf16*>(dx), dx_bstride, static_cast<float*>(dbpart), B,
+      H, W, f, kh, kw);
+}
+
+cudaError_t step_tc(const void* x, long long x_bstride, const void* hp, long long hp_bstride,
+                    const void* c_prev, long long cp_bstride, const void* wpk, const void* bias,
+                    const void* dy, long long dy_bstride, const void* dh, void* dc, void* dx,
+                    long long dx_bstride, void* dbpart, int B, int H, int W, int f, int kh, int kw,
+                    cudaStream_t s) {
+#define KCCOT_STEP_TC(CFG, VEC)                                                                  \
+  launch_step_tc<CFG, VEC>(x, x_bstride, hp, hp_bstride, c_prev, cp_bstride, wpk, bias, dy,     \
+                           dy_bstride, dh, dc, dx, dx_bstride, dbpart, B, H, W, f, kh, kw, s)
+  if (f % 8 != 0) return KCCOT_STEP_TC(Cfg64x64, false);
+  if (!aligned16(hp) || hp_bstride % 8 != 0) return cudaErrorMisalignedAddress;
+  switch (gate_shape(B, H, W, f)) {
+    case k128x64: return KCCOT_STEP_TC(Cfg128x64, true);
+    case k64x64: return KCCOT_STEP_TC(Cfg64x64, true);
+    case k32x64: return KCCOT_STEP_TC(Cfg32x64, true);
+    default: return KCCOT_STEP_TC(Cfg128x32, true);
+  }
+#undef KCCOT_STEP_TC
+}
+
+template <class Cfg, bool kVec>
+cudaError_t launch_dh_tc(const void* dx, long long dx_bstride, const void* wT, void* dh, int B,
+                         int H, int W, int f, int kh, int kw, cudaStream_t stream) {
+  const int npad = 8 * ((f + 7) / 8);
+  const long long M = (long long)B * H * W;
+  const dim3 grid((unsigned)((M + Cfg::BM - 1) / Cfg::BM), (npad + Cfg::BN - 1) / Cfg::BN);
+  const int split = pick_split(grid.x * grid.y, (kh * kw * 4 * f + Cfg::BK - 1) / Cfg::BK);
+  return launch_split<Cfg>(convlstm_bwd_dh_tc_kernel<Cfg, kVec>, grid, split, stream,
+                           static_cast<const bf16*>(dx), dx_bstride, static_cast<const bf16*>(wT),
+                           npad, static_cast<float*>(dh), B, H, W, f, kh, kw);
+}
+
+cudaError_t dh_tc(const void* dx, long long dx_bstride, const void* wT, void* dh, int B, int H,
+                  int W, int f, int kh, int kw, cudaStream_t s) {
+#define KCCOT_DH_TC(CFG, VEC) launch_dh_tc<CFG, VEC>(dx, dx_bstride, wT, dh, B, H, W, f, kh, kw, s)
+  if (f % 2 != 0) return KCCOT_DH_TC(Cfg64x64, false);
+  if (!aligned16(dx) || dx_bstride % 8 != 0) return cudaErrorMisalignedAddress;
+  switch (pick_shape((long long)B * H * W, 8 * ((f + 7) / 8))) {
+    case k128x64: return KCCOT_DH_TC(Cfg128x64, true);
+    case k64x64: return KCCOT_DH_TC(Cfg64x64, true);
+    case k32x64: return KCCOT_DH_TC(Cfg32x64, true);
+    case k128x32: return KCCOT_DH_TC(Cfg128x32, true);
+    case k128x16: return KCCOT_DH_TC(Cfg128x16, true);
+    default: return KCCOT_DH_TC(Cfg128x8, true);
+  }
+#undef KCCOT_DH_TC
+}
+
+// The drk GEMM's tile: 128 x 64, or 128 x 32 when 4f <= 32.
+inline TcShape wgrad_shape(int f) {
+  if (f % 8 != 0) return k64x64;
+  return 4 * f <= 32 ? k128x32 : k128x64;
+}
+
+template <class Cfg, bool kVec>
+cudaError_t launch_wgrad_tc(const void* y, const void* h0c, const void* dx, void* part,
+                            int splits, long long chunk, int T_, int H, int W, int f, int kh,
+                            int kw, long long P, cudaStream_t s) {
+  const int M = kh * kw * f, N = 4 * f;
+  const dim3 grid((M + Cfg::BM - 1) / Cfg::BM, (N + Cfg::BN - 1) / Cfg::BN, splits);
+  const auto kernel = recurrent_wgrad_tc_kernel<Cfg, kVec>;
+  const cudaError_t err = allow_smem((const void*)kernel, Cfg::kSmem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, Cfg::kThreads, Cfg::kSmem, s>>>(
+      static_cast<const bf16*>(y), static_cast<const bf16*>(h0c), static_cast<const bf16*>(dx),
+      static_cast<float*>(part), T_, H, W, f, kh, kw, P, chunk);
+  return cudaGetLastError();
+}
+
+template <int kPix>
 cudaError_t launch_step(const void* x, long long x_bstride, const void* hp, long long hp_bstride,
                         const void* c_prev, long long cp_bstride, const void* rk4,
                         const void* bias, const void* dy, long long dy_bstride, const void* dh,
@@ -334,18 +701,18 @@ cudaError_t launch_step(const void* x, long long x_bstride, const void* hp, long
   size_t smem = (size_t)(t.tile_h + kh - 1) * (t.tile_w + kw - 1) * f;
   if (smem < (size_t)t.jt * t.nruns * 4) smem = (size_t)t.jt * t.nruns * 4;
   smem *= sizeof(float);
-  const cudaError_t err = allow_smem((const void*)convlstm_bwd_step_kernel<T, kPix>, smem);
+  const cudaError_t err = allow_smem((const void*)convlstm_bwd_step_kernel<kPix>, smem);
   if (err != cudaSuccess) return err;
-  convlstm_bwd_step_kernel<T, kPix><<<grid, block, smem, stream>>>(
-      static_cast<const T*>(x), x_bstride, static_cast<const T*>(hp), hp_bstride,
+  convlstm_bwd_step_kernel<kPix><<<grid, block, smem, stream>>>(
+      static_cast<const float*>(x), x_bstride, static_cast<const float*>(hp), hp_bstride,
       static_cast<const float*>(c_prev), cp_bstride, static_cast<const float4*>(rk4),
-      static_cast<const float*>(bias), static_cast<const T*>(dy), dy_bstride,
-      static_cast<const float*>(dh), static_cast<float*>(dc), static_cast<T*>(dx), dx_bstride,
+      static_cast<const float*>(bias), static_cast<const float*>(dy), dy_bstride,
+      static_cast<const float*>(dh), static_cast<float*>(dc), static_cast<float*>(dx), dx_bstride,
       static_cast<float*>(dbpart), H, W, f, kh, kw, t.tile_h, t.tile_w, t.tiles_w);
   return cudaGetLastError();
 }
 
-template <typename T, int kPix>
+template <int kPix>
 cudaError_t launch_dh(const void* dx, long long dx_bstride, const void* rkT4, void* dh, int B,
                       int H, int W, int f, int kh, int kw, cudaStream_t stream) {
   const Tile t = make_tile(H, W, f, kPix);
@@ -353,15 +720,14 @@ cudaError_t launch_dh(const void* dx, long long dx_bstride, const void* rkT4, vo
   const dim3 block(t.jt, t.nruns);
   const dim3 grid(t.tiles_w * t.tiles_h, (f + t.jt - 1) / t.jt, B);
   const size_t smem = (size_t)(t.tile_h + kh - 1) * (t.tile_w + kw - 1) * nc * sizeof(float);
-  const cudaError_t err = allow_smem((const void*)convlstm_bwd_dh_kernel<T, kPix>, smem);
+  const cudaError_t err = allow_smem((const void*)convlstm_bwd_dh_kernel<kPix>, smem);
   if (err != cudaSuccess) return err;
-  convlstm_bwd_dh_kernel<T, kPix><<<grid, block, smem, stream>>>(
-      static_cast<const T*>(dx), dx_bstride, static_cast<const float4*>(rkT4),
+  convlstm_bwd_dh_kernel<kPix><<<grid, block, smem, stream>>>(
+      static_cast<const float*>(dx), dx_bstride, static_cast<const float4*>(rkT4),
       static_cast<float*>(dh), H, W, f, kh, kw, nc, t.tile_h, t.tile_w, t.tiles_w);
   return cudaGetLastError();
 }
 
-template <typename T>
 cudaError_t step(const void* x, long long x_bstride, const void* hp, long long hp_bstride,
                  const void* c_prev, long long cp_bstride, const void* rk4, const void* bias,
                  const void* dy, long long dy_bstride, const void* dh, void* dc, void* dx,
@@ -369,39 +735,53 @@ cudaError_t step(const void* x, long long x_bstride, const void* hp, long long h
                  cudaStream_t s) {
   switch (pixels_per_thread(H, W)) {
     case 8:
-      return launch_step<T, 8>(x, x_bstride, hp, hp_bstride, c_prev, cp_bstride, rk4, bias, dy,
+      return launch_step<8>(x, x_bstride, hp, hp_bstride, c_prev, cp_bstride, rk4, bias, dy,
                                dy_bstride, dh, dc, dx, dx_bstride, dbpart, B, H, W, f, kh, kw, s);
     case 4:
-      return launch_step<T, 4>(x, x_bstride, hp, hp_bstride, c_prev, cp_bstride, rk4, bias, dy,
+      return launch_step<4>(x, x_bstride, hp, hp_bstride, c_prev, cp_bstride, rk4, bias, dy,
                                dy_bstride, dh, dc, dx, dx_bstride, dbpart, B, H, W, f, kh, kw, s);
     default:
-      return launch_step<T, 2>(x, x_bstride, hp, hp_bstride, c_prev, cp_bstride, rk4, bias, dy,
+      return launch_step<2>(x, x_bstride, hp, hp_bstride, c_prev, cp_bstride, rk4, bias, dy,
                                dy_bstride, dh, dc, dx, dx_bstride, dbpart, B, H, W, f, kh, kw, s);
   }
 }
 
-template <typename T>
 cudaError_t dh_step(const void* dx, long long dx_bstride, const void* rkT4, void* dh, int B, int H,
                     int W, int f, int kh, int kw, cudaStream_t s) {
   switch (pixels_per_thread(H, W)) {
-    case 8: return launch_dh<T, 8>(dx, dx_bstride, rkT4, dh, B, H, W, f, kh, kw, s);
-    case 4: return launch_dh<T, 4>(dx, dx_bstride, rkT4, dh, B, H, W, f, kh, kw, s);
-    default: return launch_dh<T, 2>(dx, dx_bstride, rkT4, dh, B, H, W, f, kh, kw, s);
+    case 8: return launch_dh<8>(dx, dx_bstride, rkT4, dh, B, H, W, f, kh, kw, s);
+    case 4: return launch_dh<4>(dx, dx_bstride, rkT4, dh, B, H, W, f, kh, kw, s);
+    default: return launch_dh<2>(dx, dx_bstride, rkT4, dh, B, H, W, f, kh, kw, s);
   }
 }
 
-template <typename T>
-cudaError_t wgrad(const void* y, const void* h0c, const void* dx, void* part, int splits,
-                  long long chunk, const void* dbpart, int rows, void* drk, void* dbias, int B,
-                  int T_, int H, int W, int f, int kh, int kw, cudaStream_t s) {
+cudaError_t wgrad(int dtype, const void* y, const void* h0c, const void* dx, void* part,
+                  int splits, long long chunk, const void* dbpart, int rows, void* drk,
+                  void* dbias, int B, int T_, int H, int W, int f, int kh, int kw, cudaStream_t s) {
   const int M = kh * kw * f, N = 4 * f;
   const long long P = (long long)B * T_ * H * W;
   if (splits <= 0 || chunk <= 0 || (long long)splits * chunk < P) return cudaErrorInvalidValue;
-  const dim3 grid((M + kTileM - 1) / kTileM, (N + kTileN - 1) / kTileN, splits);
-  recurrent_wgrad_kernel<T><<<grid, 256, 0, s>>>(
-      static_cast<const T*>(y), static_cast<const T*>(h0c), static_cast<const T*>(dx),
-      static_cast<float*>(part), T_, H, W, f, kh, kw, P, chunk);
-  cudaError_t err = cudaGetLastError();
+  if (dtype == 1 && (long long)splits * chunk >= (1LL << 31)) return cudaErrorInvalidValue;
+  cudaError_t err;
+  if (dtype == 0) {
+    const dim3 grid((M + kTileM - 1) / kTileM, (N + kTileN - 1) / kTileN, splits);
+    recurrent_wgrad_kernel<<<grid, 256, 0, s>>>(
+        static_cast<const float*>(y), static_cast<const float*>(h0c),
+        static_cast<const float*>(dx), static_cast<float*>(part), T_, H, W, f, kh, kw, P, chunk);
+    err = cudaGetLastError();
+  } else {
+#define KCCOT_WGRAD_TC(CFG, VEC) \
+  launch_wgrad_tc<CFG, VEC>(y, h0c, dx, part, splits, chunk, T_, H, W, f, kh, kw, P, s)
+    if (f % 8 != 0) {
+      err = KCCOT_WGRAD_TC(Cfg64x64, false);
+    } else if (!aligned16(y) || !aligned16(h0c) || !aligned16(dx)) {
+      err = cudaErrorMisalignedAddress;
+    } else {
+      err = wgrad_shape(f) == k128x32 ? KCCOT_WGRAD_TC(Cfg128x32, true)
+                                      : KCCOT_WGRAD_TC(Cfg128x64, true);
+    }
+#undef KCCOT_WGRAD_TC
+  }
   if (err != cudaSuccess) return err;
   const long long MN = (long long)M * N;
   const int threads = 256;
@@ -414,12 +794,28 @@ cudaError_t wgrad(const void* y, const void* h0c, const void* dx, void* part, in
 
 }  // namespace
 
-// Rows of the db partial that kccot_convlstm_bwd_step accumulates into:
-// one per (sample, spatial tile), [rows, 4f] float32, zeroed by the caller.
-extern "C" int kccot_convlstm_bwd_rows(int B, int H, int W, int f) {
+// Rows of the db partial that kccot_convlstm_bwd_step accumulates into,
+// [rows, 4f] float32, zeroed by the caller: float32, one per (sample,
+// spatial tile); bfloat16, one per M tile of the gate GEMM.
+extern "C" int kccot_convlstm_bwd_rows(int dtype, int B, int H, int W, int f) {
   if (B <= 0 || H <= 0 || W <= 0 || f <= 0) return 0;
+  if (dtype == 1) {
+    const int bm = shape_bm(gate_shape(B, H, W, f));
+    return (int)(((long long)B * H * W + bm - 1) / bm);
+  }
   const Tile t = make_tile(H, W, f, pixels_per_thread(H, W));
   return B * t.tiles_w * t.tiles_h;
+}
+
+// Output tiles of the weight-gradient GEMM at M = kh*kw*f, N = 4f (the
+// wrapper splits K so that tiles x splits fill the card).
+extern "C" int kccot_recurrent_wgrad_tiles(int dtype, int M, int f) {
+  if (M <= 0 || f <= 0) return 0;
+  const int N = 4 * f;
+  if (dtype == 0) return ((M + kTileM - 1) / kTileM) * ((N + kTileN - 1) / kTileN);
+  const TcShape sh = wgrad_shape(f);
+  const int bm = shape_bm(sh), bn = sh == k128x32 ? 32 : 64;
+  return tc_blocks(M, N, bm, bn);
 }
 
 // Step t of the reverse loop, kernel 1 (module comment).  dtype 0 =
@@ -427,33 +823,36 @@ extern "C" int kccot_convlstm_bwd_rows(int B, int H, int W, int f) {
 // point at step t of their [B, T, H, W, *] stacks; hp at y[:, t-1] or at
 // cdt(h0); c_prev at c_stack[:, t-1] or at c0; each with its per-sample
 // stride in elements.  dh (read) and dc (read and written) are the f32
-// carries [B, H, W, f]; rk4 as in kccot_convlstm_fwd_step.
+// carries [B, H, W, f]; w as in kccot_convlstm_fwd_step (float32: rk4;
+// bfloat16: the packed gate weight, on the tensor cores).
 extern "C" int kccot_convlstm_bwd_step(int dtype, const void* x, long long x_bstride,
                                        const void* hp, long long hp_bstride, const void* c_prev,
-                                       long long cp_bstride, const void* rk4, const void* bias,
+                                       long long cp_bstride, const void* w, const void* bias,
                                        const void* dy, long long dy_bstride, const void* dh,
                                        void* dc, void* dx, long long dx_bstride, void* dbpart,
                                        int B, int H, int W, int f, int kh, int kw, void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || f <= 0 || kh <= 0 || kw <= 0) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return step<float>(x, x_bstride, hp, hp_bstride, c_prev, cp_bstride, rk4, bias, dy,
+    return step(x, x_bstride, hp, hp_bstride, c_prev, cp_bstride, w, bias, dy,
                        dy_bstride, dh, dc, dx, dx_bstride, dbpart, B, H, W, f, kh, kw, s);
   if (dtype == 1)
-    return step<__nv_bfloat16>(x, x_bstride, hp, hp_bstride, c_prev, cp_bstride, rk4, bias, dy,
-                               dy_bstride, dh, dc, dx, dx_bstride, dbpart, B, H, W, f, kh, kw, s);
+    return step_tc(x, x_bstride, hp, hp_bstride, c_prev, cp_bstride, w, bias, dy, dy_bstride, dh,
+                   dc, dx, dx_bstride, dbpart, B, H, W, f, kh, kw, s);
   return cudaErrorInvalidValue;
 }
 
 // Step t, kernel 2: dh [B, H, W, f] float32 from dx at step t (per-sample
-// stride dx_bstride) and rkT4 = cdt(rk) as float32, [kh, kw, 4f/4, f, 4].
+// stride dx_bstride) and w: float32, rkT4 = cdt(rk) as float32,
+// [kh, kw, 4f/4, f, 4]; bfloat16 (tensor cores), wT = cdt(rk) transposed,
+// [kh*kw*4f, 8*ceil(f/8)] (models/cuda_convlstm.py::_pack_dh).
 extern "C" int kccot_convlstm_bwd_dh(int dtype, const void* dx, long long dx_bstride,
-                                     const void* rkT4, void* dh, int B, int H, int W, int f,
+                                     const void* w, void* dh, int B, int H, int W, int f,
                                      int kh, int kw, void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || f <= 0 || kh <= 0 || kw <= 0) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dh_step<float>(dx, dx_bstride, rkT4, dh, B, H, W, f, kh, kw, s);
-  if (dtype == 1) return dh_step<__nv_bfloat16>(dx, dx_bstride, rkT4, dh, B, H, W, f, kh, kw, s);
+  if (dtype == 0) return dh_step(dx, dx_bstride, w, dh, B, H, W, f, kh, kw, s);
+  if (dtype == 1) return dh_tc(dx, dx_bstride, w, dh, B, H, W, f, kh, kw, s);
   return cudaErrorInvalidValue;
 }
 
@@ -461,19 +860,16 @@ extern "C" int kccot_convlstm_bwd_dh(int dtype, const void* dx, long long dx_bst
 // stack [B, T, H, W, f], h0c = cdt(h0) [B, H, W, f], the dx stack
 // [B, T, H, W, 4f] (all of the compute dtype), and the db partial
 // [rows, 4f].  part is float32 scratch [splits, kh*kw*f, 4f]; split s
-// covers pixels [s*chunk, (s+1)*chunk) of the B*T*H*W.  Two launches.
+// covers pixels [s*chunk, (s+1)*chunk) of the B*T*H*W.  Two launches:
+// the GEMM (CUDA cores for float32, tensor cores for bfloat16), then the
+// fixed-order finalize.
 extern "C" int kccot_recurrent_wgrad(int dtype, const void* y, const void* h0c, const void* dx,
                                      void* part, int splits, long long chunk, const void* dbpart,
                                      int rows, void* drk, void* dbias, int B, int T, int H, int W,
                                      int f, int kh, int kw, void* stream) {
   if (B <= 0 || T <= 0 || H <= 0 || W <= 0 || f <= 0 || kh <= 0 || kw <= 0 || rows < 0)
     return cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return wgrad<float>(y, h0c, dx, part, splits, chunk, dbpart, rows, drk, dbias, B, T, H, W, f,
-                        kh, kw, s);
-  if (dtype == 1)
-    return wgrad<__nv_bfloat16>(y, h0c, dx, part, splits, chunk, dbpart, rows, drk, dbias, B, T,
-                                H, W, f, kh, kw, s);
-  return cudaErrorInvalidValue;
+  if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
+  return wgrad(dtype, y, h0c, dx, part, splits, chunk, dbpart, rows, drk, dbias, B, T, H, W, f,
+               kh, kw, static_cast<cudaStream_t>(stream));
 }

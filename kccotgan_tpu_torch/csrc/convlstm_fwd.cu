@@ -3,9 +3,9 @@
 // Replaces kccotgan_tpu/models/pallas_convlstm.py::_fwd_kernel, the TPU
 // kernel that runs all T steps of a layer in one pallas_call with (h, c)
 // resident in VMEM.  Here the wrapper (models/cuda_convlstm.py) launches
-// this kernel once per step, with h and c double-buffered in device
-// memory: the encoder1 carry alone is 4 MiB of f32 at B=32, far beyond
-// one SM's shared memory, so the step boundary is a launch boundary.
+// this kernel once per step, with the carries in device memory: the
+// encoder1 carry alone is 4 MiB of f32 at B=32, far beyond one SM's
+// shared memory, so the step boundary is a launch boundary.
 //
 // What it computes, for every (sample, pixel, channel j):
 //   rconv_g = sum_{ky,kx,ci} cdt(h_{t-1})[y+ky-lo, x+kx-lo, ci] * cdt(rk)[ky,kx,ci,g*f+j]
@@ -17,18 +17,28 @@
 // Under autograd it also writes c_t into the f32 c stack (the TPU
 // kernel's cs_ref), which the backward reads.
 //
-// What bounds it: the recurrent conv, kh*kw*f*4f multiply-adds per pixel
-// (an implicit GEMM with M = B*H*W, N = 4f, K = kh*kw*f).  This first
-// version runs it on the CUDA cores in f32, not on the tensor cores, so
-// it is bound by FMA issue and by the loads feeding the FMAs.  What the
-// design does about that: each block stages its tile of h_{t-1}, halo
-// included, in shared memory once (rounded to the compute dtype, held as
-// f32 so the inner loop converts nothing); each thread keeps the four
-// gate sums of kPix pixels in registers, so one 16-byte load of a
-// weight's four gates (the wrapper interleaves them, [kh, kw, f, f, 4])
-// feeds 4*kPix FMAs (convlstm_tile.cuh).  The pre-activations never go
-// to device memory: the gate math runs on the accumulators.  wgmma, TMA
-// and fusing the T steps into one persistent launch are later work.
+// What bounds it: the recurrent conv, an implicit GEMM with M = B*H*W,
+// N = 4f, K = kh*kw*f (2*M*N*K FLOP a step), and, once that runs on the
+// tensor cores, the latency of one step's launch and K loop: the
+// largest step (dec4, M = 32768, N = 128, K = 2048) is 17 GFLOP, some
+// 20-40 us at the rates mma.sync reaches.  Two engines, by dtype:
+// * bf16 (dtype 1): the tensor cores (convlstm_tile.cuh, tc_gemm).  A is
+//   gathered from cdt(h_{t-1}) -- y[t-1], or cdt(h0) at t = 0, which the
+//   wrapper rounds once -- halo included; B is cdt(rk) packed once per
+//   call by the wrapper, [kh*kw*f, 16*ceil(f/4)], its columns ordered so
+//   that a thread's accumulators hold the four gates of its (pixel, j)
+//   and the gate math runs on them: the pre-activations never go to
+//   memory.  The tile is chosen per layer so a launch has at least one
+//   block per SM where the shape allows (enc4: 32x64 tiles, 256 blocks).
+//   bf16 x bf16 products are exact in f32, so only the order of the f32
+//   sums differs from the f32-FMA version.
+// * f32 (dtype 0): the CUDA cores in f32 FMA, as TF32 would miss the f32
+//   tolerance.  Each block stages its tile of h_{t-1}, halo included, in
+//   shared memory once; each thread keeps the four gate sums of kPix
+//   pixels in registers, so one 16-byte load of a weight's four gates
+//   (interleaved [kh, kw, f, f, 4]) feeds 4*kPix FMAs.
+// wgmma, TMA and fusing the T steps into one persistent launch are later
+// work.
 
 #include "convlstm_tile.cuh"
 
@@ -36,13 +46,13 @@ namespace {
 
 using namespace kccot;
 
-template <typename T, int kPix>
+template <int kPix>
 __global__ void __launch_bounds__(kThreads)
-convlstm_step_kernel(const T* __restrict__ x, long long x_bstride,
+convlstm_step_kernel(const float* __restrict__ x, long long x_bstride,
                      const float* __restrict__ h_prev, const float* __restrict__ c_prev,
                      const float4* __restrict__ rk4, const float* __restrict__ bias,
                      float* __restrict__ h_next, float* __restrict__ c_next,
-                     T* __restrict__ y, long long y_bstride,
+                     float* __restrict__ y, long long y_bstride,
                      float* __restrict__ cs, long long cs_bstride,
                      int H, int W, int f, int kh, int kw,
                      int tile_h, int tile_w, int tiles_w) {
@@ -52,7 +62,7 @@ convlstm_step_kernel(const T* __restrict__ x, long long x_bstride,
   const int ty0 = (blockIdx.x / tiles_w) * tile_h;
   const int tx0 = (blockIdx.x % tiles_w) * tile_w;
   const int sw = tile_w + kw - 1;
-  stage_h<T>(hs, h_prev + (long long)b * H * W * f, H, W, f, kh, kw, ty0, tx0, tile_h, tile_w);
+  stage_h(hs, h_prev + (long long)b * H * W * f, H, W, f, kh, kw, ty0, tx0, tile_h, tile_w);
   __syncthreads();
 
   const int j = blockIdx.y * blockDim.x + threadIdx.x;
@@ -76,22 +86,22 @@ convlstm_step_kernel(const T* __restrict__ x, long long x_bstride,
     const int gy = ty0 + q / tile_w, gx = tx0 + q % tile_w;
     if (q >= tile_h * tile_w || gy >= H || gx >= W) continue;
     const long long pix = (long long)gy * W + gx;
-    const T* xp = x + b * x_bstride + pix * f4 + j;
+    const float* xp = x + b * x_bstride + pix * f4 + j;
     float z[4];
 #pragma unroll
     for (int g = 0; g < 4; ++g)
-      z[g] = (to_f32(xp[g * f]) + bias[g * f + j]) + round_to<T>(acc[p][g]);
+      z[g] = (xp[g * f] + bias[g * f + j]) + acc[p][g];
     const long long s = ((long long)b * H * W + pix) * f + j;
     const float c = sigmoid(z[1]) * c_prev[s] + sigmoid(z[0]) * tanhf(z[2]);
     const float h = sigmoid(z[3]) * tanhf(c);
     c_next[s] = c;
     h_next[s] = h;
-    y[b * y_bstride + pix * f + j] = from_f32<T>(h);
+    y[b * y_bstride + pix * f + j] = h;
     if (cs != nullptr) cs[b * cs_bstride + pix * f + j] = c;
   }
 }
 
-template <typename T, int kPix>
+template <int kPix>
 cudaError_t launch(const void* x, long long x_bstride, const void* h_prev, const void* c_prev,
                    const void* rk4, const void* bias, void* h_next, void* c_next, void* y,
                    long long y_bstride, void* cs, long long cs_bstride, int B, int H, int W,
@@ -100,34 +110,109 @@ cudaError_t launch(const void* x, long long x_bstride, const void* h_prev, const
   const dim3 block(t.jt, t.nruns);
   const dim3 grid(t.tiles_w * t.tiles_h, (f + t.jt - 1) / t.jt, B);
   const size_t smem = (size_t)(t.tile_h + kh - 1) * (t.tile_w + kw - 1) * f * sizeof(float);
-  const cudaError_t err = allow_smem((const void*)convlstm_step_kernel<T, kPix>, smem);
+  const cudaError_t err = allow_smem((const void*)convlstm_step_kernel<kPix>, smem);
   if (err != cudaSuccess) return err;
-  convlstm_step_kernel<T, kPix><<<grid, block, smem, stream>>>(
-      static_cast<const T*>(x), x_bstride, static_cast<const float*>(h_prev),
+  convlstm_step_kernel<kPix><<<grid, block, smem, stream>>>(
+      static_cast<const float*>(x), x_bstride, static_cast<const float*>(h_prev),
       static_cast<const float*>(c_prev), static_cast<const float4*>(rk4),
       static_cast<const float*>(bias), static_cast<float*>(h_next),
-      static_cast<float*>(c_next), static_cast<T*>(y), y_bstride, static_cast<float*>(cs),
+      static_cast<float*>(c_next), static_cast<float*>(y), y_bstride, static_cast<float*>(cs),
       cs_bstride, H, W, f, kh, kw, t.tile_h, t.tile_w, t.tiles_w);
   return cudaGetLastError();
 }
 
-template <typename T>
 cudaError_t dispatch(const void* x, long long x_bstride, const void* h_prev, const void* c_prev,
                      const void* rk4, const void* bias, void* h_next, void* c_next, void* y,
                      long long y_bstride, void* cs, long long cs_bstride, int B, int H, int W,
                      int f, int kh, int kw, cudaStream_t stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || f <= 0 || kh <= 0 || kw <= 0) return cudaErrorInvalidValue;
   switch (pixels_per_thread(H, W)) {
     case 8:
-      return launch<T, 8>(x, x_bstride, h_prev, c_prev, rk4, bias, h_next, c_next, y, y_bstride,
+      return launch<8>(x, x_bstride, h_prev, c_prev, rk4, bias, h_next, c_next, y, y_bstride,
                           cs, cs_bstride, B, H, W, f, kh, kw, stream);
     case 4:
-      return launch<T, 4>(x, x_bstride, h_prev, c_prev, rk4, bias, h_next, c_next, y, y_bstride,
+      return launch<4>(x, x_bstride, h_prev, c_prev, rk4, bias, h_next, c_next, y, y_bstride,
                           cs, cs_bstride, B, H, W, f, kh, kw, stream);
     default:
-      return launch<T, 2>(x, x_bstride, h_prev, c_prev, rk4, bias, h_next, c_next, y, y_bstride,
+      return launch<2>(x, x_bstride, h_prev, c_prev, rk4, bias, h_next, c_next, y, y_bstride,
                           cs, cs_bstride, B, H, W, f, kh, kw, stream);
   }
+}
+
+// bf16, tensor cores.  wpk is cdt(rk) as [kh*kw*f, npad] with the gate
+// columns interleaved (for_each_gate_quad); hp is cdt(h_{t-1}).
+template <class Cfg, bool kVec>
+__global__ void __launch_bounds__(Cfg::kThreads)
+convlstm_step_tc_kernel(const bf16* __restrict__ x, long long x_bstride,
+                        const bf16* __restrict__ hp, long long hp_bstride,
+                        const float* __restrict__ c_prev, const bf16* __restrict__ wpk, int npad,
+                        const float* __restrict__ bias, float* __restrict__ h_next,
+                        float* __restrict__ c_next, bf16* __restrict__ y, long long y_bstride,
+                        float* __restrict__ cs, long long cs_bstride,
+                        int B, int H, int W, int f, int kh, int kw) {
+  extern __shared__ __align__(16) unsigned char fwd_tc_smem[];
+  const int HW = H * W, M = B * HW, K = kh * kw * f;
+  const int m0 = blockIdx.x * Cfg::BM, n0 = blockIdx.y * Cfg::BN;
+  int kt0, kt1;
+  split_range((K + Cfg::BK - 1) / Cfg::BK, blockIdx.z, gridDim.z, kt0, kt1);
+  ConvGatherA<Cfg, kVec> load_a(hp, hp_bstride, H, W, f, kw, K, 1, -(kh - 1) / 2, -(kw - 1) / 2,
+                                m0, M, kt0);
+  const DenseB<Cfg> load_b{wpk, K, npad, n0};
+  float acc[2][Cfg::NI][4];
+  tc_gemm<Cfg, false>(acc, reinterpret_cast<bf16*>(fwd_tc_smem), kt0, kt1, load_a, load_b);
+  if (!cluster_sum<Cfg>(acc, fwd_tc_smem, gridDim.z)) return;
+
+  const int f4 = 4 * f;
+  for_each_gate_quad<Cfg>(acc, m0, n0, [&](int m, int j, int, const float(&a)[4]) {
+    if (m >= M || j >= f) return;
+    const int b = m / HW, pix = m - b * HW;
+    const bf16* xp = x + b * x_bstride + (long long)pix * f4 + j;
+    float z[4];
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+      z[g] = (to_f32(xp[g * f]) + bias[g * f + j]) + round_to<bf16>(a[g]);
+    const long long s = (long long)m * f + j;
+    const float c = sigmoid(z[1]) * c_prev[s] + sigmoid(z[0]) * tanhf(z[2]);
+    const float h = sigmoid(z[3]) * tanhf(c);
+    c_next[s] = c;
+    h_next[s] = h;
+    y[b * y_bstride + (long long)pix * f + j] = from_f32<bf16>(h);
+    if (cs != nullptr) cs[b * cs_bstride + (long long)pix * f + j] = c;
+  });
+}
+
+template <class Cfg, bool kVec>
+cudaError_t launch_tc(const void* x, long long x_bstride, const void* hp, long long hp_bstride,
+                      const void* c_prev, const void* wpk, const void* bias, void* h_next,
+                      void* c_next, void* y, long long y_bstride, void* cs, long long cs_bstride,
+                      int B, int H, int W, int f, int kh, int kw, cudaStream_t stream) {
+  const int npad = 16 * ((f + 3) / 4);
+  const long long M = (long long)B * H * W;
+  const dim3 grid((unsigned)((M + Cfg::BM - 1) / Cfg::BM), (npad + Cfg::BN - 1) / Cfg::BN);
+  const int split = pick_split(grid.x * grid.y, (kh * kw * f + Cfg::BK - 1) / Cfg::BK);
+  return launch_split<Cfg>(
+      convlstm_step_tc_kernel<Cfg, kVec>, grid, split, stream, static_cast<const bf16*>(x),
+      x_bstride, static_cast<const bf16*>(hp), hp_bstride, static_cast<const float*>(c_prev),
+      static_cast<const bf16*>(wpk), npad, static_cast<const float*>(bias),
+      static_cast<float*>(h_next), static_cast<float*>(c_next), static_cast<bf16*>(y), y_bstride,
+      static_cast<float*>(cs), cs_bstride, B, H, W, f, kh, kw);
+}
+
+cudaError_t dispatch_tc(const void* x, long long x_bstride, const void* hp, long long hp_bstride,
+                        const void* c_prev, const void* wpk, const void* bias, void* h_next,
+                        void* c_next, void* y, long long y_bstride, void* cs, long long cs_bstride,
+                        int B, int H, int W, int f, int kh, int kw, cudaStream_t stream) {
+#define KCCOT_FWD_TC(CFG, VEC)                                                                  \
+  launch_tc<CFG, VEC>(x, x_bstride, hp, hp_bstride, c_prev, wpk, bias, h_next, c_next, y,      \
+                      y_bstride, cs, cs_bstride, B, H, W, f, kh, kw, stream)
+  if (f % 8 != 0) return KCCOT_FWD_TC(Cfg64x64, false);
+  if (!aligned16(hp) || hp_bstride % 8 != 0) return cudaErrorMisalignedAddress;
+  switch (pick_shape((long long)B * H * W, 16 * ((f + 3) / 4))) {
+    case k128x64: return KCCOT_FWD_TC(Cfg128x64, true);
+    case k64x64: return KCCOT_FWD_TC(Cfg64x64, true);
+    case k32x64: return KCCOT_FWD_TC(Cfg32x64, true);
+    default: return KCCOT_FWD_TC(Cfg128x32, true);
+  }
+#undef KCCOT_FWD_TC
 }
 
 }  // namespace
@@ -135,23 +220,30 @@ cudaError_t dispatch(const void* x, long long x_bstride, const void* h_prev, con
 // One step: dtype 0 = float32, 1 = bfloat16 (the dtype of x and y).
 // x and y point at time step t of [B, T, H, W, 4f] / [B, T, H, W, f]
 // stacks, with the given per-sample strides in elements; h and c are
-// [B, H, W, f] float32; rk4 is the recurrent kernel rounded to the
-// compute dtype, held as float32 with its gates interleaved,
-// [kh, kw, f_in, f_out, 4] (16-byte aligned); bias [4f] float32.  cs,
-// if not null, points at step t of the f32 c stack [B, T, H, W, f].
+// [B, H, W, f] float32; bias [4f] float32.  cs, if not null, points at
+// step t of the f32 c stack [B, T, H, W, f].
+// float32: the CUDA-core kernel reads h_prev; w is rk4, the recurrent
+// kernel as float32 with its gates interleaved, [kh, kw, f_in, f_out, 4]
+// (16-byte aligned); hp is not read.
+// bfloat16: the tensor-core kernel reads hp = cdt(h_{t-1}) (y at step
+// t-1, or cdt(h0)) with per-sample stride hp_bstride; w is cdt(rk)
+// packed [kh*kw*f, 16*ceil(f/4)] (models/cuda_convlstm.py::_pack_gates);
+// h_prev is not read.
 // Returns the launch's cudaError_t (0 on success).
 extern "C" int kccot_convlstm_fwd_step(int dtype, const void* x, long long x_bstride,
-                                       const void* h_prev, const void* c_prev, const void* rk4,
-                                       const void* bias, void* h_next, void* c_next, void* y,
-                                       long long y_bstride, void* cs, long long cs_bstride,
-                                       int B, int H, int W, int f, int kh, int kw, void* stream) {
+                                       const void* h_prev, const void* hp, long long hp_bstride,
+                                       const void* c_prev, const void* w, const void* bias,
+                                       void* h_next, void* c_next, void* y, long long y_bstride,
+                                       void* cs, long long cs_bstride, int B, int H, int W, int f,
+                                       int kh, int kw, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B <= 0 || H <= 0 || W <= 0 || f <= 0 || kh <= 0 || kw <= 0) return cudaErrorInvalidValue;
   if (dtype == 0)
-    return dispatch<float>(x, x_bstride, h_prev, c_prev, rk4, bias, h_next, c_next, y, y_bstride,
+    return dispatch(x, x_bstride, h_prev, c_prev, w, bias, h_next, c_next, y, y_bstride,
                            cs, cs_bstride, B, H, W, f, kh, kw, s);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(x, x_bstride, h_prev, c_prev, rk4, bias, h_next, c_next, y,
-                                   y_bstride, cs, cs_bstride, B, H, W, f, kh, kw, s);
+    return dispatch_tc(x, x_bstride, hp, hp_bstride, c_prev, w, bias, h_next, c_next, y,
+                       y_bstride, cs, cs_bstride, B, H, W, f, kh, kw, s);
   return cudaErrorInvalidValue;
 }
 

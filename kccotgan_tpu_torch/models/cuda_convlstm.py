@@ -23,8 +23,12 @@ the sum of ``cdt(h_{t-1})^T cdt(dz)`` over steps, samples and pixels.
 Dispatch: CPU tensors run the plain versions (``convlstm_fwd_reference``,
 ``convlstm_bwd_reference``); CUDA tensors launch ``csrc/convlstm_fwd.cu``
 once per time step and ``csrc/convlstm_bwd.cu`` twice per step plus twice
-for the weight gradient (or raise).  Each wrapper counts its calls in
-``.calls`` and its kernel launches in ``.launches``.
+for the weight gradient (or raise).  The compute dtype picks the engine
+inside each kernel: bf16 runs the recurrent conv, dh and drk as implicit
+GEMMs on the tensor cores, with the weights packed here once per call
+(``_pack_gates``, ``_pack_dh``); f32 runs them on the CUDA cores in f32
+FMA (``_rk4``).  Each wrapper counts its calls in ``.calls`` and its
+kernel launches in ``.launches``.
 """
 
 from __future__ import annotations
@@ -179,12 +183,36 @@ def _rk4(rec_kernel, cdt):
     )
 
 
+def _pack_gates(rec_kernel, cdt):
+    """cdt(rk) as the tensor-core gate GEMM's B, [kh*kw*f, 16*ceil(f/4)]:
+    row (ky*kw + kx)*f + ci; gate g of channel j in column
+    16*(j//4) + 8*(g//2) + 2*(j%4) + g%2, so that one thread's
+    accumulators hold the four gates of a (pixel, j); zero columns for
+    the channels past f."""
+    kh, kw, f, f4 = rec_kernel.shape
+    jp = -(-f // 4) * 4
+    w = rec_kernel.detach().to(cdt).reshape(kh * kw * f, 4, f)
+    w = F.pad(w, (0, jp - f))  # [K, g, j]
+    w = w.reshape(-1, 2, 2, jp // 4, 4).permute(0, 3, 1, 4, 2)  # [K, j//4, g//2, j%4, g%2]
+    return w.reshape(kh * kw * f, 4 * jp).contiguous()
+
+
+def _pack_dh(rec_kernel, cdt):
+    """cdt(rk) transposed as the tensor-core dh GEMM's B,
+    [kh*kw*4f, 8*ceil(f/8)]: row (ky*kw + kx)*4f + n, column ci."""
+    kh, kw, f, f4 = rec_kernel.shape
+    w = rec_kernel.detach().to(cdt).permute(0, 1, 3, 2).reshape(kh * kw * f4, f)
+    return F.pad(w, (0, -(-f // 8) * 8 - f)).contiguous()
+
+
 def _launch_fwd(xconv, h0, c0, rec_kernel, bias, with_c_stack):
     from .._build import load_library
 
     b, t, ho, wo, f, kh, kw = _geometry(xconv, h0, c0, rec_kernel, bias)
     cdt, dev = xconv.dtype, xconv.device
-    rk4 = _rk4(rec_kernel, cdt)
+    tc = cdt == torch.bfloat16  # tensor cores; they read h_{t-1} as y[t-1] or cdt(h0)
+    w = _pack_gates(rec_kernel, cdt) if tc else _rk4(rec_kernel, cdt)
+    h0c = h0.to(cdt) if tc else None
     lib = load_library()
     y = torch.empty(b, t, ho, wo, f, dtype=cdt, device=dev)
     cs = torch.empty(b, t, ho, wo, f, dtype=torch.float32, device=dev) if with_c_stack else None
@@ -199,11 +227,17 @@ def _launch_fwd(xconv, h0, c0, rec_kernel, bias, with_c_stack):
     convlstm_fwd.calls += 1
     for s in range(t):
         h_next, c_next = hbuf[s % 2], cbuf[s % 2]
+        if not tc:
+            hp, hp_bstride = None, 0
+        elif s:
+            hp, hp_bstride = y.data_ptr() + (s - 1) * hw * f * isz, y_bstride
+        else:
+            hp, hp_bstride = h0c.data_ptr(), hw * f
         err = lib.kccot_convlstm_fwd_step(
             _DTYPE_CODES[cdt],
             xconv.data_ptr() + s * hw * 4 * f * isz, x_bstride,
-            h_prev.data_ptr(), c_prev.data_ptr(),
-            rk4.data_ptr(), bias.data_ptr(),
+            h_prev.data_ptr(), hp, hp_bstride, c_prev.data_ptr(),
+            w.data_ptr(), bias.data_ptr(),
             h_next.data_ptr(), c_next.data_ptr(),
             y.data_ptr() + s * hw * f * isz, y_bstride,
             cs.data_ptr() + s * hw * f * 4 if cs is not None else None, y_bstride,
@@ -227,6 +261,14 @@ def convlstm_fwd(xconv, h0, c0, rec_kernel, bias, with_c_stack=False):
     raise ValueError(f"convlstm: inputs on devices {sorted(devices)}")
 
 
+def _wgrad_splits(pixels, tiles):
+    """``(splits, chunk)`` of the weight gradient's sum over ``pixels``
+    with ``tiles`` output tiles: split until about 4 blocks per SM of 132
+    are in flight, but keep at least 256 pixels a split."""
+    splits = max(1, min(-(-528 // tiles), pixels // 256))
+    return splits, -(-pixels // splits)
+
+
 def recurrent_wgrad(lib, y, h0c, dx, dbpart, kh, kw):
     """``(drk [kh, kw, f, 4f], db [4f])`` by ``kccot_recurrent_wgrad``
     (two launches): ``y [B, T, H, W, f]`` and ``h0c`` give ``cdt(h_{t-1})``,
@@ -235,17 +277,14 @@ def recurrent_wgrad(lib, y, h0c, dx, dbpart, kh, kw):
     b, t, ho, wo, f = y.shape
     f4, m = 4 * f, kh * kw * f
     pixels = b * t * ho * wo
-    tiles = -(-m // 64) * -(-f4 // 64)
-    # split the B*T*H*W sum until about 4 blocks per SM of 132 are in
-    # flight, but keep at least 256 pixels a split
-    splits = max(1, min(-(-528 // tiles), pixels // 256))
-    chunk = -(-pixels // splits)
+    code = _DTYPE_CODES[y.dtype]
+    splits, chunk = _wgrad_splits(pixels, lib.kccot_recurrent_wgrad_tiles(code, m, f))
     dev = y.device
     part = torch.empty(splits, m, f4, dtype=torch.float32, device=dev)
     drk = torch.empty(kh, kw, f, f4, dtype=torch.float32, device=dev)
     db = torch.empty(f4, dtype=torch.float32, device=dev)
     err = lib.kccot_recurrent_wgrad(
-        _DTYPE_CODES[y.dtype], y.data_ptr(), h0c.data_ptr(), dx.data_ptr(), part.data_ptr(),
+        code, y.data_ptr(), h0c.data_ptr(), dx.data_ptr(), part.data_ptr(),
         splits, chunk, dbpart.data_ptr(), dbpart.shape[0], drk.data_ptr(), db.data_ptr(),
         b, t, ho, wo, f, kh, kw, torch.cuda.current_stream(dev).cuda_stream,
     )
@@ -263,19 +302,23 @@ def _launch_bwd(xconv, h0, c0, rec_kernel, bias, y, c_stack, dy, dh_n, dc_n):
     _check("dh_n", dh_n, (b, ho, wo, f), torch.float32, dev)
     _check("dc_n", dc_n, (b, ho, wo, f), torch.float32, dev)
     f4 = 4 * f
-    rk4 = _rk4(rec_kernel, cdt)
-    # [kh, kw, 4f/4, f, 4]: four consecutive output channels n of one ci
-    rkT4 = (
-        rec_kernel.detach().to(cdt).float()
-        .reshape(kh, kw, f, f4 // 4, 4).permute(0, 1, 3, 2, 4).contiguous()
-    )
+    if cdt == torch.bfloat16:  # tensor cores
+        w, wT = _pack_gates(rec_kernel, cdt), _pack_dh(rec_kernel, cdt)
+    else:
+        w = _rk4(rec_kernel, cdt)
+        # [kh, kw, 4f/4, f, 4]: four consecutive output channels n of one ci
+        wT = (
+            rec_kernel.detach().to(cdt).float()
+            .reshape(kh, kw, f, f4 // 4, 4).permute(0, 1, 3, 2, 4).contiguous()
+        )
     h0c = h0.to(cdt)  # h_{-1} as the kernels read y: rounded to the compute dtype
     lib = load_library()
+    code = _DTYPE_CODES[cdt]
     dh, dc = dh_n.clone(), dc_n.clone()
     dx = torch.empty_like(xconv)
-    dbpart = torch.zeros(lib.kccot_convlstm_bwd_rows(b, ho, wo, f), f4, device=dev)
+    dbpart = torch.zeros(lib.kccot_convlstm_bwd_rows(code, b, ho, wo, f), f4, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    code, isz, hw = _DTYPE_CODES[cdt], xconv.element_size(), ho * wo
+    isz, hw = xconv.element_size(), ho * wo
     x_bs, y_bs = t * hw * f4, t * hw * f
     convlstm_bwd.calls += 1
     for s in reversed(range(t)):
@@ -287,13 +330,13 @@ def _launch_bwd(xconv, h0, c0, rec_kernel, bias, y, c_stack, dy, dh_n, dc_n):
         dx_t = dx.data_ptr() + s * hw * f4 * isz
         err = lib.kccot_convlstm_bwd_step(
             code, xconv.data_ptr() + s * hw * f4 * isz, x_bs, hp, hp_bs, cp, cp_bs,
-            rk4.data_ptr(), bias.data_ptr(), dy.data_ptr() + s * hw * f * isz, y_bs,
+            w.data_ptr(), bias.data_ptr(), dy.data_ptr() + s * hw * f * isz, y_bs,
             dh.data_ptr(), dc.data_ptr(), dx_t, x_bs, dbpart.data_ptr(),
             b, ho, wo, f, kh, kw, stream,
         )
         _raise_on(lib, err, "convlstm_bwd step")
         err = lib.kccot_convlstm_bwd_dh(
-            code, dx_t, x_bs, rkT4.data_ptr(), dh.data_ptr(), b, ho, wo, f, kh, kw, stream
+            code, dx_t, x_bs, wT.data_ptr(), dh.data_ptr(), b, ho, wo, f, kh, kw, stream
         )
         _raise_on(lib, err, "convlstm_bwd dh")
         convlstm_bwd.launches += 2

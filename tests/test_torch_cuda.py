@@ -10,10 +10,14 @@ is registered in ``pyproject.toml``.)  The ConvLSTM shapes are
 the awkward ones ``chip_smoke.py`` does not reach: frames whose pixel
 count is not a multiple of a thread's pixel run, channel counts that are not a
 multiple of its 32-channel tile, a rectangular frame, and shared memory
-beyond the default 48 KiB; the backward adds B=1 and f=2.  The LSTM
+beyond the default 48 KiB; the backward adds B=1 and f=2.  The bf16
+engine (tensor cores) adds ragged M, f = 8 and 256 on a 4x4 frame, f =
+12 (its element-by-element gather) and the bitwise determinism of drk
+and db.  The LSTM
 shapes: B=1, U=3 (an odd U, and fewer units than a warp), ragged row
-blocks (B=5), and U=64, whose staged recurrent kernel needs more than
-48 KiB of shared memory.  The Sinkhorn sizes cover fewer rows than a
+blocks (B=5), U=64, whose staged recurrent kernel needs more than
+48 KiB of shared memory, and lstm1's B=32, T=20, U=64, whose dR takes
+the tensor cores' vectorised gather in bf16.  The Sinkhorn sizes cover fewer rows than a
 warp (2, 6), a ragged second warp column (33) and shared memory beyond
 48 KiB (128), at eps 0.7.
 
@@ -151,6 +155,41 @@ def test_convlstm_backward_matches_plain(cuda, b, h, w, f, k, dtype):
     _assert_grads_close(got, want, dtype, ("dx", "dh0", "dc0", "drk", "db"))
 
 
+@pytest.mark.parametrize(
+    "b,h,w,f,k",
+    [(3, 5, 7, 16, 3), (2, 4, 4, 8, 8), (2, 4, 4, 256, 5), (3, 6, 6, 24, 4), (1, 9, 9, 12, 3)],
+)
+def test_tensor_core_path_matches_plain(cuda, b, h, w, f, k):
+    """The bf16 engine (tensor cores) at ragged M (B=3 on 5x7 frames, not
+    a multiple of any tile), f = 8 and f = 256 on a 4x4 frame, odd and
+    even k, and f = 12 (channels not a multiple of 8: the gather copies
+    element by element), forward and backward."""
+    args = _inputs(b, 5, h, w, f, k, torch.bfloat16, cuda, seed=3 * f + k)
+    with torch.no_grad():
+        (y, cs), fwd_p, cot = _bwd_args(convlstm_fwd_reference, args, cuda, seed=f)
+        got_fwd = convlstm_fwd(*args, with_c_stack=True)
+        got = convlstm_bwd(*args, y, cs, *cot)
+        want = convlstm_bwd_reference(*args, y, cs, *cot)
+    torch.cuda.synchronize()
+    for g, r in zip(got_fwd, fwd_p):
+        torch.testing.assert_close(g.float(), r.float(), rtol=0, atol=TOL[torch.bfloat16])
+    _assert_grads_close(got, want, torch.bfloat16, ("dx", "dh0", "dc0", "drk", "db"))
+
+
+def test_weight_gradient_is_deterministic(cuda):
+    """drk and db (split-K partials and db rows summed in a fixed order,
+    no atomics) come out bitwise equal from two calls, bf16 and f32."""
+    for dtype in (torch.bfloat16, torch.float32):
+        args = _inputs(4, 6, 8, 8, 32, 5, dtype, cuda, seed=11)
+        with torch.no_grad():
+            (y, cs), _, cot = _bwd_args(convlstm_fwd_reference, args, cuda, seed=12)
+            first = convlstm_bwd(*args, y, cs, *cot)
+            second = convlstm_bwd(*args, y, cs, *cot)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("dx", "dh0", "dc0", "drk", "db"), first, second):
+            assert torch.equal(a, b), (dtype, name)
+
+
 def _lstm_inputs(b, t, u, dtype, dev, seed=0):
     g = torch.Generator().manual_seed(seed)
     xproj = torch.randn(b, t, 4 * u, generator=g).to(dev, dtype)
@@ -163,7 +202,7 @@ def _lstm_inputs(b, t, u, dtype, dev, seed=0):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,t,u,act", [(1, 3, 3, "tanh"), (5, 4, 3, "sigmoid"), (3, 6, 64, "tanh"),
-                                       (4, 5, 8, "sigmoid")])
+                                       (4, 5, 8, "sigmoid"), (32, 20, 64, "tanh")])
 def test_lstm_kernels_match_plain(cuda, b, t, u, act, dtype):
     args = _lstm_inputs(b, t, u, dtype, cuda, seed=u)
     with torch.no_grad():
