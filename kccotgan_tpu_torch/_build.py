@@ -88,12 +88,14 @@ def load_library() -> ctypes.CDLL:
         "kccot_convlstm_bwd_rows": [i, i, i, i, i],
         "kccot_recurrent_wgrad_tiles": [i, i, i],
         "kccot_recurrent_wgrad": [i, p, p, p, p, i, ll, p, i, p, p, i, i, i, i, i, i, i, p],
-        "kccot_lstm_fwd": [i, i, p, p, p, p, p, p, p, p, p, i, i, i, p],
-        "kccot_lstm_bwd": [i, i, p, p, p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, p],
+        "kccot_lstm_fwd": [i, i, *[p] * 9, i, i, i, p],
+        "kccot_lstm_bwd": [i, i, *[p] * 16, i, i, i, p],
     }
     for name, types in argtypes.items():
         getattr(lib, name).argtypes = types
         getattr(lib, name).restype = i
+    lib.kccot_lstm_bwd_scratch.argtypes = [i, i, i]
+    lib.kccot_lstm_bwd_scratch.restype = ll
     f = ctypes.c_float
     lib.kccot_sinkhorn_fwd.argtypes = [p, p, p, p, i, i, i, f, p]
     lib.kccot_sinkhorn_fwd.restype = i

@@ -1,179 +1,535 @@
-// Dense LSTM backward, all T steps in one launch, for Hopper (sm_90a).
+// Dense LSTM backward, all T steps, dR and db in one launch, for Hopper
+// (sm_90a).
 //
 // Replaces kccotgan_tpu/models/pallas_lstm.py::_bwd_kernel, the TPU
 // kernel that walks t = T-1 .. 0, recomputing the gates from the saved
 // y and c stacks and accumulating dR and db in VMEM across the grid.
-// Here each block owns `rows` batch rows for all T steps (rows are
+// Here each block owns a group of batch rows for all T steps (rows are
 // independent), per step:
 //
 //   recompute z_t from cdt(h_{t-1}) (y[t-1], or cdt(h0) at t=0), the x
 //   stack, b and c_{t-1} (c stack, or c0), as the forward did;
 //   dh = dh_carry + dy_t;  dc = dc_carry + dh*o*act'(act(c_t))
 //   dz = [dc*g*i(1-i), dc*c_{t-1}*f(1-f), dc*i*act'(g), dh*act(c_t)*o(1-o)]
-//   dx_t = cdt(dz);  db_row += dz (f32)
+//   dx_t = cdt(dz);  db += dz (f32)
 //   dh_carry = cdt(dz) @ cdt(R)^T, accumulated in f32, not rounded
 //   dc_carry = dc * f
+//   dR += cdt(h_{t-1})^T cdt(dz), accumulated in f32
 // with act' written on the activation's value (1 - a^2 for tanh, a(1-a)
-// for sigmoid), as the TPU kernel's _dact.  dR = sum over rows and steps
-// of cdt(h_{t-1})^T cdt(dz_t) is the ConvLSTM's weight-gradient sum with
-// a 1x1 frame and kernel (convlstm_bwd.cu, kccot_recurrent_wgrad), run
-// after this kernel on the saved y and dx stacks; it also adds the
-// per-row db partials this kernel writes.  Both sums run in a fixed
-// order: no atomics.
+// for sigmoid), as the TPU kernel's _dact.
 //
-// What bounds it: latency, as the forward (3 chains of U or 4U dependent
-// FMAs and three barriers a step).  What the design does: one launch for
-// all T steps; R (rounded to the compute dtype, as f32) is staged once
-// in shared memory transposed, [4U][U+1]: the recompute reads
-// R^T[g*U+j][k] and dh reads R^T[n][j], both conflict-free for even U
-// thanks to the padding column; a thread owns one (row, unit j), keeps
-// dh, dc and its four db sums in registers, and only h_{t-1} and the
-// rounded dz row pass through shared memory.
+// dR and db without float atomics, the same on every run: each block
+// keeps its rows' partial sums (registers, or shared memory), and the
+// blocks of a call form one thread-block cluster; each block adds a share
+// of the entries over the cluster's shared memory, rank 0's partial
+// first (lstm_tile.cuh, finish_wgrad).  A call with
+// more blocks than a cluster holds (kMaxCluster; B > 64 in bf16, B >
+// 8 * rows in f32) is an explicit second path: each block writes its
+// partial to a scratch buffer the wrapper allocates, and
+// lstm_wgrad_sum_kernel adds them in block order in a second launch.
+// At mmnist_full (B = 32) every call is one launch.
+//
+// What bounds it on this card: as the forward, the serial chain of T
+// steps (latency), not bytes or FLOPs.  What the design does about it:
+// * bf16: the three per-step products on the tensor cores (layouts in
+//   lstm_tile.cuh), 8 rows a block (half an m16 tile), a thread one
+//   (row, unit): the recompute h_{t-1} @ R (B fragments held in registers
+//   for all T steps); after the step's first barrier, dh^T = cdt(R)
+//   cdt(dz)^T (M = U, N = the 8 rows, K = 4U split in four slices over
+//   the warps; A from the same shared bf16 copy of R by plain ldmatrix,
+//   held in registers for all T steps), whose partials meet in shared
+//   memory at the step's second barrier, and dR += h_{t-1}^T cdt(dz) (M =
+//   U, N = 4U, K = the rows; A by ldmatrix.trans of the staged h, B by
+//   ldmatrix.trans of the staged dz), which no later step waits for.
+//   h_{t-1} is triple-buffered and dz double-buffered in shared memory:
+//   a step has two barriers, one after dz and the next h are staged, one
+//   after dh's partials.
+// * f32: the CUDA cores, a thread a (row, unit), U a template parameter
+//   for 8, 32, 64 (dR partials in registers) and a generic instantiation
+//   (dR partials in shared memory); R staged once, gates of (k, j) side
+//   by side, rows padded to U+1 float4 so that the recompute (R[k][j]
+//   over j) and dh (R[j][j'] over j) both read it without bank conflicts.
+// * Both: step t-2's x, c, dy and h are loaded into registers during
+//   step t; dx is written row-contiguous; R is read as stored (f32) and
+//   rounded while staging, h0 rounded in the kernel: the wrapper launches
+//   nothing else.
 
-#include "convlstm_tile.cuh"
+#include "lstm_tile.cuh"
 
 namespace {
 
 using namespace kccot;
+using namespace kccot::lstm;
 
-__device__ __forceinline__ float activation(float z, int act) {
-  return act == 0 ? tanhf(z) : sigmoid(z);
+// A backward step's operands of one (row, unit): x_s (4 gates), dy_s,
+// c_{s-1}, and h_{s-1} (in the compute dtype, held as f32).
+struct Operands {
+  float x[4], dy, c, h;
+};
+
+// dz of one element from its gate pre-activations and carries.
+struct Adjoint {
+  float dz[4], f;
+};
+
+__device__ __forceinline__ Adjoint adjoint(const float (&z)[4], float cp, float dhv, float dcin,
+                                           int act) {
+  const float i = sigmoid(z[0]), fg = sigmoid(z[1]), gg = activation(z[2], act);
+  const float o = sigmoid(z[3]);
+  const float tc = activation(fg * cp + i * gg, act);
+  const float dcv = dcin + dhv * o * dactivation(tc, act);
+  Adjoint a;
+  a.dz[0] = dcv * gg * i * (1.0f - i);
+  a.dz[1] = dcv * cp * fg * (1.0f - fg);
+  a.dz[2] = dcv * i * dactivation(gg, act);
+  a.dz[3] = dhv * tc * o * (1.0f - o);
+  a.f = dcv * fg;  // the next dc carry
+  return a;
 }
 
-// Derivative of the activation from its value a.
-__device__ __forceinline__ float dactivation(float a, int act) {
-  return act == 0 ? 1.0f - a * a : a * (1.0f - a);
+template <int KT>
+__global__ void __launch_bounds__(Tc<KT>::kThreads)
+    lstm_bwd_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ y,
+                       const float* __restrict__ cs, const float* __restrict__ h0,
+                       const float* __restrict__ c0, const float* __restrict__ R,
+                       const float* __restrict__ bias, const bf16* __restrict__ dy,
+                       const float* __restrict__ dhn, const float* __restrict__ dcn,
+                       bf16* __restrict__ dx, float* __restrict__ dh0, float* __restrict__ dc0,
+                       float* __restrict__ dR, float* __restrict__ db, float* part_global, int B,
+                       int T_, int U, int act, int nclust) {
+  using C = Tc<KT>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Rs = reinterpret_cast<bf16*>(smem_raw);  // [Kp][LDR]
+  bf16* hb = Rs + C::Kp * C::LDR;                 // [3][16][LDH]: h_s at slot (s + 3) % 3
+  bf16* dzs = hb + 3 * 16 * C::LDH;               // [2][16][LDR]: cdt(dz_t) at t & 1
+  float* dhp = reinterpret_cast<float*>(dzs + 2 * 16 * C::LDR);  // [4][Kp][8]: dh^T by K slice
+  float* part = dhp + 4 * C::Kp * 8;                              // [4U*U + 4U]
+  const int r0 = blockIdx.x * kTcRows, U4 = 4 * U;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int rl = tc_row(), j = tc_unit(), row = r0 + rl;
+  const bool ok = row < B && j < U, live = 4 * warp < U;  // live: warp-uniform
+  // The coalesced dx store: column scol of rows srow, srow + sstep, ...
+  const int scol = threadIdx.x % U4, srow = threadIdx.x / U4, sstep = C::kThreads / U4;
+  const int sgc = gcol(scol / U, scol % U);
+
+  zero_smem(smem_raw, (C::Kp * C::LDR + 3 * 16 * C::LDH + 2 * 16 * C::LDR) * 2);
+  __syncthreads();
+  stage_r_tc<KT>(Rs, R, U);
+
+  float bj[4], dbacc[4];
+#pragma unroll
+  for (int g = 0; g < 4; ++g) {
+    bj[g] = j < U ? bias[g * U + j] : 0.0f;
+    dbacc[g] = 0.0f;
+  }
+  // The operands of step s (x_s, dy_s, c_{s-1}, and h_{s-1} to stage),
+  // loaded two steps before their use: cur for step t, n1 for t-1, n2
+  // for t-2.
+  const long long rt0 = (long long)row * T_;
+  auto fetch = [&](int s) {
+    Operands o;
+    const long long rt = rt0 + s;
+#pragma unroll
+    for (int g = 0; g < 4; ++g) o.x[g] = ok ? __bfloat162float(x[rt * U4 + g * U + j]) : 0.0f;
+    o.dy = ok && dy != nullptr ? __bfloat162float(dy[rt * U + j]) : 0.0f;
+    o.c = !ok ? 0.0f : (s > 0 ? cs[(rt - 1) * U + j] : c0[row * U + j]);
+    o.h = !ok ? 0.0f : (s > 0 ? __bfloat162float(y[(rt - 1) * U + j]) : round_to<bf16>(h0[row * U + j]));
+    return o;
+  };
+  Operands cur = fetch(T_ - 1), n1 = cur, n2 = cur;
+  if (T_ > 1) n1 = fetch(T_ - 2);
+  float dh = ok && dhn != nullptr ? dhn[row * U + j] : 0.0f;
+  float dc = ok && dcn != nullptr ? dcn[row * U + j] : 0.0f;
+  if (j < U) hb[((T_ + 1) % 3 * 16 + rl) * C::LDH + j] = __float2bfloat16(cur.h);
+  __syncthreads();
+  unsigned bfr[KT][2][2];
+  if (live) load_gate_b<KT>(bfr, Rs);
+  // dh^T's A = Rs: warp w takes units 16*(w % KT) .. +15 (an m-tile) and
+  // gate columns 16*KT*(w / KT) .. (a quarter of K), for all T steps.
+  const int dmt = warp % KT, dks = (warp / KT) * KT;
+  unsigned ra[KT][4];
+#pragma unroll
+  for (int kk = 0; kk < KT; ++kk)
+    ldsm_x4(ra[kk], Rs + (dmt * 16 + (lane & 15)) * C::LDR + (dks + kk) * 16 + (lane >> 4) * 8);
+  float dracc[KT][2][4];
+#pragma unroll
+  for (int mt = 0; mt < KT; ++mt)
+#pragma unroll
+    for (int ni = 0; ni < 2; ++ni) dracc[mt][ni][0] = dracc[mt][ni][1] = dracc[mt][ni][2] = dracc[mt][ni][3] = 0.0f;
+
+  for (int t = T_ - 1; t >= 0; --t) {
+    const bf16* hcur = hb + (t + 2) % 3 * 16 * C::LDH;  // h_{t-1}
+    bf16* hprev = hb + (t + 1) % 3 * 16 * C::LDH;       // h_{t-2}, for step t-1
+    bf16* dz = dzs + (t & 1) * 16 * C::LDR;
+    if (t > 1) n2 = fetch(t - 2);
+    if (live) {
+      float acc[2][4];
+      gate_mma<KT>(acc, hcur, bfr);
+      float z[4];
+#pragma unroll
+      for (int g = 0; g < 4; ++g) z[g] = (cur.x[g] + bj[g]) + round_to<bf16>(tc_gate(acc, g));
+      const Adjoint a = adjoint(z, cur.c, dh + cur.dy, dc, act);
+      dc = a.f;
+      if (j < U) {
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          const float d = ok ? a.dz[g] : 0.0f;  // padding rows add nothing to dR, db
+          dbacc[g] += d;
+          dz[rl * C::LDR + gcol(g, j)] = __float2bfloat16(d);
+        }
+        if (t > 0) hprev[rl * C::LDH + j] = __float2bfloat16(n1.h);
+      }
+    }
+    __syncthreads();  // dz_t and h_{t-2} staged; every read of the buffers they replace done
+
+    // dh_{t-1}^T = cdt(R) cdt(dz)^T: M = Kp units, N = the 8 rows, K = 4Kp
+    // gate columns in four slices, one warp a (m-tile, slice); the
+    // slices' partials meet in shared memory.
+    {
+      float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int kk = 0; kk < KT; ++kk) {
+        unsigned bv[2];
+        ldsm_x2(bv, dz + (lane & 7) * C::LDR + (dks + kk) * 16 + ((lane >> 3) & 1) * 8);
+        mma_bf16(d, ra[kk], bv[0], bv[1]);
+      }
+      float* out = dhp + ((warp / KT) * C::Kp + dmt * 16 + lane / 4) * 8 + 2 * (lane % 4);
+      out[0] = d[0];
+      out[1] = d[1];
+      out[64] = d[2];  // unit + 8
+      out[65] = d[3];
+    }
+    if (live) {
+      // dR += h_{t-1}^T cdt(dz): M = Kp units, K = 16 rows, the warp's 16
+      // columns.
+      unsigned b[2][2], r[4];
+      ldsm_x4_t(r, dz + (lane & 15) * C::LDR + 16 * warp + (lane >> 4) * 8);
+      b[0][0] = r[0];
+      b[0][1] = r[1];
+      b[1][0] = r[2];
+      b[1][1] = r[3];
+#pragma unroll
+      for (int mt = 0; mt < KT; ++mt) {
+        unsigned a[4];
+        ldsm_x4_t(a, hcur + ((lane & 7) + ((lane >> 4) << 3)) * C::LDH + mt * 16 +
+                         ((lane >> 3) & 1) * 8);
+#pragma unroll
+        for (int ni = 0; ni < 2; ++ni) mma_bf16(dracc[mt][ni], a, b[ni][0], b[ni][1]);
+      }
+    }
+
+    // dx_t = cdt(dz), row-contiguous.  dz is next written in step t-2.
+    for (int q = srow; q < kTcRows; q += sstep) {
+      if (r0 + q < B) dx[((long long)(r0 + q) * T_ + t) * U4 + scol] = dz[q * C::LDR + sgc];
+    }
+    __syncthreads();  // dh's partials staged (rewritten after the next step's first barrier)
+    const float* dj = dhp + j * 8 + rl;
+    dh = ((dj[0] + dj[C::Kp * 8]) + dj[2 * C::Kp * 8]) + dj[3 * C::Kp * 8];
+    cur = n1;
+    n1 = n2;
+  }
+  if (ok) {
+    dh0[row * U + j] = dh;
+    dc0[row * U + j] = dc;
+  }
+  // The block's partials: dR from the accumulators (interleaved column
+  // -> (j, g)); db summed over the 8 rows of the warp
+  // (a fixed butterfly over lane/4), then written by lanes 0-3.
+  if (live) {
+#pragma unroll
+    for (int mt = 0; mt < KT; ++mt)
+#pragma unroll
+      for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int k = mt * 16 + lane / 4 + 8 * (r / 2);
+          const int c = 16 * warp + 8 * ni + 2 * (lane % 4) + r % 2;
+          const int jj = 4 * (c / 16) + (c % 8) / 2, g = 2 * ((c % 16) / 8) + c % 2;
+          if (k < U && jj < U) part[k * U4 + 4 * jj + g] = dracc[mt][ni][r];
+        }
+  }
+#pragma unroll
+  for (int g = 0; g < 4; ++g) {
+    float v = dbacc[g];
+    v += __shfl_xor_sync(0xffffffffu, v, 4);
+    v += __shfl_xor_sync(0xffffffffu, v, 8);
+    v += __shfl_xor_sync(0xffffffffu, v, 16);
+    if (lane < 4 && j < U) part[U4 * U + 4 * j + g] = v;
+  }
+  __syncthreads();
+  finish_wgrad(part, U, nclust, part_global, dR, db);
 }
 
-template <typename T>
-__global__ void lstm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ y,
-                                const float* __restrict__ cs, const float* __restrict__ h0,
-                                const float* __restrict__ c0, const float* __restrict__ R,
-                                const float* __restrict__ bias, const T* __restrict__ dy,
-                                const float* __restrict__ dhn, const float* __restrict__ dcn,
-                                T* __restrict__ dx, float* __restrict__ dh0,
-                                float* __restrict__ dc0, float* __restrict__ dbpart, int B, int T_,
-                                int U, int act) {
-  extern __shared__ __align__(16) float smem[];
+// f32 on the CUDA cores: threadIdx.x = unit j, threadIdx.y = row in the
+// block.  kU = U (then rows * U = kFmaThreads and the thread's dR
+// partials live in registers), or 0 for any U (partials in shared memory).
+template <int kU>
+__global__ void __launch_bounds__(kFmaThreads)
+    lstm_bwd_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                    const float* __restrict__ cs, const float* __restrict__ h0,
+                    const float* __restrict__ c0, const float* __restrict__ R,
+                    const float* __restrict__ bias, const float* __restrict__ dy,
+                    const float* __restrict__ dhn, const float* __restrict__ dcn,
+                    float* __restrict__ dx, float* __restrict__ dh0, float* __restrict__ dc0,
+                    float* __restrict__ dR, float* __restrict__ db, float* part_global, int B,
+                    int T_, int U_, int act, int nclust) {
+  const int U = kU ? kU : U_;
   const int U1 = U + 1, U4 = 4 * U;
-  const int j = threadIdx.x, rl = threadIdx.y, rows = blockDim.y;
-  float* RT = smem;                // [4U][U+1]: RT[n][k] = R[k][n]
-  float* hs = RT + U4 * U1;        // [rows][U]
-  float* dzs = hs + rows * U;      // [rows][4U]
+  const int j = threadIdx.x, rl = threadIdx.y;
+  const int rows = kU ? kFmaThreads / kU : blockDim.y;  // fma_rows(U)
+  const int tid = rl * U + j, nthreads = rows * U;
+  extern __shared__ __align__(16) float smem[];
+  float4* R4 = reinterpret_cast<float4*>(smem);  // [U][U+1]: gates of R[k, g*U+j]
+  float4* dz4 = R4 + U * U1;                     // [2][rows][U]: dz_t's gates at t & 1
+  float* hs = reinterpret_cast<float*>(dz4 + 2 * rows * U);  // [3][rows][U]: h_s at (s+3) % 3
+  float* part = hs + 3 * rows * U;               // [4U*U + 4U]
+  float* dbs = part + U4 * U + U4;               // [rows][4U]
   const int r = blockIdx.x * rows + rl;
   const bool valid = r < B;
-  const int tid = rl * U + j, nthreads = rows * U;
 
-  for (int idx = tid; idx < U * U4; idx += nthreads) RT[(idx % U4) * U1 + idx / U4] = R[idx];
-  float dh = valid ? dhn[r * U + j] : 0.0f;
-  float dc = valid ? dcn[r * U + j] : 0.0f;
+  stage_r_fma(R4, R, U, rows);
+  if (kU == 0)
+    for (int idx = tid; idx < U4 * U; idx += nthreads) part[idx] = 0.0f;
+  constexpr int E = kU ? 4 * kU * kU / kFmaThreads : 1;  // dR entries a thread
+  float dracc[E];
+#pragma unroll
+  for (int i = 0; i < E; ++i) dracc[i] = 0.0f;
+
   float bj[4], dbacc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
   for (int g = 0; g < 4; ++g) bj[g] = bias[g * U + j];
-  const float* hr = hs + rl * U;
-  const float* dzr = dzs + rl * U4;
+  float dh = valid && dhn != nullptr ? dhn[r * U + j] : 0.0f;
+  float dc = valid && dcn != nullptr ? dcn[r * U + j] : 0.0f;
+  // The operands of step s, loaded two steps before their use (cur, n1, n2).
+  const long long rt0 = (long long)r * T_;
+  auto fetch = [&](int s) {
+    Operands o;
+    const long long rt = rt0 + s;
+#pragma unroll
+    for (int g = 0; g < 4; ++g) o.x[g] = valid ? x[rt * U4 + g * U + j] : 0.0f;
+    o.dy = valid && dy != nullptr ? dy[rt * U + j] : 0.0f;
+    o.c = !valid ? 0.0f : (s > 0 ? cs[(rt - 1) * U + j] : c0[r * U + j]);
+    o.h = !valid ? 0.0f : (s > 0 ? y[(rt - 1) * U + j] : h0[r * U + j]);
+    return o;
+  };
+  Operands cur = fetch(T_ - 1), n1 = cur, n2 = cur;
+  if (T_ > 1) n1 = fetch(T_ - 2);
+  hs[((T_ + 1) % 3 * rows + rl) * U + j] = cur.h;
+  __syncthreads();
 
   for (int t = T_ - 1; t >= 0; --t) {
-    const long long row = (long long)r * T_ + t;
-    float cp = 0.0f;
-    if (valid) {
-      hs[rl * U + j] = t > 0 ? to_f32(y[(row - 1) * U + j]) : round_to<T>(h0[r * U + j]);
-      cp = t > 0 ? cs[(row - 1) * U + j] : c0[r * U + j];
-    } else {
-      hs[rl * U + j] = 0.0f;
-    }
-    __syncthreads();  // h_{t-1} staged
-
+    const float* hcur = hs + (t + 2) % 3 * rows * U;  // h_{t-1}
+    float4* dzt = dz4 + (t & 1) * rows * U;
+    if (t > 1) n2 = fetch(t - 2);
     float a[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    const float* hr = hcur + rl * U;
+#pragma unroll 16
     for (int k = 0; k < U; ++k) {
       const float hv = hr[k];
-#pragma unroll
-      for (int g = 0; g < 4; ++g) a[g] = fmaf(hv, RT[(g * U + j) * U1 + k], a[g]);
+      const float4 w = R4[k * U1 + j];
+      a[0] = fmaf(hv, w.x, a[0]);
+      a[1] = fmaf(hv, w.y, a[1]);
+      a[2] = fmaf(hv, w.z, a[2]);
+      a[3] = fmaf(hv, w.w, a[3]);
     }
-    float dz[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    if (valid) {
-      const T* xp = x + row * U4 + j;
-      float z[4];
+    float z[4];
 #pragma unroll
-      for (int g = 0; g < 4; ++g) z[g] = (to_f32(xp[g * U]) + bj[g]) + round_to<T>(a[g]);
-      const float i = sigmoid(z[0]), fg = sigmoid(z[1]), gg = activation(z[2], act);
-      const float o = sigmoid(z[3]);
-      const float tc = activation(fg * cp + i * gg, act);
-      const float dhv = dh + to_f32(dy[row * U + j]);
-      const float dcv = dc + dhv * o * dactivation(tc, act);
-      dz[0] = dcv * gg * i * (1.0f - i);
-      dz[1] = dcv * cp * fg * (1.0f - fg);
-      dz[2] = dcv * i * dactivation(gg, act);
-      dz[3] = dhv * tc * o * (1.0f - o);
-      T* dxp = dx + row * U4 + j;
+    for (int g = 0; g < 4; ++g) z[g] = (cur.x[g] + bj[g]) + a[g];
+    const Adjoint ad = adjoint(z, cur.c, dh + cur.dy, dc, act);
+    dc = ad.f;
+    float d[4];
 #pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        dxp[g * U] = from_f32<T>(dz[g]);
-        dbacc[g] += dz[g];
-      }
-      dc = dcv * fg;
+    for (int g = 0; g < 4; ++g) {
+      d[g] = valid ? ad.dz[g] : 0.0f;
+      dbacc[g] += d[g];
+      if (valid) dx[((long long)r * T_ + t) * U4 + g * U + j] = d[g];
     }
-#pragma unroll
-    for (int g = 0; g < 4; ++g) dzs[rl * U4 + g * U + j] = round_to<T>(dz[g]);
-    __syncthreads();  // the row's rounded dz staged; h_{t-1} no longer read
+    dzt[rl * U + j] = make_float4(d[0], d[1], d[2], d[3]);
+    if (t > 0) hs[((t + 1) % 3 * rows + rl) * U + j] = n1.h;
+    __syncthreads();  // dz_t and h_{t-2} staged; every read of the buffers they replace done
 
-    float d = 0.0f;
-    for (int n = 0; n < U4; ++n) d = fmaf(dzr[n], RT[n * U1 + j], d);
-    dh = d;
-    // hs is rewritten next step before its barrier: every read of it was
-    // before the barrier above.  dzs is rewritten after that barrier.
+    // dh_{t-1}[j] = sum over (j', g) of dz[g*U+j'] R[j][g*U+j'], a chain a gate
+    float ds[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    const float4* dzr = dzt + rl * U;
+    const float4* Rj = R4 + j * U1;
+#pragma unroll 8
+    for (int jj = 0; jj < U; ++jj) {
+      const float4 dv = dzr[jj], w = Rj[jj];
+      ds[0] = fmaf(dv.x, w.x, ds[0]);
+      ds[1] = fmaf(dv.y, w.y, ds[1]);
+      ds[2] = fmaf(dv.z, w.z, ds[2]);
+      ds[3] = fmaf(dv.w, w.w, ds[3]);
+    }
+    dh = (ds[0] + ds[1]) + (ds[2] + ds[3]);
+    // dR[k][4j'+g] += sum over the block's rows of h_{t-1}[k] dz[4j'+g]
+    const float* dzf = reinterpret_cast<const float*>(dzt);
+    if constexpr (kU > 0) {
+#pragma unroll
+      for (int i = 0; i < E; ++i) {
+        const int e = tid + i * kFmaThreads, k = e / U4, m = e % U4;
+        float s = dracc[i];
+        for (int q = 0; q < rows; ++q) s = fmaf(hcur[q * U + k], dzf[q * U4 + m], s);
+        dracc[i] = s;
+      }
+    } else {
+      for (int e = tid; e < U4 * U; e += nthreads) {
+        const int k = e / U4, m = e % U4;
+        float s = part[e];
+        for (int q = 0; q < rows; ++q) s = fmaf(hcur[q * U + k], dzf[q * U4 + m], s);
+        part[e] = s;
+      }
+    }
+    cur = n1;
+    n1 = n2;
   }
   if (valid) {
     dh0[r * U + j] = dh;
     dc0[r * U + j] = dc;
-#pragma unroll
-    for (int g = 0; g < 4; ++g) dbpart[(long long)r * U4 + g * U + j] = dbacc[g];
   }
+  if constexpr (kU > 0) {
+#pragma unroll
+    for (int i = 0; i < E; ++i) part[tid + i * kFmaThreads] = dracc[i];
+  }
+#pragma unroll
+  for (int g = 0; g < 4; ++g) dbs[rl * U4 + 4 * j + g] = dbacc[g];
+  __syncthreads();
+  for (int m = tid; m < U4; m += nthreads) {
+    float s = 0.0f;
+    for (int q = 0; q < rows; ++q) s += dbs[q * U4 + m];
+    part[U4 * U + m] = s;
+  }
+  __syncthreads();
+  finish_wgrad(part, U, nclust, part_global, dR, db);
 }
 
-template <typename T>
-cudaError_t launch(const void* x, const void* y, const void* cs, const void* h0, const void* c0,
-                   const void* R, const void* bias, const void* dy, const void* dhn,
-                   const void* dcn, void* dx, void* dh0, void* dc0, void* dbpart, int B, int T_,
-                   int U, int act, cudaStream_t stream) {
-  int rows = 128 / U;
-  if (rows < 1) rows = 1;
-  if (rows > B) rows = B;
-  if (U * rows > 1024) return cudaErrorInvalidValue;
-  const size_t smem =
-      ((size_t)4 * U * (U + 1) + (size_t)rows * U + (size_t)rows * 4 * U) * sizeof(float);
-  const cudaError_t err = allow_smem((const void*)lstm_bwd_kernel<T>, smem);
+// part [blocks][4U*U + 4U] (each block's partials, interleaved as in
+// finish_wgrad) summed in block order into dR [U][4U] and db [4U].
+__global__ void lstm_wgrad_sum_kernel(const float* __restrict__ part, int blocks, int U,
+                                      float* __restrict__ dR, float* __restrict__ db) {
+  const int n = 4 * U * U + 4 * U;
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n) return;
+  float s = 0.0f;
+  for (int q = 0; q < blocks; ++q) s += part[(long long)q * n + e];
+  const int m = e % (4 * U);
+  if (e < 4 * U * U)
+    dR[(e / (4 * U)) * 4 * U + (m % 4) * U + m / 4] = s;
+  else
+    db[(m % 4) * U + m / 4] = s;
+}
+
+int bwd_rows(int dtype, int U) { return dtype == 1 ? kTcRows : fma_rows(U); }
+
+int bwd_blocks(int dtype, int B, int U) {
+  const int rows = bwd_rows(dtype, U);
+  return (B + rows - 1) / rows;
+}
+
+struct Args {
+  const void *x, *y, *cs, *h0, *c0, *R, *bias, *dy, *dhn, *dcn;
+  void *dx, *dh0, *dc0, *dR, *db, *part;
+  int B, T, U, act;
+};
+
+// One launch of kernel over `blocks` blocks, as one cluster when they
+// sum their partials there (1 < blocks <= kMaxCluster), then the
+// second-pass sum when they do not fit.
+template <class X, class K>
+cudaError_t launch(K kernel, dim3 block, size_t smem, const Args& a, cudaStream_t stream,
+                   int dtype) {
+  const int blocks = bwd_blocks(dtype, a.B, a.U);
+  const bool two_pass = blocks > kMaxCluster;
+  if (two_pass != (a.part != nullptr)) return cudaErrorInvalidValue;
+  cudaError_t err = allow_smem((const void*)kernel, smem);
   if (err != cudaSuccess) return err;
-  lstm_bwd_kernel<T><<<(B + rows - 1) / rows, dim3(U, rows), smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(y), static_cast<const float*>(cs),
-      static_cast<const float*>(h0), static_cast<const float*>(c0), static_cast<const float*>(R),
-      static_cast<const float*>(bias), static_cast<const T*>(dy),
-      static_cast<const float*>(dhn), static_cast<const float*>(dcn), static_cast<T*>(dx),
-      static_cast<float*>(dh0), static_cast<float*>(dc0), static_cast<float*>(dbpart), B, T_, U,
-      act);
+  const int nclust = two_pass ? 1 : blocks;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = nclust;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = nclust > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const X*>(a.x), static_cast<const X*>(a.y),
+      static_cast<const float*>(a.cs), static_cast<const float*>(a.h0),
+      static_cast<const float*>(a.c0), static_cast<const float*>(a.R),
+      static_cast<const float*>(a.bias),
+      static_cast<const X*>(a.dy), static_cast<const float*>(a.dhn),
+      static_cast<const float*>(a.dcn), static_cast<X*>(a.dx), static_cast<float*>(a.dh0),
+      static_cast<float*>(a.dc0), static_cast<float*>(a.dR), static_cast<float*>(a.db),
+      static_cast<float*>(a.part), a.B, a.T, a.U, a.act, nclust);
+  if (err != cudaSuccess) return err;
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !two_pass) return err;
+  const int n = 4 * a.U * a.U + 4 * a.U;
+  lstm_wgrad_sum_kernel<<<(n + 255) / 256, 256, 0, stream>>>(
+      static_cast<const float*>(a.part), blocks, a.U, static_cast<float*>(a.dR),
+      static_cast<float*>(a.db));
   return cudaGetLastError();
+}
+
+template <int KT>
+cudaError_t launch_tc(const Args& a, cudaStream_t stream) {
+  using C = Tc<KT>;
+  const size_t smem = (size_t)(C::Kp * C::LDR + 3 * 16 * C::LDH + 2 * 16 * C::LDR) * 2 +
+                      (size_t)(4 * C::Kp * 8 + 4 * a.U * a.U + 4 * a.U) * 4;
+  return launch<bf16>(lstm_bwd_tc_kernel<KT>, dim3(C::kThreads), smem, a, stream, 1);
+}
+
+template <int kU>
+cudaError_t launch_fma(const Args& a, cudaStream_t stream) {
+  const int U = a.U, rows = fma_rows(U);
+  const size_t smem = ((size_t)4 * U * (U + 1) + (size_t)8 * rows * U + (size_t)3 * rows * U +
+                       (size_t)4 * U * U + 4 * U + (size_t)rows * 4 * U) * sizeof(float);
+  return launch<float>(lstm_bwd_kernel<kU>, dim3(U, rows), smem, a, stream, 0);
 }
 
 }  // namespace
 
-// dtype 0 = float32, 1 = bfloat16 (of x, y, dy and dx); act 0 = tanh,
-// 1 = sigmoid.  x, dx [B, T, 4U]; y, dy [B, T, U]; cs the f32 c stack
-// [B, T, U]; h0, c0, dhn, dcn, dh0, dc0 [B, U] float32; R [U, 4U] the
-// recurrent kernel rounded to the compute dtype, as float32; bias [4U];
-// dbpart [B, 4U] float32, each row's sum of dz over the steps.  All
-// contiguous.  Returns the launch's cudaError_t.
-extern "C" int kccot_lstm_bwd(int dtype, int act, const void* x, const void* y, const void* cs,
-                              const void* h0, const void* c0, const void* R, const void* bias,
-                              const void* dy, const void* dhn, const void* dcn, void* dx,
-                              void* dh0, void* dc0, void* dbpart, int B, int T, int U,
-                              void* stream) {
-  if (B <= 0 || T <= 0 || U <= 0 || (act != 0 && act != 1)) return cudaErrorInvalidValue;
+// Float32 elements of the scratch `part` one backward call needs: 0 when
+// its blocks fit one cluster (one launch, `part` null), else [blocks,
+// 4U*U + 4U] (two launches).
+extern "C" long long kccot_lstm_bwd_scratch(int dtype, int B, int U) {
+  if (B <= 0 || U <= 0) return 0;
+  const int blocks = bwd_blocks(dtype, B, U);
+  return blocks > kMaxCluster ? (long long)blocks * (4 * U * U + 4 * U) : 0;
+}
+
+// dtype 0 = float32, 1 = bfloat16 (of x, y, dy and dx; 1 runs the
+// tensor-core kernel, 0 the CUDA-core one); act 0 = tanh, 1 = sigmoid.
+// x, dx [B, T, 4U]; y, dy [B, T, U]; cs the f32 c stack [B, T, U]; h0,
+// c0, dhn, dcn, dh0, dc0 [B, U] float32; R [U, 4U] the recurrent kernel,
+// float32 (the kernel rounds it to the compute dtype);
+// bias [4U]; dR [U, 4U] and db [4U] float32; part as
+// kccot_lstm_bwd_scratch says.  dy, dhn, dcn may be null (zero
+// cotangents).  U <= 64.  All contiguous.  Returns the launches'
+// cudaError_t.
+extern "C" int kccot_lstm_bwd(int dtype, int act, const void* x, const void* y,
+                              const void* cs, const void* h0, const void* c0, const void* R,
+                              const void* bias, const void* dy, const void* dhn, const void* dcn,
+                              void* dx, void* dh0, void* dc0, void* dR, void* db, void* part,
+                              int B, int T, int U, void* stream) {
+  if (B <= 0 || T <= 0 || U <= 0 || U > kMaxU || (act != 0 && act != 1))
+    return cudaErrorInvalidValue;
+  const Args a{x, y, cs, h0, c0, R, bias, dy, dhn, dcn, dx, dh0, dc0, dR, db, part,
+               B, T, U, act};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float>(x, y, cs, h0, c0, R, bias, dy, dhn, dcn, dx, dh0, dc0, dbpart, B, T, U,
-                         act, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(x, y, cs, h0, c0, R, bias, dy, dhn, dcn, dx, dh0, dc0, dbpart, B,
-                                 T, U, act, s);
-  return cudaErrorInvalidValue;
+  if (dtype == 1) {
+    if (U <= 16) return launch_tc<1>(a, s);
+    if (U <= 32) return launch_tc<2>(a, s);
+    return launch_tc<4>(a, s);
+  }
+  if (dtype != 0) return cudaErrorInvalidValue;
+  switch (U) {
+    case 8: return launch_fma<8>(a, s);
+    case 32: return launch_fma<32>(a, s);
+    case 64: return launch_fma<64>(a, s);
+    default: return launch_fma<0>(a, s);
+  }
 }

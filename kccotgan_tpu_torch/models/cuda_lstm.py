@@ -18,9 +18,12 @@ saved c stack, ``dx = cdt(dz)``, ``db`` summed from the f32 ``dz``,
 
 Dispatch: CPU tensors run the plain versions (``lstm_scan_reference``,
 ``lstm_bwd_reference``); CUDA tensors launch ``csrc/lstm_fwd.cu`` (one
-launch for all T steps) and, backward, ``csrc/lstm_bwd.cu`` and the
-weight-gradient sum of ``csrc/convlstm_bwd.cu`` (three launches), or
-raise.  Each wrapper counts its calls in ``.calls`` and its kernel
+launch for all T steps) and, backward, ``csrc/lstm_bwd.cu`` (all T
+steps, dR and db in one launch; two where the batch needs more blocks
+than one thread-block cluster holds, ``kccot_lstm_bwd_scratch``), or
+raise.  The kernels take U <= 64 and the f32 recurrent kernel as
+stored, rounding it themselves: a call launches nothing but its
+kernels.  Each wrapper counts its calls in ``.calls`` and its kernel
 launches in ``.launches``.
 """
 
@@ -30,13 +33,14 @@ import functools
 
 import torch
 
-from .cuda_convlstm import _DTYPE_CODES, _raise_on, recurrent_wgrad
+from .cuda_convlstm import _DTYPE_CODES, _raise_on
 from .cuda_convlstm import _check as _check_tensor
 
 __all__ = ["LstmScan", "lstm_bwd", "lstm_bwd_reference", "lstm_fwd", "lstm_scan", "lstm_scan_reference"]
 
 _ACT = {"tanh": torch.tanh, "sigmoid": torch.sigmoid}
 _ACT_CODES = {"tanh": 0, "sigmoid": 1}
+_MAX_UNITS = 64  # kMaxU of csrc/lstm_tile.cuh
 
 
 def _dact(name, a):
@@ -115,12 +119,18 @@ def _geometry(xproj, h0, c0, rec_kernel, bias, activation):
         raise ValueError(f"lstm: xproj must be [B, T, 4U], got {tuple(xproj.shape)}")
     b, t, u4 = xproj.shape
     u, dev = u4 // 4, xproj.device
+    if u > _MAX_UNITS:
+        raise ValueError(f"lstm: the kernels take at most {_MAX_UNITS} units, got {u}")
     _check("xproj", xproj, (b, t, u4), xproj.dtype, dev)
     _check("h0", h0, (b, u), torch.float32, dev)
     _check("c0", c0, (b, u), torch.float32, dev)
-    _check("rec_kernel", rec_kernel, (u, u4), None, dev)
+    _check("rec_kernel", rec_kernel, (u, u4), torch.float32, dev)
     _check("bias", bias, (u4,), torch.float32, dev)
     return b, t, u
+
+
+def _ptr(x):
+    return x.data_ptr() if x is not None else None
 
 
 def _launch_fwd(xproj, h0, c0, rec_kernel, bias, activation, with_c_stack):
@@ -128,7 +138,6 @@ def _launch_fwd(xproj, h0, c0, rec_kernel, bias, activation, with_c_stack):
 
     b, t, u = _geometry(xproj, h0, c0, rec_kernel, bias, activation)
     cdt, dev = xproj.dtype, xproj.device
-    r = rec_kernel.detach().to(cdt).float().contiguous()
     lib = load_library()
     y = torch.empty(b, t, u, dtype=cdt, device=dev)
     cs = torch.empty(b, t, u, dtype=torch.float32, device=dev) if with_c_stack else None
@@ -136,8 +145,8 @@ def _launch_fwd(xproj, h0, c0, rec_kernel, bias, activation, with_c_stack):
     lstm_fwd.calls += 1
     err = lib.kccot_lstm_fwd(
         _DTYPE_CODES[cdt], _ACT_CODES[activation], xproj.data_ptr(), h0.data_ptr(),
-        c0.data_ptr(), r.data_ptr(), bias.data_ptr(), y.data_ptr(),
-        cs.data_ptr() if cs is not None else None, hn.data_ptr(), cn.data_ptr(), b, t, u,
+        c0.data_ptr(), rec_kernel.data_ptr(), bias.data_ptr(), y.data_ptr(), _ptr(cs),
+        hn.data_ptr(), cn.data_ptr(), b, t, u,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(lib, err, "lstm_fwd")
@@ -162,39 +171,44 @@ def _launch_bwd(xproj, h0, c0, rec_kernel, bias, y, c_stack, dy, dh_n, dc_n, act
 
     b, t, u = _geometry(xproj, h0, c0, rec_kernel, bias, activation)
     cdt, dev = xproj.dtype, xproj.device
-    for name, x, dtype in (("y", y, cdt), ("c_stack", c_stack, torch.float32), ("dy", dy, cdt)):
-        _check(name, x, (b, t, u), dtype, dev)
-    _check("dh_n", dh_n, (b, u), torch.float32, dev)
-    _check("dc_n", dc_n, (b, u), torch.float32, dev)
-    r = rec_kernel.detach().to(cdt).float().contiguous()
+    _check("y", y, (b, t, u), cdt, dev)
+    _check("c_stack", c_stack, (b, t, u), torch.float32, dev)
+    for name, x, shape, dtype in (("dy", dy, (b, t, u), cdt), ("dh_n", dh_n, (b, u), torch.float32),
+                                  ("dc_n", dc_n, (b, u), torch.float32)):
+        if x is not None:  # None: a zero cotangent
+            _check(name, x, shape, dtype, dev)
     lib = load_library()
+    code = _DTYPE_CODES[cdt]
+    # more blocks than one cluster: their dR and db partials go through
+    # this scratch and a second, fixed-order launch
+    scratch = lib.kccot_lstm_bwd_scratch(code, b, u)
+    part = torch.empty(scratch, dtype=torch.float32, device=dev) if scratch else None
     dx = torch.empty_like(xproj)
     dh0, dc0 = torch.empty_like(h0), torch.empty_like(c0)
-    dbpart = torch.empty(b, 4 * u, dtype=torch.float32, device=dev)
+    drk = torch.empty(u, 4 * u, dtype=torch.float32, device=dev)
+    db = torch.empty(4 * u, dtype=torch.float32, device=dev)
     lstm_bwd.calls += 1
     err = lib.kccot_lstm_bwd(
-        _DTYPE_CODES[cdt], _ACT_CODES[activation], xproj.data_ptr(), y.data_ptr(),
-        c_stack.data_ptr(), h0.data_ptr(), c0.data_ptr(), r.data_ptr(), bias.data_ptr(),
-        dy.data_ptr(), dh_n.data_ptr(), dc_n.data_ptr(), dx.data_ptr(), dh0.data_ptr(),
-        dc0.data_ptr(), dbpart.data_ptr(), b, t, u, torch.cuda.current_stream(dev).cuda_stream,
+        code, _ACT_CODES[activation], xproj.data_ptr(), y.data_ptr(), c_stack.data_ptr(),
+        h0.data_ptr(), c0.data_ptr(), rec_kernel.data_ptr(), bias.data_ptr(), _ptr(dy), _ptr(dh_n), _ptr(dc_n), dx.data_ptr(), dh0.data_ptr(),
+        dc0.data_ptr(), drk.data_ptr(), db.data_ptr(), _ptr(part), b, t, u,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(lib, err, "lstm_bwd")
-    lstm_bwd.launches += 1
-    # dR and db: the ConvLSTM's weight-gradient sum on a 1x1 frame and kernel
-    drk, db = recurrent_wgrad(
-        lib, y.view(b, t, 1, 1, u), h0.to(cdt), dx.view(b, t, 1, 1, 4 * u), dbpart, 1, 1
-    )
-    lstm_bwd.launches += 2
-    return dx, dh0, dc0, drk.view(u, 4 * u), db
+    lstm_bwd.launches += 1 if part is None else 2
+    return dx, dh0, dc0, drk, db
 
 
 def lstm_bwd(xproj, h0, c0, rec_kernel, bias, y, c_stack, dy, dh_n, dc_n, activation="tanh"):
     """``(dx, dh0, dc0, dR, db)``: the plain version for CPU tensors, the
-    backward kernels for CUDA tensors."""
+    backward kernel for CUDA tensors.  ``dy``, ``dh_n`` and ``dc_n`` may
+    be None (zero cotangents)."""
     args = (xproj, h0, c0, rec_kernel, bias, y, c_stack, dy, dh_n, dc_n)
-    devices = {x.device.type for x in args}
+    devices = {x.device.type for x in args if x is not None}
     if devices == {"cpu"}:
-        return lstm_bwd_reference(*args, activation)
+        dy = torch.zeros_like(y) if dy is None else dy
+        dh_n, dc_n = (torch.zeros_like(h0) if x is None else x for x in (dh_n, dc_n))
+        return lstm_bwd_reference(*args[:7], dy, dh_n, dc_n, activation)
     if devices == {"cuda"}:
         return _launch_bwd(*args, activation)
     raise ValueError(f"lstm: inputs on devices {sorted(devices)}")
@@ -214,14 +228,19 @@ class LstmScan(torch.autograd.Function):
         y, cs, h, c = lstm_fwd(xproj, h0, c0, rec_kernel, bias, activation, with_c_stack=True)
         ctx.activation = activation
         ctx.save_for_backward(xproj, h0, c0, rec_kernel, bias, y, cs)
+        # unused outputs' cotangents arrive as None, not as zero tensors
+        # filled on the device: the kernel reads None as zero
+        ctx.set_materialize_grads(False)
         return y, h, c
 
     @staticmethod
     def backward(ctx, dy, dh_n, dc_n):
         xproj, h0, c0, rec_kernel, bias, y, cs = ctx.saved_tensors
         dx, dh0, dc0, drk, db = lstm_bwd(
-            xproj, h0, c0, rec_kernel, bias, y, cs, dy.to(xproj.dtype).contiguous(),
-            dh_n.float().contiguous(), dc_n.float().contiguous(), ctx.activation,
+            xproj, h0, c0, rec_kernel, bias, y, cs,
+            None if dy is None else dy.to(xproj.dtype).contiguous(),
+            None if dh_n is None else dh_n.float().contiguous(),
+            None if dc_n is None else dc_n.float().contiguous(), ctx.activation,
         )
         return dx, dh0, dc0, drk.to(rec_kernel.dtype), db.to(bias.dtype), None
 

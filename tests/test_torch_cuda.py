@@ -15,9 +15,11 @@ engine (tensor cores) adds ragged M, f = 8 and 256 on a 4x4 frame, f =
 12 (its element-by-element gather) and the bitwise determinism of drk
 and db.  The LSTM
 shapes: B=1, U=3 (an odd U, and fewer units than a warp), ragged row
-blocks (B=5), U=64, whose staged recurrent kernel needs more than
-48 KiB of shared memory, and lstm1's B=32, T=20, U=64, whose dR takes
-the tensor cores' vectorised gather in bf16.  The Sinkhorn sizes cover fewer rows than a
+blocks (B=5, 17, 33), U=64, whose staged recurrent kernel needs more
+than 48 KiB of shared memory, the flagship's B=32, T=20 at U = 8, 32, 64
+on the bf16 tensor-core path, U = 3, 5, 20 (not multiples of 8), a
+batch beyond one thread-block cluster (the backward's second launch),
+the bitwise determinism of dR and db, and None cotangents.  The Sinkhorn sizes cover fewer rows than a
 warp (2, 6), a ragged second warp column (33) and shared memory beyond
 48 KiB (128), at eps 0.7.
 
@@ -44,7 +46,13 @@ from kccotgan_tpu_torch.models.cuda_convlstm import (
     convlstm_scan,
     convlstm_scan_reference,
 )
-from kccotgan_tpu_torch.models.cuda_lstm import lstm_bwd, lstm_bwd_reference, lstm_fwd, lstm_scan_reference
+from kccotgan_tpu_torch.models.cuda_lstm import (
+    lstm_bwd,
+    lstm_bwd_reference,
+    lstm_fwd,
+    lstm_scan,
+    lstm_scan_reference,
+)
 from kccotgan_tpu_torch.ot.cuda_sinkhorn import (
     sinkhorn_batch,
     sinkhorn_bwd,
@@ -212,7 +220,7 @@ def test_lstm_kernels_match_plain(cuda, b, t, u, act, dtype):
         got = lstm_bwd(*args, y, cs, *cot, act)
         want = lstm_bwd_reference(*args, y, cs, *cot, act)
     torch.cuda.synchronize()
-    assert (lstm_fwd.launches, lstm_bwd.launches) == (calls[0] + 1, calls[1] + 3)
+    assert (lstm_fwd.launches, lstm_bwd.launches) == (calls[0] + 1, calls[1] + 1)
     for g, r in zip(got_fwd, fwd_p):
         torch.testing.assert_close(g.float(), r.float(), rtol=0, atol=TOL[dtype])
     _assert_grads_close(got, want, dtype, ("dx", "dh0", "dc0", "dR", "db"))
@@ -220,6 +228,87 @@ def test_lstm_kernels_match_plain(cuda, b, t, u, act, dtype):
         lstm_fwd(args[0].half(), *args[1:], act)
     with pytest.raises(ValueError, match="contiguous"):
         lstm_fwd(torch.cat([args[0], args[0]], dim=-1)[..., ::2], *args[1:], act)
+    with pytest.raises(TypeError):
+        lstm_fwd(*args[:3], args[3].half(), args[4], act)
+
+
+def _lstm_check(args, act, dtype, cuda, seed, launches):
+    """Forward and backward kernels vs their plain versions, with the
+    backward's expected launches."""
+    with torch.no_grad():
+        (y, cs), fwd_p, cot = _bwd_args(lambda *a: lstm_scan_reference(*a, act), args, cuda, seed=seed)
+        got_fwd = lstm_fwd(*args, act, with_c_stack=True)
+        before = lstm_bwd.launches
+        got = lstm_bwd(*args, y, cs, *cot, act)
+        want = lstm_bwd_reference(*args, y, cs, *cot, act)
+    torch.cuda.synchronize()
+    assert lstm_bwd.launches == before + launches
+    for g, r in zip(got_fwd, fwd_p):
+        torch.testing.assert_close(g.float(), r.float(), rtol=0, atol=TOL[dtype])
+    _assert_grads_close(got, want, dtype, ("dx", "dh0", "dc0", "dR", "db"))
+
+
+@pytest.mark.parametrize(
+    "b,t,u,act",
+    [(32, 20, 8, "sigmoid"), (32, 20, 32, "tanh"), (32, 20, 64, "tanh"), (5, 7, 32, "tanh"),
+     (33, 6, 64, "tanh"), (3, 5, 3, "tanh"), (33, 4, 5, "sigmoid"), (17, 3, 20, "tanh")],
+)
+def test_lstm_tensor_core_path_matches_plain(cuda, b, t, u, act):
+    """The bf16 engine (tensor cores, 8 rows a block): the flagship's
+    three layers at B=32, T=20; ragged B (5, 17, 33: a padded last
+    block); U not a multiple of 8 (3, 5, 20), padded to the k16 step.
+    One backward launch each: at most 8 blocks, one cluster."""
+    _lstm_check(_lstm_inputs(b, t, u, torch.bfloat16, cuda, seed=u + b), act, torch.bfloat16,
+                cuda, seed=t, launches=1)
+
+
+@pytest.mark.parametrize("dtype,b,u", [(torch.bfloat16, 130, 32), (torch.float32, 40, 64),
+                                       (torch.bfloat16, 65, 5)])
+def test_lstm_backward_beyond_one_cluster(cuda, dtype, b, u):
+    """More blocks than a cluster holds (bf16, 8 rows a block: B > 64; f32 at U=64, 4
+    rows a block: B > 32): the partials go through the scratch buffer and
+    a second, fixed-order launch."""
+    _lstm_check(_lstm_inputs(b, 5, u, dtype, cuda, seed=b), "tanh", dtype, cuda, seed=u, launches=2)
+
+
+def test_lstm_weight_gradient_is_deterministic(cuda):
+    """dR and db (block partials summed in rank order, no atomics) come out
+    bitwise equal from two calls, in one cluster and beyond one, bf16 and
+    f32; None cotangents give what zero ones give."""
+    for dtype, b, u in ((torch.bfloat16, 32, 64), (torch.float32, 32, 64), (torch.bfloat16, 130, 8),
+                        (torch.float32, 40, 64), (torch.float32, 7, 5)):
+        args = _lstm_inputs(b, 20, u, dtype, cuda, seed=b + u)
+        with torch.no_grad():
+            (y, cs), _, (dy, dh, dc) = _bwd_args(lambda *a: lstm_scan_reference(*a, "tanh"), args, cuda, seed=3)
+            first = lstm_bwd(*args, y, cs, dy, dh, dc)
+            second = lstm_bwd(*args, y, cs, dy, dh, dc)
+            nones = lstm_bwd(*args, y, cs, dy, None, None)
+            zeros = lstm_bwd(*args, y, cs, dy, torch.zeros_like(dh), torch.zeros_like(dc))
+        torch.cuda.synchronize()
+        for name, x, z in zip(("dx", "dh0", "dc0", "dR", "db"), first, second):
+            assert torch.equal(x, z), (dtype, b, name)
+        for name, x, z in zip(("dx", "dh0", "dc0", "dR", "db"), nones, zeros):
+            assert torch.equal(x, z), (dtype, b, "None cotangent", name)
+
+
+def test_lstm_scan_gradient_matches_autograd(cuda):
+    """Under autograd (y alone used: (h_n, c_n) get no cotangent, which
+    reaches the kernel as None) the kernels give autograd's gradients
+    through the plain loop (f32)."""
+    args = _lstm_inputs(6, 5, 32, torch.float32, cuda, seed=9)
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    ref = [a.clone().requires_grad_(True) for a in args]
+    counts = (lstm_fwd.launches, lstm_bwd.launches)
+    y, _ = lstm_scan(*leaves)
+    y_p = lstm_scan_reference(*ref)[0]
+    w = torch.randn(y.shape, generator=torch.Generator().manual_seed(5)).to(cuda)
+    (y * w).sum().backward()
+    (y_p * w).sum().backward()
+    torch.cuda.synchronize()
+    assert (lstm_fwd.launches, lstm_bwd.launches) == (counts[0] + 1, counts[1] + 1)
+    torch.testing.assert_close(y, y_p, rtol=0, atol=TOL[torch.float32])
+    _assert_grads_close([x.grad for x in leaves], [x.grad for x in ref], torch.float32,
+                        ("dx", "dh0", "dc0", "dR", "db"))
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):
