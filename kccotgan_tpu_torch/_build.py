@@ -96,14 +96,15 @@ def load_library() -> ctypes.CDLL:
         getattr(lib, name).restype = i
     lib.kccot_lstm_bwd_scratch.argtypes = [i, i, i]
     lib.kccot_lstm_bwd_scratch.restype = ll
+    lib.kccot_lstm_max_units.argtypes = []
+    lib.kccot_lstm_max_units.restype = i
     f = ctypes.c_float
     lib.kccot_sinkhorn_fwd.argtypes = [p, p, p, p, i, i, i, f, p]
     lib.kccot_sinkhorn_fwd.restype = i
-    lib.kccot_sinkhorn_bwd.argtypes = [p, p, p, p, p, i, i, i, f, p]
+    lib.kccot_sinkhorn_bwd.argtypes = [p, p, p, p, p, p, i, i, i, f, p]
     lib.kccot_sinkhorn_bwd.restype = i
-    for name in ("kccot_sinkhorn_fwd_max_batch", "kccot_sinkhorn_bwd_max_batch"):
-        getattr(lib, name).argtypes = []
-        getattr(lib, name).restype = i
+    lib.kccot_sinkhorn_bwd_scratch.argtypes = [i, i]
+    lib.kccot_sinkhorn_bwd_scratch.restype = ll
     lib.kccot_error_string.argtypes = [i]
     lib.kccot_error_string.restype = ctypes.c_char_p
     return lib

@@ -49,6 +49,14 @@
 //   (dR partials in shared memory); R staged once, gates of (k, j) side
 //   by side, rows padded to U+1 float4 so that the recompute (R[k][j]
 //   over j) and dh (R[j][j'] over j) both read it without bank conflicts.
+// * bf16 at 64 < U <= 128: the tensor-core kernel at KT = 8 (32 warps),
+//   R's fragments read from shared memory each step, dR left to a second
+//   launch (lstm_wgrad_l2_kernel, dR from dx and y in a fixed order, db
+//   from the blocks' partials): 64 registers a thread hold neither.
+// * Past that (f32 past 64, bf16 past 128): L2 kernels on the CUDA cores
+//   that read cdt(R) at every step instead of staging it
+//   (lstm_bwd_l2_kernel), then the same second launch.  They are meant
+//   to be right for any U, not fast.
 // * Both: step t-2's x, c, dy and h are loaded into registers during
 //   step t; dx is written row-contiguous; R is read as stored (f32) and
 //   rounded while staging, h0 rounded in the kernel: the wrapper launches
@@ -142,20 +150,29 @@ __global__ void __launch_bounds__(Tc<KT>::kThreads)
   float dc = ok && dcn != nullptr ? dcn[row * U + j] : 0.0f;
   if (j < U) hb[((T_ + 1) % 3 * 16 + rl) * C::LDH + j] = __float2bfloat16(cur.h);
   __syncthreads();
-  unsigned bfr[KT][2][2];
-  if (live) load_gate_b<KT>(bfr, Rs);
+  // kWide (KT = 8, 64 registers a thread): R's fragments are read from
+  // shared memory each step instead of held, and dR is left to a second
+  // launch (lstm_wgrad_l2_kernel, from dx and y): its 64 accumulators a
+  // thread would not fit either.
+  constexpr bool kWide = KT > 4;
+  unsigned bfr[kWide ? 1 : KT][2][2];
+  if constexpr (!kWide) {
+    if (live) load_gate_b<KT>(bfr, Rs);
+  }
   // dh^T's A = Rs: warp w takes units 16*(w % KT) .. +15 (an m-tile) and
   // gate columns 16*KT*(w / KT) .. (a quarter of K), for all T steps.
   const int dmt = warp % KT, dks = (warp / KT) * KT;
-  unsigned ra[KT][4];
+  auto ra_ptr = [&](int kk) { return Rs + (dmt * 16 + (lane & 15)) * C::LDR + (dks + kk) * 16 + (lane >> 4) * 8; };
+  unsigned ra[kWide ? 1 : KT][4];
+  float dracc[kWide ? 1 : KT][2][4];
+  if constexpr (!kWide) {
 #pragma unroll
-  for (int kk = 0; kk < KT; ++kk)
-    ldsm_x4(ra[kk], Rs + (dmt * 16 + (lane & 15)) * C::LDR + (dks + kk) * 16 + (lane >> 4) * 8);
-  float dracc[KT][2][4];
+    for (int kk = 0; kk < KT; ++kk) ldsm_x4(ra[kk], ra_ptr(kk));
 #pragma unroll
-  for (int mt = 0; mt < KT; ++mt)
+    for (int mt = 0; mt < KT; ++mt)
 #pragma unroll
-    for (int ni = 0; ni < 2; ++ni) dracc[mt][ni][0] = dracc[mt][ni][1] = dracc[mt][ni][2] = dracc[mt][ni][3] = 0.0f;
+      for (int ni = 0; ni < 2; ++ni) dracc[mt][ni][0] = dracc[mt][ni][1] = dracc[mt][ni][2] = dracc[mt][ni][3] = 0.0f;
+  }
 
   for (int t = T_ - 1; t >= 0; --t) {
     const bf16* hcur = hb + (t + 2) % 3 * 16 * C::LDH;  // h_{t-1}
@@ -164,7 +181,10 @@ __global__ void __launch_bounds__(Tc<KT>::kThreads)
     if (t > 1) n2 = fetch(t - 2);
     if (live) {
       float acc[2][4];
-      gate_mma<KT>(acc, hcur, bfr);
+      if constexpr (kWide)
+        gate_mma_rs<KT>(acc, hcur, Rs);
+      else
+        gate_mma<KT>(acc, hcur, bfr);
       float z[4];
 #pragma unroll
       for (int g = 0; g < 4; ++g) z[g] = (cur.x[g] + bj[g]) + round_to<bf16>(tc_gate(acc, g));
@@ -191,7 +211,13 @@ __global__ void __launch_bounds__(Tc<KT>::kThreads)
       for (int kk = 0; kk < KT; ++kk) {
         unsigned bv[2];
         ldsm_x2(bv, dz + (lane & 7) * C::LDR + (dks + kk) * 16 + ((lane >> 3) & 1) * 8);
-        mma_bf16(d, ra[kk], bv[0], bv[1]);
+        if constexpr (kWide) {
+          unsigned rk[4];
+          ldsm_x4(rk, ra_ptr(kk));
+          mma_bf16(d, rk, bv[0], bv[1]);
+        } else {
+          mma_bf16(d, ra[kk], bv[0], bv[1]);
+        }
       }
       float* out = dhp + ((warp / KT) * C::Kp + dmt * 16 + lane / 4) * 8 + 2 * (lane % 4);
       out[0] = d[0];
@@ -199,22 +225,24 @@ __global__ void __launch_bounds__(Tc<KT>::kThreads)
       out[64] = d[2];  // unit + 8
       out[65] = d[3];
     }
-    if (live) {
-      // dR += h_{t-1}^T cdt(dz): M = Kp units, K = 16 rows, the warp's 16
-      // columns.
-      unsigned b[2][2], r[4];
-      ldsm_x4_t(r, dz + (lane & 15) * C::LDR + 16 * warp + (lane >> 4) * 8);
-      b[0][0] = r[0];
-      b[0][1] = r[1];
-      b[1][0] = r[2];
-      b[1][1] = r[3];
+    if constexpr (!kWide) {
+      if (live) {
+        // dR += h_{t-1}^T cdt(dz): M = Kp units, K = 16 rows, the warp's 16
+        // columns.
+        unsigned b[2][2], r[4];
+        ldsm_x4_t(r, dz + (lane & 15) * C::LDR + 16 * warp + (lane >> 4) * 8);
+        b[0][0] = r[0];
+        b[0][1] = r[1];
+        b[1][0] = r[2];
+        b[1][1] = r[3];
 #pragma unroll
-      for (int mt = 0; mt < KT; ++mt) {
-        unsigned a[4];
-        ldsm_x4_t(a, hcur + ((lane & 7) + ((lane >> 4) << 3)) * C::LDH + mt * 16 +
-                         ((lane >> 3) & 1) * 8);
+        for (int mt = 0; mt < KT; ++mt) {
+          unsigned a[4];
+          ldsm_x4_t(a, hcur + ((lane & 7) + ((lane >> 4) << 3)) * C::LDH + mt * 16 +
+                           ((lane >> 3) & 1) * 8);
 #pragma unroll
-        for (int ni = 0; ni < 2; ++ni) mma_bf16(dracc[mt][ni], a, b[ni][0], b[ni][1]);
+          for (int ni = 0; ni < 2; ++ni) mma_bf16(dracc[mt][ni], a, b[ni][0], b[ni][1]);
+        }
       }
     }
 
@@ -232,32 +260,43 @@ __global__ void __launch_bounds__(Tc<KT>::kThreads)
     dh0[row * U + j] = dh;
     dc0[row * U + j] = dc;
   }
-  // The block's partials: dR from the accumulators (interleaved column
-  // -> (j, g)); db summed over the 8 rows of the warp
-  // (a fixed butterfly over lane/4), then written by lanes 0-3.
-  if (live) {
+  if constexpr (kWide) {  // the block's db, summed over its 8 rows, gate-major
 #pragma unroll
-    for (int mt = 0; mt < KT; ++mt)
+    for (int g = 0; g < 4; ++g) {
+      float v = dbacc[g];
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      if (lane < 4 && j < U) part_global[(long long)blockIdx.x * U4 + g * U + j] = v;
+    }
+  } else {
+    // The block's partials: dR from the accumulators (interleaved column
+    // -> (j, g)); db summed over the 8 rows of the warp
+    // (a fixed butterfly over lane/4), then written by lanes 0-3.
+    if (live) {
 #pragma unroll
-      for (int ni = 0; ni < 2; ++ni)
+      for (int mt = 0; mt < KT; ++mt)
 #pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int k = mt * 16 + lane / 4 + 8 * (r / 2);
-          const int c = 16 * warp + 8 * ni + 2 * (lane % 4) + r % 2;
-          const int jj = 4 * (c / 16) + (c % 8) / 2, g = 2 * ((c % 16) / 8) + c % 2;
-          if (k < U && jj < U) part[k * U4 + 4 * jj + g] = dracc[mt][ni][r];
-        }
+        for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const int k = mt * 16 + lane / 4 + 8 * (r / 2);
+            const int c = 16 * warp + 8 * ni + 2 * (lane % 4) + r % 2;
+            const int jj = 4 * (c / 16) + (c % 8) / 2, g = 2 * ((c % 16) / 8) + c % 2;
+            if (k < U && jj < U) part[k * U4 + 4 * jj + g] = dracc[mt][ni][r];
+          }
+    }
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      float v = dbacc[g];
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      if (lane < 4 && j < U) part[U4 * U + 4 * j + g] = v;
+    }
+    __syncthreads();
+    finish_wgrad(part, U, nclust, part_global, dR, db);
   }
-#pragma unroll
-  for (int g = 0; g < 4; ++g) {
-    float v = dbacc[g];
-    v += __shfl_xor_sync(0xffffffffu, v, 4);
-    v += __shfl_xor_sync(0xffffffffu, v, 8);
-    v += __shfl_xor_sync(0xffffffffu, v, 16);
-    if (lane < 4 && j < U) part[U4 * U + 4 * j + g] = v;
-  }
-  __syncthreads();
-  finish_wgrad(part, U, nclust, part_global, dR, db);
 }
 
 // f32 on the CUDA cores: threadIdx.x = unit j, threadIdx.y = row in the
@@ -418,7 +457,155 @@ __global__ void lstm_wgrad_sum_kernel(const float* __restrict__ part, int blocks
     db[(m % 4) * U + m / 4] = s;
 }
 
-int bwd_rows(int dtype, int U) { return dtype == 1 ? kTcRows : fma_rows(U); }
+// Any U past kMaxU, either dtype (X), on the CUDA cores, with cdt(R) read
+// through L2 at every step as in lstm_fwd_l2_kernel: a block owns `rows`
+// batch rows for all T steps, its threads units j (the recompute and the
+// adjoint) and then units k (dh_{t-1}[k] = sum over m of cdt(dz)[m]
+// cdt(R)[k][m], a thread reading row k of R as float4s).  dx = cdt(dz)
+// is all that dR needs (dR = sum over rows and steps of cdt(h_{t-1})^T dx),
+// so dR is left to lstm_wgrad_l2_kernel; each block writes its f32 db
+// partial [4U] to part[blockIdx.x], which that kernel adds in block order.
+template <typename X>
+__global__ void __launch_bounds__(kL2Threads)
+    lstm_bwd_l2_kernel(const X* __restrict__ x, const X* __restrict__ y,
+                       const float* __restrict__ cs, const float* __restrict__ h0,
+                       const float* __restrict__ c0, const float* __restrict__ R,
+                       const float* __restrict__ bias, const X* __restrict__ dy,
+                       const float* __restrict__ dhn, const float* __restrict__ dcn,
+                       X* __restrict__ dx, float* __restrict__ dh0, float* __restrict__ dc0,
+                       float* __restrict__ part, int B, int T_, int U, int act, int rows) {
+  extern __shared__ __align__(16) float smem[];
+  const int U4 = 4 * U, r0 = blockIdx.x * rows;
+  float* hs = smem;               // [rows][U]: cdt(h_{t-1})
+  float* dhc = hs + rows * U;     // [rows][U]: the dh carry
+  float* dcc = dhc + rows * U;    // [rows][U]: the dc carry
+  float* dzs = dcc + rows * U;    // [rows][4U]: cdt(dz_t)
+  float* dbs = dzs + rows * U4;   // [4U]: the block's db
+  for (int e = threadIdx.x; e < rows * U; e += blockDim.x) {
+    const int row = r0 + e / U, j = e % U;
+    const bool ok = row < B;
+    dhc[e] = ok && dhn != nullptr ? dhn[row * U + j] : 0.0f;
+    dcc[e] = ok && dcn != nullptr ? dcn[row * U + j] : 0.0f;
+  }
+  for (int m = threadIdx.x; m < U4; m += blockDim.x) dbs[m] = 0.0f;
+  for (int t = T_ - 1; t >= 0; --t) {
+    for (int e = threadIdx.x; e < rows * U; e += blockDim.x) {
+      const int row = r0 + e / U, k = e % U;
+      hs[e] = row >= B ? 0.0f
+                       : (t > 0 ? to_f32(y[((long long)row * T_ + t - 1) * U + k])
+                                : round_to<X>(h0[row * U + k]));
+    }
+    __syncthreads();  // h_{t-1} staged; the last step's reads of dzs are done
+    for (int j = threadIdx.x; j < U; j += blockDim.x) {
+      float acc[kL2MaxRows][4] = {};
+#pragma unroll 4
+      for (int k = 0; k < U; ++k) {
+        float w[4];
+#pragma unroll
+        for (int g = 0; g < 4; ++g) w[g] = round_to<X>(__ldg(R + (long long)k * U4 + g * U + j));
+#pragma unroll
+        for (int rr = 0; rr < kL2MaxRows; ++rr) {
+          if (rr >= rows) break;
+          const float hv = hs[rr * U + k];
+#pragma unroll
+          for (int g = 0; g < 4; ++g) acc[rr][g] = fmaf(hv, w[g], acc[rr][g]);
+        }
+      }
+      float dbsum[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int rr = 0; rr < kL2MaxRows; ++rr) {
+        if (rr >= rows) break;
+        const int row = r0 + rr;
+        if (row >= B) {  // padding rows add nothing to dh, dR, db
+#pragma unroll
+          for (int g = 0; g < 4; ++g) dzs[rr * U4 + g * U + j] = 0.0f;
+          continue;
+        }
+        const long long o = (long long)row * T_ + t;
+        float z[4];
+#pragma unroll
+        for (int g = 0; g < 4; ++g)
+          z[g] = (to_f32(x[o * U4 + g * U + j]) + bias[g * U + j]) + round_to<X>(acc[rr][g]);
+        const float cp = t > 0 ? cs[(o - 1) * U + j] : c0[row * U + j];
+        const float dhv = dhc[rr * U + j] + (dy != nullptr ? to_f32(dy[o * U + j]) : 0.0f);
+        const Adjoint a = adjoint(z, cp, dhv, dcc[rr * U + j], act);
+        dcc[rr * U + j] = a.f;
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          dx[o * U4 + g * U + j] = from_f32<X>(a.dz[g]);
+          dzs[rr * U4 + g * U + j] = round_to<X>(a.dz[g]);
+          dbsum[g] += a.dz[g];
+        }
+      }
+#pragma unroll
+      for (int g = 0; g < 4; ++g) dbs[g * U + j] += dbsum[g];
+    }
+    __syncthreads();  // cdt(dz_t) staged
+    // dh_{t-1}: the thread of unit j above takes k = j, so the dh carry it
+    // read is the one it now writes.
+    for (int k = threadIdx.x; k < U; k += blockDim.x) {
+      float d[kL2MaxRows] = {};
+      const float4* Rk = reinterpret_cast<const float4*>(R + (long long)k * U4);
+#pragma unroll 2
+      for (int m4 = 0; m4 < U; ++m4) {  // U float4s = 4U columns
+        const float4 w4 = __ldg(Rk + m4);
+        const float w[4] = {round_to<X>(w4.x), round_to<X>(w4.y), round_to<X>(w4.z), round_to<X>(w4.w)};
+#pragma unroll
+        for (int rr = 0; rr < kL2MaxRows; ++rr) {
+          if (rr >= rows) break;
+          const float* dz = dzs + rr * U4 + 4 * m4;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) d[rr] = fmaf(dz[q], w[q], d[rr]);
+        }
+      }
+#pragma unroll
+      for (int rr = 0; rr < kL2MaxRows; ++rr)
+        if (rr < rows) dhc[rr * U + k] = d[rr];
+    }
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < rows * U; e += blockDim.x) {
+    const int row = r0 + e / U, k = e % U;
+    if (row < B) {
+      dh0[row * U + k] = dhc[e];
+      dc0[row * U + k] = dcc[e];
+    }
+  }
+  for (int m = threadIdx.x; m < U4; m += blockDim.x) part[(long long)blockIdx.x * U4 + m] = dbs[m];
+}
+
+// dR[k][m] = sum over rows b, then steps t, of cdt(h_{t-1})[b][k] dx[b][t][m]
+// (h_{-1} = h0), a thread an entry, in that fixed order; the row k = U
+// sums db[m] over the nparts blocks' partials in block order.
+template <typename X>
+__global__ void lstm_wgrad_l2_kernel(const X* __restrict__ y, const float* __restrict__ h0,
+                                     const X* __restrict__ dx, const float* __restrict__ part,
+                                     int nparts, float* __restrict__ dR, float* __restrict__ db,
+                                     int B, int T_, int U) {
+  const int U4 = 4 * U;
+  const int m = blockIdx.x * blockDim.x + threadIdx.x, k = blockIdx.y * blockDim.y + threadIdx.y;
+  if (m >= U4 || k > U) return;
+  float s = 0.0f;
+  if (k == U) {
+    for (int q = 0; q < nparts; ++q) s += part[(long long)q * U4 + m];
+    db[m] = s;
+    return;
+  }
+  for (int b = 0; b < B; ++b) {
+    const long long bt = (long long)b * T_;
+    for (int t = 0; t < T_; ++t) {
+      const float hv = t > 0 ? to_f32(y[(bt + t - 1) * U + k]) : round_to<X>(h0[b * U + k]);
+      s = fmaf(hv, to_f32(dx[(bt + t) * U4 + m]), s);
+    }
+  }
+  dR[(long long)k * U4 + m] = s;
+}
+
+int bwd_rows(int dtype, int U) {
+  if (dtype == 1 && U <= kMaxUTc) return kTcRows;
+  if (U > kMaxU) return l2_rows(true, U);
+  return fma_rows(U);
+}
 
 int bwd_blocks(int dtype, int B, int U) {
   const int rows = bwd_rows(dtype, U);
@@ -474,6 +661,59 @@ cudaError_t launch(K kernel, dim3 block, size_t smem, const Args& a, cudaStream_
   return cudaGetLastError();
 }
 
+// dR and db of a call whose `blocks` blocks wrote dx and their db
+// partials (part [blocks][4U]): lstm_wgrad_l2_kernel.
+template <typename X>
+cudaError_t launch_wgrad_l2(const Args& a, int blocks, cudaStream_t stream) {
+  const dim3 block(32, 8), grid((4 * a.U + 31) / 32, (a.U + 1 + 7) / 8);
+  lstm_wgrad_l2_kernel<X><<<grid, block, 0, stream>>>(
+      static_cast<const X*>(a.y), static_cast<const float*>(a.h0), static_cast<const X*>(a.dx),
+      static_cast<const float*>(a.part), blocks, static_cast<float*>(a.dR),
+      static_cast<float*>(a.db), a.B, a.T, a.U);
+  return cudaGetLastError();
+}
+
+// bf16 at 64 < U <= 128: lstm_bwd_tc_kernel<8> (dR left out), then the
+// L2 path's dR and db launch.
+cudaError_t launch_tc_wide(const Args& a, cudaStream_t stream) {
+  using C = Tc<8>;
+  if (a.part == nullptr) return cudaErrorInvalidValue;
+  const int blocks = (a.B + kTcRows - 1) / kTcRows;
+  const size_t smem = (size_t)(C::Kp * C::LDR + 3 * 16 * C::LDH + 2 * 16 * C::LDR) * 2 +
+                      (size_t)4 * C::Kp * 8 * 4;
+  cudaError_t err = allow_smem((const void*)lstm_bwd_tc_kernel<8>, smem);
+  if (err != cudaSuccess) return err;
+  lstm_bwd_tc_kernel<8><<<blocks, C::kThreads, smem, stream>>>(
+      static_cast<const bf16*>(a.x), static_cast<const bf16*>(a.y), static_cast<const float*>(a.cs),
+      static_cast<const float*>(a.h0), static_cast<const float*>(a.c0),
+      static_cast<const float*>(a.R), static_cast<const float*>(a.bias),
+      static_cast<const bf16*>(a.dy), static_cast<const float*>(a.dhn),
+      static_cast<const float*>(a.dcn), static_cast<bf16*>(a.dx), static_cast<float*>(a.dh0),
+      static_cast<float*>(a.dc0), static_cast<float*>(a.dR), static_cast<float*>(a.db),
+      static_cast<float*>(a.part), a.B, a.T, a.U, a.act, 1);
+  err = cudaGetLastError();
+  return err != cudaSuccess ? err : launch_wgrad_l2<bf16>(a, blocks, stream);
+}
+
+template <typename X>
+cudaError_t launch_l2(const Args& a, cudaStream_t stream) {
+  const int rows = l2_rows(true, a.U);
+  if (rows == 0 || a.part == nullptr) return cudaErrorInvalidValue;
+  const int blocks = (a.B + rows - 1) / rows;
+  const size_t smem = l2_smem(true, rows, a.U);
+  cudaError_t err = allow_smem((const void*)lstm_bwd_l2_kernel<X>, smem);
+  if (err != cudaSuccess) return err;
+  lstm_bwd_l2_kernel<X><<<blocks, kL2Threads, smem, stream>>>(
+      static_cast<const X*>(a.x), static_cast<const X*>(a.y), static_cast<const float*>(a.cs),
+      static_cast<const float*>(a.h0), static_cast<const float*>(a.c0),
+      static_cast<const float*>(a.R), static_cast<const float*>(a.bias),
+      static_cast<const X*>(a.dy), static_cast<const float*>(a.dhn),
+      static_cast<const float*>(a.dcn), static_cast<X*>(a.dx), static_cast<float*>(a.dh0),
+      static_cast<float*>(a.dc0), static_cast<float*>(a.part), a.B, a.T, a.U, a.act, rows);
+  err = cudaGetLastError();
+  return err != cudaSuccess ? err : launch_wgrad_l2<X>(a, blocks, stream);
+}
+
 template <int KT>
 cudaError_t launch_tc(const Args& a, cudaStream_t stream) {
   using C = Tc<KT>;
@@ -494,11 +734,21 @@ cudaError_t launch_fma(const Args& a, cudaStream_t stream) {
 
 // Float32 elements of the scratch `part` one backward call needs: 0 when
 // its blocks fit one cluster (one launch, `part` null), else [blocks,
-// 4U*U + 4U] (two launches).
+// 4U*U + 4U] (two launches); past kMaxU (bf16 KT = 8 or the L2 kernels,
+// two launches) the blocks' db partials, [blocks, 4U].
 extern "C" long long kccot_lstm_bwd_scratch(int dtype, int B, int U) {
-  if (B <= 0 || U <= 0) return 0;
+  if (B <= 0 || U <= 0 || bwd_rows(dtype, U) == 0) return 0;
   const int blocks = bwd_blocks(dtype, B, U);
+  if (U > kMaxU) return (long long)blocks * 4 * U;
   return blocks > kMaxCluster ? (long long)blocks * (4 * U * U + 4 * U) : 0;
+}
+
+// The largest U the forward and backward kernels take: the L2 backward's
+// shared memory at one row a block.
+extern "C" int kccot_lstm_max_units() {
+  int u = kMaxU;
+  while (l2_rows(true, u + 1) > 0) ++u;
+  return u;
 }
 
 // dtype 0 = float32, 1 = bfloat16 (of x, y, dy and dx; 1 runs the
@@ -508,24 +758,26 @@ extern "C" long long kccot_lstm_bwd_scratch(int dtype, int B, int U) {
 // float32 (the kernel rounds it to the compute dtype);
 // bias [4U]; dR [U, 4U] and db [4U] float32; part as
 // kccot_lstm_bwd_scratch says.  dy, dhn, dcn may be null (zero
-// cotangents).  U <= 64.  All contiguous.  Returns the launches'
+// cotangents).  Any U up to kccot_lstm_max_units() (U > 64: the L2
+// kernels, either dtype).  All contiguous.  Returns the launches'
 // cudaError_t.
 extern "C" int kccot_lstm_bwd(int dtype, int act, const void* x, const void* y,
                               const void* cs, const void* h0, const void* c0, const void* R,
                               const void* bias, const void* dy, const void* dhn, const void* dcn,
                               void* dx, void* dh0, void* dc0, void* dR, void* db, void* part,
                               int B, int T, int U, void* stream) {
-  if (B <= 0 || T <= 0 || U <= 0 || U > kMaxU || (act != 0 && act != 1))
+  if (B <= 0 || T <= 0 || U <= 0 || (act != 0 && act != 1) || (dtype != 0 && dtype != 1))
     return cudaErrorInvalidValue;
   const Args a{x, y, cs, h0, c0, R, bias, dy, dhn, dcn, dx, dh0, dc0, dR, db, part,
                B, T, U, act};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
+  if (dtype == 1 && U <= kMaxUTc) {
     if (U <= 16) return launch_tc<1>(a, s);
     if (U <= 32) return launch_tc<2>(a, s);
-    return launch_tc<4>(a, s);
+    if (U <= 64) return launch_tc<4>(a, s);
+    return launch_tc_wide(a, s);
   }
-  if (dtype != 0) return cudaErrorInvalidValue;
+  if (U > kMaxU) return dtype == 1 ? launch_l2<bf16>(a, s) : launch_l2<float>(a, s);
   switch (U) {
     case 8: return launch_fma<8>(a, s);
     case 32: return launch_fma<32>(a, s);

@@ -22,9 +22,9 @@
 //   time is the instructions its SM issues, so few rows a block and one
 //   element a thread), 4*KT warps (U <= 16*KT).  cdt(R) is rounded and
 //   staged once a launch, gate columns interleaved, and each warp holds
-//   its B fragments in registers for all T steps; h_{t-1} passes between
-//   steps as bf16 in a ping-pong shared buffer that is the next step's A
-//   (ldmatrix), so a step has one barrier.  A thread's accumulators hold
+//   its B fragments in registers for all T steps (up to KT = 4); h_{t-1}
+//   passes between steps as bf16 in a ping-pong shared buffer that is the
+//   next step's A (ldmatrix), so a step has one barrier.  A thread's accumulators hold
 //   i, f, c, o of its own (row, unit): the gate math and the c state stay
 //   in registers.
 // * f32: the CUDA cores (TF32 would break the f32 contract), a thread a
@@ -36,6 +36,12 @@
 //   stack are written row-contiguous (bf16: from the shared buffers after
 //   the barrier); R is read as stored (f32) and rounded while staging, so
 //   the wrapper launches nothing but this kernel.
+// * bf16 at 64 < U <= 128: the tensor-core kernel at KT = 8 (32 warps,
+//   R staged as 133 KB of bf16), its B fragments read from shared memory
+//   each step (64 registers a thread cannot hold them).
+// * Past that (f32 past 64, bf16 past 128): an L2 kernel on the CUDA
+//   cores that reads cdt(R) at every step instead of staging it
+//   (lstm_fwd_l2_kernel).  It is meant to be right for any U, not fast.
 
 #include "lstm_tile.cuh"
 
@@ -83,8 +89,11 @@ __global__ void __launch_bounds__(Tc<KT>::kThreads)
     xnn[g] = zero;
   }
   __syncthreads();
-  unsigned bfr[KT][2][2];
-  if (live) load_gate_b<KT>(bfr, Rs);
+  constexpr bool kHeld = KT <= 4;  // the gate product's B fragments kept in registers
+  unsigned bfr[kHeld ? KT : 1][2][2];
+  if constexpr (kHeld) {
+    if (live) load_gate_b<KT>(bfr, Rs);
+  }
 
   for (int t = 0; t < T_; ++t) {
     const bf16* hcur = hb + (t & 1) * 16 * C::LDH;
@@ -96,7 +105,10 @@ __global__ void __launch_bounds__(Tc<KT>::kThreads)
     }
     if (live) {
       float acc[2][4];
-      gate_mma<KT>(acc, hcur, bfr);
+      if constexpr (kHeld)
+        gate_mma<KT>(acc, hcur, bfr);
+      else
+        gate_mma_rs<KT>(acc, hcur, Rs);
       float z[4];
 #pragma unroll
       for (int g = 0; g < 4; ++g)
@@ -200,6 +212,90 @@ __global__ void __launch_bounds__(kFmaThreads)
   }
 }
 
+// Any U past kMaxU, either dtype (X), on the CUDA cores: cdt(R) is read
+// through L2 at every step, rounded on load, not staged (at U = 128 the
+// f32 R alone would need 264 KB of shared memory).  A block owns `rows`
+// batch rows; its threads take units j = tid, tid + blockDim, ... and, for
+// each, the four gates of every row of the block, so that one load of R
+// feeds `rows` FMAs.  The products accumulate in f32 and are rounded once
+// to X, as the staged kernels do.
+template <typename X>
+__global__ void __launch_bounds__(kL2Threads)
+    lstm_fwd_l2_kernel(const X* __restrict__ x, const float* __restrict__ h0,
+                       const float* __restrict__ c0, const float* __restrict__ R,
+                       const float* __restrict__ bias, X* __restrict__ y, float* __restrict__ cs,
+                       float* __restrict__ hn, float* __restrict__ cn, int B, int T_, int U, int act,
+                       int rows) {
+  extern __shared__ __align__(16) float smem[];
+  float* hs = smem;               // [2][rows][U]: cdt(h) of step t's input at t & 1
+  float* cst = hs + 2 * rows * U; // [rows][U]: c
+  const int r0 = blockIdx.x * rows, U4 = 4 * U;
+  for (int e = threadIdx.x; e < rows * U; e += blockDim.x) {
+    const int row = r0 + e / U, j = e % U;
+    hs[e] = row < B ? round_to<X>(h0[row * U + j]) : 0.0f;
+    cst[e] = row < B ? c0[row * U + j] : 0.0f;
+  }
+  __syncthreads();
+  for (int t = 0; t < T_; ++t) {
+    const float* hcur = hs + (t & 1) * rows * U;
+    float* hnext = hs + ((t + 1) & 1) * rows * U;
+    for (int j = threadIdx.x; j < U; j += blockDim.x) {
+      float acc[kL2MaxRows][4] = {};
+#pragma unroll 4
+      for (int k = 0; k < U; ++k) {
+        float w[4];
+#pragma unroll
+        for (int g = 0; g < 4; ++g) w[g] = round_to<X>(__ldg(R + (long long)k * U4 + g * U + j));
+#pragma unroll
+        for (int rr = 0; rr < kL2MaxRows; ++rr) {
+          if (rr >= rows) break;
+          const float hv = hcur[rr * U + k];
+#pragma unroll
+          for (int g = 0; g < 4; ++g) acc[rr][g] = fmaf(hv, w[g], acc[rr][g]);
+        }
+      }
+#pragma unroll
+      for (int rr = 0; rr < kL2MaxRows; ++rr) {
+        const int row = r0 + rr;
+        if (rr >= rows || row >= B) break;
+        const long long o = (long long)row * T_ + t;
+        float z[4];
+#pragma unroll
+        for (int g = 0; g < 4; ++g)
+          z[g] = (to_f32(x[o * U4 + g * U + j]) + bias[g * U + j]) + round_to<X>(acc[rr][g]);
+        const float c = sigmoid(z[1]) * cst[rr * U + j] + sigmoid(z[0]) * activation(z[2], act);
+        const float h = sigmoid(z[3]) * activation(c, act);
+        cst[rr * U + j] = c;
+        hnext[rr * U + j] = round_to<X>(h);
+        y[o * U + j] = from_f32<X>(h);
+        if (cs != nullptr) cs[o * U + j] = c;
+        if (t == T_ - 1) {
+          hn[row * U + j] = h;
+          cn[row * U + j] = c;
+        }
+      }
+    }
+    __syncthreads();  // h_t staged; every read of h_{t-1} (the other buffer) done
+  }
+}
+
+template <typename X>
+cudaError_t launch_l2(const void* x, const void* h0, const void* c0, const void* R,
+                      const void* bias, void* y, void* cs, void* hn, void* cn, int B, int T_,
+                      int U, int act, cudaStream_t stream) {
+  const int rows = l2_rows(false, U);
+  if (rows == 0) return cudaErrorInvalidValue;
+  const size_t smem = l2_smem(false, rows, U);
+  const cudaError_t err = allow_smem((const void*)lstm_fwd_l2_kernel<X>, smem);
+  if (err != cudaSuccess) return err;
+  lstm_fwd_l2_kernel<X><<<(B + rows - 1) / rows, kL2Threads, smem, stream>>>(
+      static_cast<const X*>(x), static_cast<const float*>(h0), static_cast<const float*>(c0),
+      static_cast<const float*>(R), static_cast<const float*>(bias), static_cast<X*>(y),
+      static_cast<float*>(cs), static_cast<float*>(hn), static_cast<float*>(cn), B, T_, U, act,
+      rows);
+  return cudaGetLastError();
+}
+
 template <int KT>
 cudaError_t launch_tc(const void* x, const void* h0, const void* c0, const void* R,
                       const void* bias, void* y, void* cs, void* hn, void* cn, int B, int T_,
@@ -237,20 +333,26 @@ cudaError_t launch_fma(const void* x, const void* h0, const void* c0, const void
 // kernel, 0 the CUDA-core one); act 0 = tanh, 1 = sigmoid.  x [B, T, 4U];
 // h0, c0, hn, cn [B, U] float32; R [U, 4U] the recurrent kernel, float32
 // (the kernel rounds it to the compute dtype); bias [4U] float32; y
-// [B, T, U]; cs, if not null, the c stack [B, T, U] float32.  U <= 64.
-// All contiguous.  Returns the launch's cudaError_t.
+// [B, T, U]; cs, if not null, the c stack [B, T, U] float32.  Any U up
+// to kccot_lstm_max_units() (bf16 up to 128 on the tensor cores; past
+// that, and f32 past 64, the L2 kernel).  All contiguous.  Returns the
+// launch's cudaError_t.
 extern "C" int kccot_lstm_fwd(int dtype, int act, const void* x, const void* h0, const void* c0,
                               const void* R, const void* bias, void* y, void* cs, void* hn,
                               void* cn, int B, int T, int U, void* stream) {
-  if (B <= 0 || T <= 0 || U <= 0 || U > kccot::lstm::kMaxU || (act != 0 && act != 1))
+  if (B <= 0 || T <= 0 || U <= 0 || (act != 0 && act != 1) || (dtype != 0 && dtype != 1))
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
+  if (dtype == 1 && U <= kccot::lstm::kMaxUTc) {
     if (U <= 16) return launch_tc<1>(x, h0, c0, R, bias, y, cs, hn, cn, B, T, U, act, s);
     if (U <= 32) return launch_tc<2>(x, h0, c0, R, bias, y, cs, hn, cn, B, T, U, act, s);
-    return launch_tc<4>(x, h0, c0, R, bias, y, cs, hn, cn, B, T, U, act, s);
+    if (U <= 64) return launch_tc<4>(x, h0, c0, R, bias, y, cs, hn, cn, B, T, U, act, s);
+    return launch_tc<8>(x, h0, c0, R, bias, y, cs, hn, cn, B, T, U, act, s);
   }
-  if (dtype != 0) return cudaErrorInvalidValue;
+  if (U > kccot::lstm::kMaxU) {
+    return dtype == 1 ? launch_l2<bf16>(x, h0, c0, R, bias, y, cs, hn, cn, B, T, U, act, s)
+                      : launch_l2<float>(x, h0, c0, R, bias, y, cs, hn, cn, B, T, U, act, s);
+  }
   switch (U) {
     case 8: return launch_fma<8>(x, h0, c0, R, bias, y, cs, hn, cn, B, T, U, act, s);
     case 32: return launch_fma<32>(x, h0, c0, R, bias, y, cs, hn, cn, B, T, U, act, s);

@@ -9,7 +9,7 @@
 // Tensor-core layout (bf16).  A block owns 8 batch rows, the valid half
 // of one m16 tile (rows 8-15 of every staged operand stay zero; rows past
 // B are padding too, computed and never stored).  U is padded to Kp =
-// 16*KT (KT = 1, 2 or 4: U <= 16, 32, 64).  The block has 4*KT warps;
+// 16*KT (KT = 1, 2, 4 or 8: U <= 16, 32, 64, 128).  The block has 4*KT warps;
 // warp w owns units 4w .. 4w+3, and a thread exactly one (row, unit):
 // row lane/4, unit 4w + lane%4.  What a step costs is the instructions
 // and shared-memory traffic its SM issues, so a block takes few rows and
@@ -36,7 +36,10 @@
 namespace kccot {
 namespace lstm {
 
-constexpr int kMaxU = 64;        // units a kernel takes
+constexpr int kMaxU = 64;        // units the staged kernels take (R in shared memory)
+constexpr int kMaxUTc = 128;     // units the bf16 tensor-core kernels take (KT = 8 past kMaxU)
+constexpr int kL2Threads = 256;  // threads of a block of the L2 kernels (U > kMaxU)
+constexpr int kL2MaxRows = 4;    // batch rows a block of the L2 kernels owns, at most
 constexpr int kTcRows = 8;       // batch rows a tensor-core block owns (of its m16 tile)
 constexpr int kMaxCluster = 8;   // blocks a backward call sums in one cluster
 constexpr int kFmaThreads = 256; // threads of a CUDA-core block, about
@@ -60,6 +63,21 @@ __host__ __device__ __forceinline__ int fma_rows(int U) { return kFmaThreads / U
 
 __device__ __forceinline__ float load_r(const float* R, int idx) { return __ldg(R + idx); }
 
+// Shared memory of the L2 kernels (U > kMaxU): the forward keeps two h
+// buffers and c of its rows, [3][rows][U]; the backward h, dh and dc of
+// its rows, cdt(dz) [rows][4U] and the block's db [4U].
+inline size_t l2_smem(bool backward, int rows, int U) {
+  return (backward ? (size_t)(7 * rows + 4) * U : (size_t)3 * rows * U) * sizeof(float);
+}
+
+// Rows a block of the L2 kernels owns: the most, up to kL2MaxRows, whose
+// shared memory fits one block (0: none does).
+inline int l2_rows(bool backward, int U) {
+  for (int rows = kL2MaxRows; rows >= 1; rows /= 2)
+    if (l2_smem(backward, rows, U) <= (size_t)232448) return rows;
+  return 0;
+}
+
 template <int KT>
 struct Tc {
   static constexpr int Kp = 16 * KT;
@@ -77,30 +95,34 @@ __device__ __forceinline__ void zero_smem(void* p, int bytes) {
 
 // Rs[k][gcol(g, j)] = bf16(R[k][g*U + j]); Rs is zero beforehand.
 // Warp w stages rows k = w, w + 4KT, ... (at most 4: U <= 16KT), its
-// lanes along j (at most 2 columns a lane: U <= 64), every load issued
-// before the first store so that one memory latency covers them all.
+// lanes along j, two columns a lane at a time (64 units a pass), every
+// load of a pass issued before its first store so that one memory
+// latency covers them.
 template <int KT>
 __device__ __forceinline__ void stage_r_tc(bf16* Rs, const float* R, int U) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float v[4][4][2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int j0 = 0; j0 < 16 * KT; j0 += 64) {
+    float v[4][4][2];
 #pragma unroll
-    for (int g = 0; g < 4; ++g)
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        const int k = warp + i * Tc<KT>::kWarps, j = lane + 32 * jj;
-        v[i][g][jj] = k < U && j < U ? load_r(R, (k * 4 + g) * U + j) : 0.0f;
-      }
+      for (int g = 0; g < 4; ++g)
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+        for (int jj = 0; jj < 2; ++jj) {
+          const int k = warp + i * Tc<KT>::kWarps, j = j0 + lane + 32 * jj;
+          v[i][g][jj] = k < U && j < U ? load_r(R, (k * 4 + g) * U + j) : 0.0f;
+        }
 #pragma unroll
-    for (int g = 0; g < 4; ++g)
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        const int k = warp + i * Tc<KT>::kWarps, j = lane + 32 * jj;
-        if (k < U && j < U) Rs[k * Tc<KT>::LDR + gcol(g, j)] = __float2bfloat16(v[i][g][jj]);
-      }
+      for (int g = 0; g < 4; ++g)
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const int k = warp + i * Tc<KT>::kWarps, j = j0 + lane + 32 * jj;
+          if (k < U && j < U) Rs[k * Tc<KT>::LDR + gcol(g, j)] = __float2bfloat16(v[i][g][jj]);
+        }
+  }
 }
 
 // The f32 kernels' R4[k][j] = (R[k][j], R[k][U+j], R[k][2U+j], R[k][3U+j]),
@@ -170,6 +192,31 @@ __device__ __forceinline__ void gate_mma(float (&acc)[2][4], const bf16* hs,
 #pragma unroll
       for (int r = 0; r < 4; ++r) acc[ni][r] += odd[ni][r];
   }
+}
+
+// gate_mma with each k16 step's B fragments read from Rs as it goes: at
+// KT = 8 (32 warps, 64 registers a thread) they cannot stay in
+// registers for all T steps.
+template <int KT>
+__device__ __forceinline__ void gate_mma_rs(float (&acc)[2][4], const bf16* hs, const bf16* Rs) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float odd[2][4];
+#pragma unroll
+  for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[ni][r] = odd[ni][r] = 0.0f;
+#pragma unroll
+  for (int kt = 0; kt < KT; ++kt) {
+    unsigned a[4], b[4];
+    ldsm_x4(a, hs + (lane & 15) * Tc<KT>::LDH + kt * 16 + (lane >> 4) * 8);
+    ldsm_x4_t(b, Rs + (kt * 16 + (lane & 15)) * Tc<KT>::LDR + 16 * warp + (lane >> 4) * 8);
+    mma_bf16(kt % 2 ? odd[0] : acc[0], a, b[0], b[1]);
+    mma_bf16(kt % 2 ? odd[1] : acc[1], a, b[2], b[3]);
+  }
+#pragma unroll
+  for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[ni][r] += odd[ni][r];
 }
 
 // The thread's (row, unit) of a tensor-core block, and gate g of it in

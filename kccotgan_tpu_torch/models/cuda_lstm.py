@@ -21,10 +21,14 @@ Dispatch: CPU tensors run the plain versions (``lstm_scan_reference``,
 launch for all T steps) and, backward, ``csrc/lstm_bwd.cu`` (all T
 steps, dR and db in one launch; two where the batch needs more blocks
 than one thread-block cluster holds, ``kccot_lstm_bwd_scratch``), or
-raise.  The kernels take U <= 64 and the f32 recurrent kernel as
-stored, rounding it themselves: a call launches nothing but its
-kernels.  Each wrapper counts its calls in ``.calls`` and its kernel
-launches in ``.launches``.
+raise.  The kernels stage R in shared memory up to U = 64, and in bf16
+up to 128 (tensor cores); past that, up to ``kccot_lstm_max_units()``
+(5,282), kernels on the CUDA cores read it through L2 at every step.
+Past U = 64 the backward sums dR and db in a second launch.  The
+kernels take the f32 recurrent kernel as stored, rounding it
+themselves: a call launches nothing but its kernels.  Each wrapper
+counts its calls in ``.calls`` and its kernel launches in
+``.launches``.
 """
 
 from __future__ import annotations
@@ -40,7 +44,6 @@ __all__ = ["LstmScan", "lstm_bwd", "lstm_bwd_reference", "lstm_fwd", "lstm_scan"
 
 _ACT = {"tanh": torch.tanh, "sigmoid": torch.sigmoid}
 _ACT_CODES = {"tanh": 0, "sigmoid": 1}
-_MAX_UNITS = 64  # kMaxU of csrc/lstm_tile.cuh
 
 
 def _dact(name, a):
@@ -119,8 +122,6 @@ def _geometry(xproj, h0, c0, rec_kernel, bias, activation):
         raise ValueError(f"lstm: xproj must be [B, T, 4U], got {tuple(xproj.shape)}")
     b, t, u4 = xproj.shape
     u, dev = u4 // 4, xproj.device
-    if u > _MAX_UNITS:
-        raise ValueError(f"lstm: the kernels take at most {_MAX_UNITS} units, got {u}")
     _check("xproj", xproj, (b, t, u4), xproj.dtype, dev)
     _check("h0", h0, (b, u), torch.float32, dev)
     _check("c0", c0, (b, u), torch.float32, dev)
@@ -133,12 +134,19 @@ def _ptr(x):
     return x.data_ptr() if x is not None else None
 
 
-def _launch_fwd(xproj, h0, c0, rec_kernel, bias, activation, with_c_stack):
+def _library(u):
     from .._build import load_library
 
+    lib = load_library()
+    if u > lib.kccot_lstm_max_units():
+        raise ValueError(f"lstm: the kernels take at most {lib.kccot_lstm_max_units()} units, got {u}")
+    return lib
+
+
+def _launch_fwd(xproj, h0, c0, rec_kernel, bias, activation, with_c_stack):
     b, t, u = _geometry(xproj, h0, c0, rec_kernel, bias, activation)
     cdt, dev = xproj.dtype, xproj.device
-    lib = load_library()
+    lib = _library(u)
     y = torch.empty(b, t, u, dtype=cdt, device=dev)
     cs = torch.empty(b, t, u, dtype=torch.float32, device=dev) if with_c_stack else None
     hn, cn = torch.empty_like(h0), torch.empty_like(c0)
@@ -167,8 +175,6 @@ def lstm_fwd(xproj, h0, c0, rec_kernel, bias, activation="tanh", with_c_stack=Fa
 
 
 def _launch_bwd(xproj, h0, c0, rec_kernel, bias, y, c_stack, dy, dh_n, dc_n, activation):
-    from .._build import load_library
-
     b, t, u = _geometry(xproj, h0, c0, rec_kernel, bias, activation)
     cdt, dev = xproj.dtype, xproj.device
     _check("y", y, (b, t, u), cdt, dev)
@@ -177,10 +183,11 @@ def _launch_bwd(xproj, h0, c0, rec_kernel, bias, y, c_stack, dy, dh_n, dc_n, act
                                   ("dc_n", dc_n, (b, u), torch.float32)):
         if x is not None:  # None: a zero cotangent
             _check(name, x, shape, dtype, dev)
-    lib = load_library()
+    lib = _library(u)
     code = _DTYPE_CODES[cdt]
-    # more blocks than one cluster: their dR and db partials go through
-    # this scratch and a second, fixed-order launch
+    # more blocks than one cluster, or U > 64: their dR and db partials
+    # (db alone past U = 64) go through this scratch and a second,
+    # fixed-order launch
     scratch = lib.kccot_lstm_bwd_scratch(code, b, u)
     part = torch.empty(scratch, dtype=torch.float32, device=dev) if scratch else None
     dx = torch.empty_like(xproj)

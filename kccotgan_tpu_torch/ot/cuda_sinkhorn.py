@@ -9,16 +9,23 @@ backward is ``sinkhorn_bwd``, the hand-derived adjoint of the unrolled
 iteration (``_bwd`` there), which equals autograd through the plain loop.
 
 Dispatch: CPU tensors run the plain versions (``sinkhorn_fwd_reference``,
-``sinkhorn_bwd_reference``); CUDA tensors launch ``csrc/sinkhorn_fwd.cu``
-and ``csrc/sinkhorn_bwd.cu``, one launch for all K problems, counted in
-``sinkhorn_fwd.launches`` / ``sinkhorn_bwd.launches`` (or raise).
+``sinkhorn_bwd_reference``); CUDA tensors of any B launch
+``csrc/sinkhorn_fwd.cu`` and ``csrc/sinkhorn_bwd.cu``, one launch for all
+K problems, counted in ``sinkhorn_fwd.launches`` /
+``sinkhorn_bwd.launches`` (or raise).  The kernels pick their path by B
+(``csrc/sinkhorn_common.cuh``): up to 64 a problem lives in the
+registers of one block (16 lanes a row), past that in a thread-block
+cluster, whose backward passes b_bar and a_bar between its blocks
+through a [K, B, B] scratch the wrapper allocates
+(``kccot_sinkhorn_bwd_scratch``).
 """
 
 from __future__ import annotations
 
 import torch
 
-from .cost import causal_penalty, cost_xy
+from .._build import load_library
+from .cost import modified_cost
 
 __all__ = [
     "mixed_sinkhorn",
@@ -107,16 +114,6 @@ def _check(name, t, shape, device):
         raise ValueError(f"sinkhorn: {name} must be contiguous")
 
 
-def _lib_and_limit(max_batch_fn: str, b: int):
-    from .._build import load_library
-
-    lib = load_library()
-    limit = getattr(lib, max_batch_fn)()
-    if b > limit:
-        raise ValueError(f"sinkhorn: B={b} exceeds the kernel's limit of {limit} (shared memory)")
-    return lib
-
-
 def _raise_on(lib, err, name):
     if err:
         raise RuntimeError(f"{name} launch failed: {lib.kccot_error_string(err).decode()}")
@@ -141,7 +138,7 @@ def sinkhorn_fwd(c, eps: float, num_iters: int):
         raise ValueError(f"sinkhorn_fwd: c must be [K, B, B], got {tuple(c.shape)}")
     k, b, _ = c.shape
     _check("c", c, (k, b, b), c.device)
-    lib = _lib_and_limit("kccot_sinkhorn_fwd_max_batch", b)
+    lib = load_library()
     cost = torch.empty(k, dtype=torch.float32, device=c.device)
     uhist = torch.empty(num_iters, k, b, dtype=torch.float32, device=c.device)
     vhist = torch.empty_like(uhist)
@@ -171,11 +168,14 @@ def sinkhorn_bwd(c, uhist, vhist, g, eps: float):
         ("vhist", vhist, (num_iters, k, b)), ("g", g, (k,)),
     ):
         _check(name, t, shape, c.device)
-    lib = _lib_and_limit("kccot_sinkhorn_bwd_max_batch", b)
+    lib = load_library()
+    scratch = lib.kccot_sinkhorn_bwd_scratch(k, b)
+    bm = torch.empty(scratch, dtype=torch.float32, device=c.device) if scratch else None
     c_bar = torch.empty_like(c)
     err = lib.kccot_sinkhorn_bwd(
         c.data_ptr(), uhist.data_ptr(), vhist.data_ptr(), g.data_ptr(), c_bar.data_ptr(),
-        k, b, num_iters, float(eps), torch.cuda.current_stream(c.device).cuda_stream,
+        None if bm is None else bm.data_ptr(), k, b, num_iters, float(eps),
+        torch.cuda.current_stream(c.device).cuda_stream,
     )
     _raise_on(lib, err, "sinkhorn_bwd")
     sinkhorn_bwd.launches += 1
@@ -206,11 +206,13 @@ def sinkhorn_batch(c, eps: float = 1.0, num_iters: int = 100):
 
 
 def mixed_sinkhorn(f_real, f_fake, h_fake, m_real, h_real, m_fake, scaling_coef, *,
-                   epsilon: float = 1.0, num_iters: int = 100):
+                   epsilon: float = 1.0, num_iters: int = 100, cost_method: str = "gram"):
     """``2 W(x, y) - W(x, x) - W(y, y)`` with the three causally modified
-    Gram-form costs solved together in one ``sinkhorn_batch``."""
-    c_xy = cost_xy(f_real, f_fake, scaling_coef) + causal_penalty(h_fake, m_real, scaling_coef)
-    c_xx = cost_xy(f_real, f_real, scaling_coef) + causal_penalty(h_real, m_real, scaling_coef)
-    c_yy = cost_xy(f_fake, f_fake, scaling_coef) + causal_penalty(h_fake, m_fake, scaling_coef)
+    costs (``modified_cost``, built by ``cost_method``) solved together in
+    one ``sinkhorn_batch``."""
+    kw = dict(cost_method=cost_method)
+    c_xy = modified_cost(f_real, f_fake, h_fake, m_real, scaling_coef, **kw)
+    c_xx = modified_cost(f_real, f_real, h_real, m_real, scaling_coef, **kw)
+    c_yy = modified_cost(f_fake, f_fake, h_fake, m_fake, scaling_coef, **kw)
     costs = sinkhorn_batch(torch.stack([c_xy, c_xx, c_yy]), epsilon, num_iters)
     return 2.0 * costs[0] - costs[1] - costs[2]

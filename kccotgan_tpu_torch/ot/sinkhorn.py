@@ -51,18 +51,15 @@ def compute_sinkhorn_loss(
     video: bool = True, epsilon: float = 1.0, num_iters: int = 100,
     cost_method: str = "gram", solver: str = "auto",
 ):
-    """Mixed causal-Sinkhorn divergence ``2 W(x, y) - W(x, x) - W(y, y)``.
-
-    As in the JAX package, the fused path builds its costs in the Gram
-    form whatever ``cost_method`` says.
-    """
+    """Mixed causal-Sinkhorn divergence ``2 W(x, y) - W(x, x) - W(y, y)``,
+    its costs built by ``cost_method`` on every solver."""
     if video:
         f_real = flatten_video(f_real)
         f_fake = flatten_video(f_fake)
     if solver in ("auto", "pallas"):
         return mixed_sinkhorn(
             f_real, f_fake, h_fake, m_real, h_real, m_fake, scaling_coef,
-            epsilon=epsilon, num_iters=num_iters,
+            epsilon=epsilon, num_iters=num_iters, cost_method=cost_method,
         )
     if solver != "scan":
         raise ValueError(f"unknown sinkhorn solver: {solver!r}")

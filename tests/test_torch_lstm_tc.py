@@ -18,7 +18,9 @@ checks the result against the plain versions (``lstm_scan_reference``,
   rows are zero, with B padded (B = 5, 33: ragged last blocks);
 * each block's dR = h^T dz over its rows and steps and its db, stored as
   the kernels store their partials, then added block by block in rank
-  order (the cluster's, and the second launch's beyond one cluster).
+  order (the cluster's, and the second launch's beyond one cluster);
+* past U = 64 (the L2 kernels, no tensor cores), dR summed from dx and y
+  in the second launch's order, and db from 4-row blocks' partials.
 
 All in f32, where the products and sums are the plain versions' own up to
 summation order: tolerance 1e-5 of each output's largest entry.  Small
@@ -68,7 +70,7 @@ col_gate = eval(f"lambda c: {_bwd_decl('g')}")  # noqa: S307
 
 
 def _kt(u):
-    return 1 if u <= 16 else (2 if u <= 32 else 4)
+    return 1 if u <= 16 else (2 if u <= 32 else (4 if u <= 64 else 8))
 
 
 def _inputs(b, t, u, seed):
@@ -236,7 +238,7 @@ def _assert_rel(got, want, name):
     assert err <= TOL * scale, f"{name}: {err} > {TOL} * {scale}"
 
 
-@pytest.mark.parametrize("u", [3, 5, 8, 20, 32, 64])
+@pytest.mark.parametrize("u", [3, 5, 8, 20, 32, 64, 100, 128])
 def test_maps_are_consistent(u):
     """Every (row, unit) of a block has one owner thread; the gate columns
     it reads are gcol's; the dR store's column map inverts gcol."""
@@ -261,7 +263,7 @@ def test_staged_r_layout():
         assert rs[k, gcol(n // u, n % u)] == rk[k, n]
 
 
-@pytest.mark.parametrize("b,u", [(5, 3), (33, 8), (5, 32), (33, 5), (18, 64)])
+@pytest.mark.parametrize("b,u", [(5, 3), (33, 8), (5, 32), (33, 5), (18, 64), (9, 100)])
 def test_forward_layout_matches_reference(b, u):
     args = _inputs(b, 3, u, seed=b + u)
     want = lstm_scan_reference(*args, "tanh")
@@ -280,3 +282,30 @@ def test_backward_layout_and_block_partials_match_reference(b, u):
     got = _emulate_bwd(*args, y, cs, *cot)
     for g, w, name in zip(got, want, ("dx", "dh0", "dc0", "dR", "db")):
         _assert_rel(g, w, name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_l2_path_weight_gradient_from_dx_matches_reference(dtype):
+    """Past U = 64 (the L2 kernels) the backward's recurrence writes only
+    dx = cdt(dz) and each block's db partial (4 rows a block); the second
+    launch sums dR[k][m] = cdt(h_{t-1})[b][k] dx[b][t][m] over rows b,
+    then steps t, and db over the partials in block order.  Both equal the
+    plain version's dR and db (db checked in f32, where dx is dz)."""
+    b, t, u = 6, 3, 96
+    xproj, h0, c0, rk, bias = _inputs(b, t, u, seed=7)
+    args = (xproj.to(dtype), h0, c0, rk, bias)
+    y, cs, _, _ = lstm_scan_reference(*args, "tanh")
+    rng = np.random.default_rng(8)
+    dy = torch.from_numpy(rng.standard_normal(y.shape).astype(np.float32)).to(dtype)
+    dh, dc = (torch.from_numpy(rng.standard_normal((b, u)).astype(np.float32)) for _ in range(2))
+    dx, _, _, drk, db = lstm_bwd_reference(*args, y, cs, dy, dh, dc, "tanh")
+    hprev = torch.cat([h0.to(dtype)[:, None], y[:, :-1]], dim=1).float()  # cdt(h_{t-1}), h_{-1} = h0
+    dr = torch.zeros(u, 4 * u)
+    for row, step in np.ndindex(b, t):
+        dr = dr + torch.outer(hprev[row, step], dx[row, step].float())
+    _assert_rel(dr, drk, "dR")
+    if dtype == torch.float32:
+        total = torch.zeros(4 * u)
+        for r0 in range(0, b, 4):  # the blocks' partials, in block order
+            total = total + dx[r0 : r0 + 4].sum((0, 1))
+        _assert_rel(total, db, "db")

@@ -159,6 +159,34 @@ def test_compute_sinkhorn_loss_matches_jax(solver):
         _close(a.grad, g, 1e-4, 1e-5)
 
 
+def test_fused_path_honours_exact_costs():
+    """``cost_method='exact'`` reaches the fused solver: with features at a
+    large common offset (300 + N(0, 1)) the Gram form loses digits to
+    cancellation, so its loss sits more than 100x the tolerance from the
+    exact one; the port's ``'auto'`` (the fused path) on exact costs gives
+    JAX's off-TPU ``'auto'`` (the scan) on exact costs, loss and
+    gradients."""
+    rng = np.random.default_rng(10)
+    x, y = [(300.0 + rng.normal(size=(B, T, F))).astype(np.float32) for _ in range(2)]
+    h = [rng.normal(size=(B, T, J)).astype(np.float32) for _ in range(4)]
+    kw = dict(video=False, num_iters=L, solver="auto")
+
+    def jax_loss(*a):
+        return jot.compute_sinkhorn_loss(a[0], a[1], SCALING, *a[2:], cost_method="exact", **kw)
+
+    want = jax_loss(x, y, *h)
+    args = [torch.tensor(a, requires_grad=True) for a in (x, y, *h)]
+    got = ot.compute_sinkhorn_loss(args[0], args[1], SCALING, *args[2:], cost_method="exact", **kw)
+    gram = ot.compute_sinkhorn_loss(*_t(x, y), SCALING, *_t(*h), cost_method="gram", **kw)
+    tol = 1e-5 + 1e-5 * abs(float(want))
+    assert abs(float(gram) - float(want)) > 100 * tol
+    _close(got, want, 1e-5, 1e-5)
+    got.backward()
+    grads = jax.grad(jax_loss, argnums=tuple(range(6)))(x, y, *h)
+    for a, g in zip(args, grads):
+        _close(a.grad, g, 1e-4, 1e-5)
+
+
 def test_flatten_video_and_unknown_solver():
     v = np.random.default_rng(8).normal(size=(2, 3, 4, 5, 1)).astype(np.float32)
     _close(ot.flatten_video(torch.tensor(v)), jot.flatten_video(v), 0, 0)
