@@ -34,7 +34,13 @@ ported paths at the ``mmnist_full`` preset (B=32, 64x64x1, 10 context +
   and LSTM recurrence through its forward and backward kernels) against
   two under ``'scan'`` from the same state, video and z, in f32 and in
   bf16, with every kernel's calls and launches counted per iteration;
-  then both engines timed in turns and profiled.
+  then both engines timed in turns and profiled;
+* the trainer: ``cli.main`` trains 8 ``'pallas'`` steps at ``mmnist_full``
+  on an MMNIST-layout fixture (checkpoints and samples every 4 steps,
+  every kernel's launches counted over the run, which the ``kernels``
+  line reports); ``Trainer.fit`` run 4 steps, checkpointed, restored into
+  a new trainer and run 4 more, against 8 straight, equal to the bit;
+  and the loop against the bare step in turns (the ``trainer`` line).
 
 The bf16 engine runs the ConvLSTM's recurrent conv, dh and drk, and the
 dense LSTM's step, dh and dR, on the tensor cores: the built library's
@@ -53,11 +59,14 @@ Imports neither JAX nor the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -65,7 +74,10 @@ import numpy as np
 import torch
 
 from kccotgan_tpu_torch._build import _FLAGS, BUILD_DIR, _nvcc, load_library
+from kccotgan_tpu_torch.ckpt import latest_step
+from kccotgan_tpu_torch.cli.main import main as train_main
 from kccotgan_tpu_torch.config import get_preset
+from kccotgan_tpu_torch.data import ArrayDataset, load_mmnist, mmnist_paths, write_mmnist_fixture
 from kccotgan_tpu_torch.models.cuda_convlstm import (
     convlstm_bwd,
     convlstm_bwd_reference,
@@ -97,7 +109,7 @@ from kccotgan_tpu_torch.roofline import (
     lstm_work,
     sinkhorn_work,
 )
-from kccotgan_tpu_torch.train import build_rollout, build_train_step, create_train_state
+from kccotgan_tpu_torch.train import Trainer, build_rollout, build_train_step, create_train_state
 from kccotgan_tpu_torch.weights import init_generator_params
 
 PRESET = "mmnist_full"
@@ -248,6 +260,20 @@ SINK_TOL = {"cost_rtol": 1e-5, "hist_atol": 1e-4, "cbar_rtol": 1e-4, "cbar_atol"
 # bit.  It shows that the kernels sit on the path and keep it finite; the
 # check that can fail a wrong kernel is check_sinkhorn, on spread costs.
 TRAIN_TOL = {"loss_rtol": 1e-3, "pm_rtol": 1e-4, "mu_rel": 1e-3, "param_atol": 1e-6}
+# The trainer phase: the CLI trains TRAINER_STEPS 'pallas' steps at
+# mmnist_full on an MMNIST-layout fixture of FIXTURE_VIDEOS videos (two
+# batches an epoch), checkpointing and sampling every TRAINER_EVERY steps
+# (samples at 1, 4, 8), and every kernel of the iteration launches as
+# often as PALLAS_COUNTS says, the ConvLSTM forward also ROLLOUT_LAUNCHES
+# a sample.  The resumed run (4 steps, checkpoint, a new Trainer, 4 more)
+# must equal the straight 8 to the bit, cuDNN deterministic: every kernel
+# of the port sums in a fixed order, the noise comes from the state's
+# key, and a checkpoint holds every bit of the state, so no tolerance.
+TRAINER_STEPS, TRAINER_EVERY, FIXTURE_VIDEOS = 8, 4, 64
+ROLLOUT_LAUNCHES = 4 * 10 + 8 * 10
+# Loop against the bare step, in turns (loop, bare, bare, loop), over this
+# many batches with no checkpoint or sample in the window.
+LOOP_STEPS = 10
 
 
 def cuda_ms(fn, reps):
@@ -1038,6 +1064,169 @@ def training_inputs(cfg, dev):
     return state0, video, zs
 
 
+def read_metrics(run_dir):
+    """``{tag: {step: value}}`` from a run's ``metrics.jsonl``."""
+    out = {}
+    with open(Path(run_dir) / "log" / "metrics.jsonl") as f:
+        for line in f:
+            r = json.loads(line)
+            out.setdefault(r["tag"], {})[r["step"]] = r["value"]
+    return out
+
+
+def write_fixture(root):
+    """The MMNIST layout under ``root``: train and test files of
+    FIXTURE_VIDEOS videos, 20 frames, where ``mmnist_paths`` looks."""
+    train_path, test_path = mmnist_paths(str(root))
+    Path(train_path).parent.mkdir(parents=True)
+    write_mmnist_fixture(train_path, num_videos=FIXTURE_VIDEOS, time_steps=20, seed=0)
+    write_mmnist_fixture(test_path, num_videos=FIXTURE_VIDEOS, time_steps=20, seed=1)
+    return train_path
+
+
+def check_trainer_cli(tmp, data):
+    """Phase 9a: the trainer's command line, counted: TRAINER_STEPS
+    'pallas' steps at mmnist_full on the fixture, checkpoints and samples
+    every TRAINER_EVERY steps."""
+    argv = ["--preset", PRESET, "--dname", "mmnist", "--data_path", str(data), "--kernel_impl", "pallas",
+            "--max_steps", str(TRAINER_STEPS), "--ckpt_freq", str(TRAINER_EVERY),
+            "--save_freq", str(TRAINER_EVERY), "--out_dir", str(tmp), "--run_name", "cli"]
+    out = io.StringIO()
+    reset_counts()
+    with contextlib.redirect_stdout(out):
+        rc = train_main(argv, device="cuda")
+    torch.cuda.synchronize()
+    launched = counts()
+    summary = json.loads(out.getvalue().strip().splitlines()[-1])
+    run_dir = Path(tmp) / "cli"
+    mets = read_metrics(run_dir)
+    samples = [1] + list(range(TRAINER_EVERY, TRAINER_STEPS + 1, TRAINER_EVERY))
+    losses = mets.get("Sinkhorn Loss", {})
+    ckpts = sorted(int(p.stem.split("_")[1]) for p in (run_dir / "ckpt").glob("step_*.pt"))
+    want = {n: TRAINER_STEPS * c[1] + (len(samples) * ROLLOUT_LAUNCHES if n == "convlstm_fwd" else 0)
+            for n, c in PALLAS_COUNTS.items()}
+    got = {n: c[1] for n, c in launched.items()}
+    print(json.dumps({"trainer_cli": {"argv": argv, "rc": rc, "summary": summary, "losses": losses,
+                                      "eval_psnr": mets.get("eval/psnr"), "eval_ssim": mets.get("eval/ssim"),
+                                      "checkpoints": ckpts, "launches": got, "expected_launches": want}}),
+          flush=True)
+    if rc != 0 or summary["status"] != "completed" or summary["steps"] != TRAINER_STEPS:
+        raise RuntimeError(f"trainer CLI: rc {rc}, summary {summary}")
+    if sorted(losses) != list(range(1, TRAINER_STEPS + 1)) or not all(np.isfinite(list(losses.values()))):
+        raise RuntimeError(f"trainer CLI: Sinkhorn losses {losses}")
+    for tag in ("eval/psnr", "eval/ssim"):
+        if sorted(mets.get(tag, {})) != samples or not all(np.isfinite(list(mets[tag].values()))):
+            raise RuntimeError(f"trainer CLI: {tag} {mets.get(tag)}, expected finite values at steps {samples}")
+    if ckpts != [s for s in samples if s % TRAINER_EVERY == 0] or latest_step(str(run_dir / "ckpt")) != TRAINER_STEPS:
+        raise RuntimeError(f"trainer CLI: checkpoints at {ckpts}")
+    if got != want:
+        raise RuntimeError(f"trainer CLI: kernel launches {got}, expected {want}")
+    return summary, launched
+
+
+def check_resume(tmp, train_path, base):
+    """Phase 9b: 4 steps, checkpoint, restore into a new Trainer, 4 more,
+    against 8 straight on the same batches, cuDNN deterministic: the
+    losses and every tensor of the state equal to the bit."""
+    data = load_mmnist(train_path, base.total_time_steps)
+    batches = list(ArrayDataset(data, base.batch_size, seed=0).repeat(TRAINER_STEPS // 2))
+    half = TRAINER_STEPS // 2
+    cfg = dataclasses.replace(base, kernel_impl="pallas", out_dir=str(tmp), ckpt_freq=half, save_freq=half)
+    torch.backends.cudnn.deterministic = True
+    try:
+        straight = Trainer(dataclasses.replace(cfg, run_name="straight"))
+        s_state, _ = straight.fit(iter(batches), max_steps=TRAINER_STEPS)
+        first = Trainer(dataclasses.replace(cfg, run_name="first"))
+        first.fit(iter(batches[:half]), max_steps=half, test_batch=data[: base.batch_size])
+        resumed = Trainer(dataclasses.replace(
+            cfg, run_name="resumed", checkpoint=True, ckpt_path=str(Path(first.run_dir) / "ckpt")))
+        r_state, _ = resumed.fit(iter(batches[half:]), max_steps=TRAINER_STEPS)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    torch.cuda.synchronize()
+    s_loss = read_metrics(straight.run_dir)["Sinkhorn Loss"]
+    r_loss = read_metrics(resumed.run_dir)["Sinkhorn Loss"]
+    diff = {}
+    for name in ("enc_params", "dec_params", "h_params", "m_params", "h_stats", "m_stats"):
+        a, b = getattr(s_state, name), getattr(r_state, name)
+        diff[name] = max(float((a[k] - b[k]).abs().max()) for k in a)
+    for g in ("enc", "dec", "h", "m"):
+        a, b = getattr(s_state, f"{g}_opt"), getattr(r_state, f"{g}_opt")
+        diff[f"{g}_opt"] = max(float((x[k] - y[k]).abs().max()) for x, y in ((a.mu, b.mu), (a.nu, b.nu)) for k in x)
+    same_losses = [s_loss[i] for i in range(half + 1, TRAINER_STEPS + 1)] == [
+        r_loss.get(i) for i in range(half + 1, TRAINER_STEPS + 1)]
+    resume = {"max_abs_diff": diff, "losses_straight": s_loss, "losses_resumed": r_loss,
+              "same_step_rng": [s_state.step, r_state.step, s_state.rng == r_state.rng]}
+    print(json.dumps({"trainer_resume": resume}), flush=True)
+    if not (same_losses and max(diff.values()) == 0.0 and s_state.step == r_state.step == TRAINER_STEPS
+            and s_state.rng == r_state.rng):
+        raise RuntimeError(f"resumed run differs from the straight run: {resume}")
+    return first.timings, batches
+
+
+def time_loop(tmp, batches, base):
+    """Phase 9c: the loop (Trainer.fit, no checkpoint or sample in the
+    window, its summary's rates) against the bare step on the same
+    batches staged on the card beforehand (host clock around the steps
+    and a final synchronize), in turns: loop, bare, bare, loop.  Per
+    loop window, the mean and the largest wait for a batch."""
+    cfg = dataclasses.replace(base, kernel_impl="pallas", ckpt_freq=10**9, save_freq=10**9,
+                              out_dir=str(tmp), run_name="loop")
+    batches = (batches * LOOP_STEPS)[:LOOP_STEPS]
+    trainer = Trainer(cfg)
+    state0 = create_train_state(cfg)
+    on_card = [torch.from_numpy(b).cuda() for b in batches]
+    runs = {"loop": [], "bare": []}
+    waits = {"mean_ms": [], "max_ms": []}
+    for kind in ("loop", "bare", "bare", "loop"):
+        torch.cuda.synchronize()
+        if kind == "loop":
+            _, summary = trainer.fit(iter(batches), state=state0)
+            if summary["steps"] != LOOP_STEPS:
+                raise RuntimeError(f"loop window: {summary}")
+            runs["loop"].append(summary["frames_per_sec"])
+            wait = trainer.timings["prefetch_wait"]
+            waits["mean_ms"].append(wait["sum_ms"] / LOOP_STEPS)
+            waits["max_ms"].append(wait["max_ms"])
+        else:
+            t0 = time.perf_counter()
+            state = state0
+            for batch in on_card:
+                state, _ = trainer.train_step(state, batch)
+            torch.cuda.synchronize()
+            runs["bare"].append(LOOP_STEPS * cfg.batch_size * cfg.total_time_steps / (time.perf_counter() - t0))
+    return {k: sum(v) / len(v) for k, v in runs.items()}, runs, waits
+
+
+def check_trainer(card, base, bare_pallas_ms):
+    """Phase 9: the trainer's path, through the CLI and through Trainer."""
+    with tempfile.TemporaryDirectory() as tmp:
+        train_path = write_fixture(Path(tmp) / "data")
+        summary, launched = check_trainer_cli(Path(tmp) / "runs", Path(tmp) / "data")
+        timings, batches = check_resume(Path(tmp) / "resume", train_path, base)
+        fps, fps_runs, waits = time_loop(Path(tmp) / "loop", batches, base)
+    ckpt = timings["checkpoints"][0]
+    frames = base.batch_size * base.total_time_steps
+    print(json.dumps({"trainer": {
+        "card": card,
+        "preset": PRESET,
+        "kernel_impl": "pallas",
+        "cli_summary": summary,
+        "loop_frames_per_s": fps["loop"],
+        "bare_step_frames_per_s": fps["bare"],
+        "loop_over_bare": fps["loop"] / fps["bare"],
+        "frames_per_s_runs": fps_runs,
+        "frames_per_s_of_bare_pallas_iteration": frames / bare_pallas_ms * 1e3,
+        "bare_pallas_iteration_ms": bare_pallas_ms,
+        "loop_steps_per_s": fps["loop"] / frames,
+        "checkpoint": {"host_copy_ms": ckpt["copy_ms"], "write_ms": ckpt["write_ms"], "mb": ckpt["bytes"] / 1e6},
+        "sample_ms": timings["sample_ms"],
+        "prefetch_wait_ms_per_step": waits["mean_ms"],
+        "prefetch_wait_max_ms": waits["max_ms"],
+    }}), flush=True)
+    return launched
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -1116,9 +1305,14 @@ def main():
     # Phase 8: the 'pallas' training path (every recurrence through its
     # kernels) against 'scan', counted per iteration, then timed.
     state0, video, zs, steps, per_iter, pallas_counts = check_engines(base, dev)
-    time_training(card, base, state0, video, zs, (("scan", steps["scan"]), ("pallas", steps["pallas"])),
-                  "lstm", "engine_timings",
-                  required=TC_KERNELS + LSTM_TC_KERNELS if base.compute_dtype == "bfloat16" else ())
+    engine_ms, _ = time_training(
+        card, base, state0, video, zs, (("scan", steps["scan"]), ("pallas", steps["pallas"])),
+        "lstm", "engine_timings",
+        required=TC_KERNELS + LSTM_TC_KERNELS if base.compute_dtype == "bfloat16" else ())
+
+    # Phase 9: the trainer's path (CLI, resume, loop against the bare step),
+    # every kernel counted over the CLI's run.
+    trainer_counts = check_trainer(card, base, engine_ms["pallas"])
 
     # Bounds of the work timed: the 8 T=10 layer scans of phase 2, one
     # Sinkhorn launch at the training step's [3, B, B], L, the 8 layer
@@ -1143,8 +1337,12 @@ def main():
         runs = [lstm_times[n]["cudnn_bfloat16"] for n in tanh_layers]
         return sum(r[key] for r in runs) if all(key in r for r in runs) else None
 
+    n_samples = len([1] + list(range(TRAINER_EVERY, TRAINER_STEPS + 1, TRAINER_EVERY)))
+    launches_over = f"trainer_cli: {TRAINER_STEPS} 'pallas' iterations + {n_samples} sampling rollouts"
+
     def entry(name, ms, plain_ms, bound, by, library_ms, max_abs_err):
-        return dict(KERNELS[name], launches=pallas_counts[name][1], max_abs_err=max_abs_err, ms=ms,
+        return dict(KERNELS[name], launches=trainer_counts[name][1], launches_over=launches_over,
+                    max_abs_err=max_abs_err, ms=ms,
                     plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=library_ms)
 
     kernels = [
@@ -1163,7 +1361,7 @@ def main():
     ]
     missing = [k["name"] for k in kernels if not k["launches"]]
     if missing:
-        raise RuntimeError(f"the 'pallas' iteration launched no {missing}")
+        raise RuntimeError(f"the trainer's run launched no {missing}")
     print(json.dumps({"pallas_iteration_counts": {"two_iterations": pallas_counts, "first": per_iter[0]},
                       "rollout_convlstm_fwd_launches": launches,
                       "scan_iteration_sinkhorn_launches": train_launches}))

@@ -11,5 +11,8 @@ Sinkhorn forward and backward as hand-written CUDA kernels
 run as plain loops under autograd with ``kernel_impl='scan'``, or under
 ``'pallas'`` through the ConvLSTM forward and backward
 (``csrc/convlstm_bwd.cu``) and the dense LSTM forward and backward
-(``csrc/lstm_fwd.cu``, ``csrc/lstm_bwd.cu``) kernels.
+(``csrc/lstm_fwd.cu``, ``csrc/lstm_bwd.cu``) kernels.  Around the step:
+the trainer (``train.loop.Trainer``, ``cli.main``) over the synthetic and
+MMNIST data (``data``), with checkpoints for an exact resume (``ckpt``),
+PSNR/SSIM of its samples (``eval``) and its logs (``utils``).
 """

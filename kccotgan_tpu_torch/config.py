@@ -1,6 +1,8 @@
 """Configuration of the PyTorch port: the fields of the JAX package's
-``ModelConfig`` / ``TrainConfig`` that the ported path reads, with the
-same names and defaults, and the per-dataset presets restricted to them.
+``ModelConfig`` / ``TrainConfig`` that the ported path reads (the model,
+the objective, the optimizer, the data and the trainer's bookkeeping),
+with the same names and defaults, and the per-dataset presets restricted
+to them.
 
 Counterpart of ``kccotgan_tpu/config``; ``tests/test_torch_config.py``
 holds every preset here field by field against the JAX package's.
@@ -10,6 +12,8 @@ yet, and the ROADMAP item that will.
 
 from __future__ import annotations
 
+import dataclasses
+import json
 from dataclasses import dataclass, field
 
 __all__ = ["PRESETS", "ModelConfig", "TrainConfig", "check_trainable", "get_preset"]
@@ -34,9 +38,13 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class TrainConfig:
+    # data
+    dname: str = "mmnist"
+    data_path: str = "../data"
     batch_size: int = 8
     total_time_steps: int = 15
     int_time_steps: int = 5
+    n_epochs: int = 100
     model: ModelConfig = field(default_factory=ModelConfig)
 
     # objective
@@ -78,7 +86,19 @@ class TrainConfig:
     share_context_encoding: bool = True
     fused_discriminators: bool = False
 
+    # on a non-finite loss the trainer restores the last verified
+    # checkpoint, folds the retry count into the noise key and goes on,
+    # up to this many times a run; 0 stops (train/loop.py)
+    nan_recovery_retries: int = 0
+
+    # bookkeeping
     seed: int = 1
+    save_freq: int = 10  # sample and score a rollout every this many steps
+    ckpt_freq: int = 10000
+    out_dir: str = "trained"
+    run_name: str = ""
+    checkpoint: bool = False  # resume from ckpt_path
+    ckpt_path: str = ""
 
     @property
     def pred_time_steps(self) -> int:
@@ -87,6 +107,9 @@ class TrainConfig:
     @property
     def effective_scaling(self) -> float:
         return 1.0 / self.scaling_coef
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2)
 
 
 def check_trainable(cfg: TrainConfig) -> None:
@@ -116,13 +139,13 @@ def check_trainable(cfg: TrainConfig) -> None:
 
 
 PRESETS = {
-    "mmnist_small": TrainConfig(batch_size=8, total_time_steps=20, int_time_steps=10),
-    "mmnist_full": TrainConfig(batch_size=32, total_time_steps=20, int_time_steps=10),
-    "mazes": TrainConfig(batch_size=8, model=ModelConfig(n_channels=3)),
-    "robot_push": TrainConfig(batch_size=8, model=ModelConfig(n_channels=3)),
-    "mmnist_long": TrainConfig(batch_size=32, total_time_steps=30, int_time_steps=5),
-    "reference_defaults": TrainConfig(batch_size=2, model=ModelConfig(n_channels=3)),
-    "synthetic_demo": TrainConfig(batch_size=32, total_time_steps=20, int_time_steps=10),
+    "mmnist_small": TrainConfig(dname="mmnist", batch_size=8, total_time_steps=20, int_time_steps=10),
+    "mmnist_full": TrainConfig(dname="mmnist", batch_size=32, total_time_steps=20, int_time_steps=10),
+    "mazes": TrainConfig(dname="mazes", batch_size=8, model=ModelConfig(n_channels=3)),
+    "robot_push": TrainConfig(dname="robot_push", batch_size=8, model=ModelConfig(n_channels=3)),
+    "mmnist_long": TrainConfig(dname="mmnist", batch_size=32, total_time_steps=30, int_time_steps=5),
+    "reference_defaults": TrainConfig(dname="robot_push", batch_size=2, model=ModelConfig(n_channels=3)),
+    "synthetic_demo": TrainConfig(dname="synthetic", batch_size=32, total_time_steps=20, int_time_steps=10),
 }
 
 

@@ -40,7 +40,7 @@ from torch.func import functional_call
 from ..config import check_trainable
 from ..models.video import discriminator_modules, generator_modules
 from ..ot import compute_sinkhorn_loss, martingale_regularization
-from .state import TrainState, make_optimizers
+from .state import TrainState, make_optimizers, split_key
 
 __all__ = ["build_train_step", "gan_forward"]
 
@@ -96,10 +96,12 @@ def build_train_step(cfg, *, device="cuda") -> Callable:
     ``real_data`` is the film-strip batch ``[B, H, T, W, C]`` (context and
     future along axis 2) on ``device``.  ``z = (z1, z2)``, each
     ``[B, pred_time_steps, z_h, z_w, z_c]``, injects the two phases' noise;
-    otherwise both are drawn with ``torch.randn`` from ``generator`` on
-    ``device``.  ``metrics`` is ``{"sinkhorn_loss", "pm", "sigma"}`` as
-    0-d tensors (the generator phase's loss, the discriminator phase's
-    pM).  ``cfg.kernel_impl`` picks the recurrences' engine (module
+    otherwise both are drawn with ``torch.randn`` on ``device`` from
+    ``generator`` or, when none is given, from a generator seeded by a
+    split of ``state.rng``, whose other half the new state carries.
+    ``metrics`` is ``{"sinkhorn_loss", "pm", "sigma"}`` as 0-d tensors
+    (the generator phase's loss, the discriminator phase's pM).
+    ``cfg.kernel_impl`` picks the recurrences' engine (module
     docstring); ``cfg.sinkhorn_solver='scan'`` solves the Sinkhorn
     problems with the plain loop under autograd, the kernels' reference.
     The state passed in is left as it was.
@@ -110,7 +112,11 @@ def build_train_step(cfg, *, device="cuda") -> Callable:
     m = cfg.model
 
     def train_step(state: TrainState, real_data, generator=None, z=None):
+        rng = state.rng
         if z is None:
+            if generator is None:
+                rng, seed = split_key(rng)
+                generator = torch.Generator(device=device).manual_seed(seed)
             shape = (real_data.shape[0], cfg.pred_time_steps, m.z_height, m.z_width, m.z_channels)
             z1 = torch.randn(shape, generator=generator, device=device)
             z2 = torch.randn(shape, generator=generator, device=device)
@@ -150,6 +156,7 @@ def build_train_step(cfg, *, device="cuda") -> Callable:
 
         new_state = TrainState(
             step=state.step + 1,
+            rng=rng,
             enc_params=enc_params,
             dec_params=dec_params,
             h_params=h_params,

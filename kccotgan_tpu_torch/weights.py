@@ -81,9 +81,10 @@ def train_state_from_jax(state):
     """The port's ``TrainState`` (CPU float32) from a JAX ``TrainState``
     whose leaves are numpy arrays (or a mapping of the same fields): the
     four parameter trees, both ``batch_stats`` trees, the four Adam states
-    (``count``, ``mu``, ``nu``) and ``step``."""
+    (``count``, ``mu``, ``nu``) and ``step``.  The noise key is seed 0's:
+    JAX's threefry key would not give the port's draws anyway."""
     from .train.keras_adam import KerasAdamState
-    from .train.state import TrainState
+    from .train.state import TrainState, key_from_seed
 
     def opt(o):
         return KerasAdamState(
@@ -96,4 +97,6 @@ def train_state_from_jax(state):
         "enc_params", "dec_params", "h_params", "m_params", "h_stats", "m_stats"
     )}
     opts = {name: opt(_get(state, name)) for name in ("enc_opt", "dec_opt", "h_opt", "m_opt")}
-    return TrainState(step=int(np.asarray(_get(state, "step"))), **fields, **opts)
+    return TrainState(
+        step=int(np.asarray(_get(state, "step"))), rng=key_from_seed(0), **fields, **opts
+    )

@@ -43,10 +43,18 @@ the histories at 1e-4 abs (the duals, of order 1 to 10, after L sums in
 another order); c_bar also within 1e-4 of its largest entry, since its
 typical entry shrinks like 1 / B^2 and reaches the 1e-6 floor near B =
 1024.
+
+``device_prefetch`` on the card: each batch is handed over as soon as
+its own copy is issued, not held back until the next one is pinned.
 """
 
+import threading
+
+import numpy as np
 import pytest
 import torch
+
+from kccotgan_tpu_torch.data import device_prefetch
 
 from kccotgan_tpu_torch.models.cuda_convlstm import (
     convlstm_bwd,
@@ -404,3 +412,24 @@ def test_sinkhorn_rejects_what_it_does_not_take(cuda):
     _, uh, vh = sinkhorn_fwd_reference(c, 1.0, 2)
     with pytest.raises(ValueError, match="devices"):
         sinkhorn_bwd(c, uh.cpu(), vh, torch.ones(2, device=cuda), 1.0)
+
+
+def test_device_prefetch_hands_over_each_batch_before_the_next(cuda):
+    """The source's second batch is made only after the consumer holds the
+    first: a prefetch that waited for it before yielding the first would
+    stall here until the source gives up and raises."""
+    holds_first = threading.Event()
+
+    def source():
+        yield np.zeros((2, 3), np.float32)
+        if not holds_first.wait(timeout=10):
+            raise RuntimeError("the first batch was held back until the second was pinned")
+        for i in (1, 2):
+            yield np.full((2, 3), i, np.float32)
+
+    it = device_prefetch(source(), device=cuda)
+    first = next(it)
+    holds_first.set()
+    got = [first, *it]
+    assert all(b.device.type == "cuda" and b.dtype == torch.float32 for b in got)
+    assert [b.cpu().tolist() for b in got] == [[[float(i)] * 3] * 2 for i in range(3)]

@@ -210,8 +210,9 @@ def test_init_generator_params(setup):
 def test_port_never_imports_jax():
     """Neither the port nor ``chip_smoke.py`` imports JAX, flax or the JAX
     package, which the GPU machine lacks: every module of the port is
-    imported, and a tiny rollout and a tiny training iteration under each
-    recurrence engine run, before ``sys.modules`` is read."""
+    imported, and a tiny rollout, a tiny training iteration under each
+    recurrence engine and two steps of the trainer's command line run,
+    before ``sys.modules`` is read."""
     code = (
         "import importlib, pkgutil, sys, torch\n"
         "import chip_smoke, kccotgan_tpu_torch\n"
@@ -234,6 +235,13 @@ def test_port_never_imports_jax():
         "pallas = build_train_step(dataclasses.replace(cfg, kernel_impl='pallas'), device='cpu')\n"
         "state, metrics = pallas(state, torch.rand(2, 16, 3, 16, 1), g)\n"
         "assert state.step == 2 and torch.isfinite(metrics['sinkhorn_loss'])\n"
+        "import tempfile\n"
+        "from kccotgan_tpu_torch.cli.main import main\n"
+        "with tempfile.TemporaryDirectory() as d:\n"
+        "    assert main(['--dname', 'synthetic', '-bs', '2', '-tts', '3', '-its', '2', '-sinkl', '3',\n"
+        "                 '-xh', '16', '-xw', '16', '-gfs', '1', '-dfs', '1', '-dss', '2', '-nz', '2',\n"
+        "                 '-ne', '1', '--max_steps', '2', '--ckpt_freq', '2', '--kernel_impl', 'pallas',\n"
+        "                 '--out_dir', d], device='cpu') == 0\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'kccotgan_tpu'))\n"
         "assert not bad, bad\n"
     )
