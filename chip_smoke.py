@@ -40,7 +40,24 @@ ported paths at the ``mmnist_full`` preset (B=32, 64x64x1, 10 context +
   every kernel's launches counted over the run, which the ``kernels``
   line reports); ``Trainer.fit`` run 4 steps, checkpointed, restored into
   a new trainer and run 4 more, against 8 straight, equal to the bit;
-  and the loop against the bare step in turns (the ``trainer`` line).
+  and the loop against the bare step in turns (the ``trainer`` line);
+* the training options: the separable Gaussian smoothing ('1d', '2d',
+  '3d') against the dense conv1d / conv2d / conv3d it stands for, outputs
+  and VJPs, at mmnist_full's video and a 3-channel one; 'pallas'
+  iterations with each mode and decaying sigma, counted (the kernels'
+  launches those of ``kernel='none'``), '3d' under both engines in f32,
+  the modes timed against 'none' and the smoothing's own device time (the
+  ``smoothing_timings`` line); the ConvLSTM kernels' recurrent-dropout
+  mode (gate g's conv over h_{t-1} * mask_g) against the plain versions
+  at the 8 layer shapes, forward and backward, f32 and bf16, timed
+  beside the unmasked kernels; 'pallas' iterations with dropout alone
+  and with dropout and recurrent dropout, counted (every kernel's
+  launches those of an iteration without dropout but for the context's
+  second encoding) and held against
+  'scan' on the same masks in f32, timed; and the CLI with ``--kernel 3d
+  --decaying_sigma --dropout 0.1 --rnn_dropout 0.1``, counted, its logged
+  sigma the annealed one, and a resumed run equal to the straight one to
+  the bit.
 
 The bf16 engine runs the ConvLSTM's recurrent conv, dh and drk, and the
 dense LSTM's step, dh and dR, on the tensor cores: the built library's
@@ -72,6 +89,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from kccotgan_tpu_torch._build import _FLAGS, BUILD_DIR, _nvcc, load_library
 from kccotgan_tpu_torch.ckpt import latest_step
@@ -79,6 +97,7 @@ from kccotgan_tpu_torch.cli.main import main as train_main
 from kccotgan_tpu_torch.config import get_preset
 from kccotgan_tpu_torch.data import ArrayDataset, load_mmnist, mmnist_paths, write_mmnist_fixture
 from kccotgan_tpu_torch.models.cuda_convlstm import (
+    _fwd_plain,
     convlstm_bwd,
     convlstm_bwd_reference,
     convlstm_fwd,
@@ -109,6 +128,7 @@ from kccotgan_tpu_torch.roofline import (
     lstm_work,
     sinkhorn_work,
 )
+from kccotgan_tpu_torch.smoothing import annealing_sigma, apply_smoothing
 from kccotgan_tpu_torch.train import Trainer, build_rollout, build_train_step, create_train_state
 from kccotgan_tpu_torch.weights import init_generator_params
 
@@ -225,6 +245,10 @@ PALLAS_COUNTS = {
     "sinkhorn_fwd": (2, 2),
     "sinkhorn_bwd": (2, 2),
 }
+# With dropout the context is not shared (each phase encodes it under its
+# own masks): the discriminator phase adds the encoder's 4 forward calls
+# over the 20 frames; nothing else changes.
+DROPOUT_COUNTS = {**PALLAS_COUNTS, "convlstm_fwd": (12 + 4, 4 * 20 + 8 * 10 + 4 * 20)}
 RECURRENCE_KERNELS = ("convlstm_fwd", "convlstm_bwd", "lstm_fwd", "lstm_bwd")
 # The training step's Sinkhorn solves: xy, xx, yy at the batch size.
 SINK_K, SINK_L, SINK_EPS = 3, 100, 1.0
@@ -274,6 +298,17 @@ ROLLOUT_LAUNCHES = 4 * 10 + 8 * 10
 # Loop against the bare step, in turns (loop, bare, bare, loop), over this
 # many batches with no checkpoint or sample in the window.
 LOOP_STEPS = 10
+# Phase 10, the training options.  Smoothing, separable (the port) vs the
+# dense kernels (``dense_smoothing``), f32, TF32 off, at mmnist_full's
+# video and a 3-channel one: outputs in [0, 1] at 1e-5 abs; VJPs at 1e-5
+# of max(1, |entry|), since the global-max normalization puts one large
+# entry (the sum of the cotangent times the output over the batch) at the
+# maximum's position.  The two differ in the order of their sums and in
+# their taps (float32 against float64 rounded), a few ulp each.
+SMOOTH_MODES = ("1d", "2d", "3d")
+SMOOTH_SHAPES = ((32, 64, 20, 64, 1), (8, 64, 15, 64, 3))
+SMOOTH_SIGMA, SMOOTH_TOL = 5.0, 1e-5
+DROPOUT = 0.1
 
 
 def cuda_ms(fn, reps):
@@ -1024,29 +1059,36 @@ def check_engines(base, dev):
             want = {n: list(c) for n, c in PALLAS_COUNTS.items()}
             if it != want:
                 raise RuntimeError(f"{cdt} 'pallas' iteration {i}: (calls, launches) {it}, expected {want}")
-        (mp_, sp), (ms_, ss) = runs["pallas"][0], runs["scan"][0]
-        cmp = {
-            "sinkhorn_loss": [float(mp_["sinkhorn_loss"]), float(ms_["sinkhorn_loss"])],
-            "pm": [float(mp_["pm"]), float(ms_["pm"])],
-            "max_rel_dmu": {},
-            "second_iteration_loss": [float(runs[i][1][0]["sinkhorn_loss"]) for i in ("pallas", "scan")],
-        }
-        cmp["worst_dmu"] = {}
-        for group in ("enc", "dec", "h", "m"):
-            mk, mq = getattr(sp, f"{group}_opt").mu, getattr(ss, f"{group}_opt").mu
-            scale = max(float(v.abs().max()) for v in mq.values())
-            per = {k: float((mk[k] - mq[k]).abs().max()) / scale for k in mq}
-            cmp["max_rel_dmu"][group] = max(per.values())
-            cmp["worst_dmu"][group] = sorted(per.items(), key=lambda kv: -kv[1])[:3]
-        tol = ENGINE_TOL[cdt]
+        cmp, ok = compare_engines(runs["pallas"][0], runs["scan"][0], ENGINE_TOL[cdt])
+        cmp["second_iteration_loss"] = [float(runs[i][1][0]["sinkhorn_loss"]) for i in ("pallas", "scan")]
         print(json.dumps({"engines_check": {"compute_dtype": cdt, "per_iteration": per_iter[0],
-                                            "tol": tol, **cmp}}), flush=True)
-        (lp, ls), (pp, ps) = cmp["sinkhorn_loss"], cmp["pm"]
-        if not (abs(lp - ls) <= tol["loss_rtol"] * abs(ls) and abs(pp - ps) <= tol["pm_rtol"] * abs(ps)
-                and all(cmp["max_rel_dmu"][g] <= tol["mu_rel"][g] for g in tol["mu_rel"])):
+                                            "tol": ENGINE_TOL[cdt], **cmp}}), flush=True)
+        if not ok:
             raise RuntimeError(f"{cdt}: 'pallas' and 'scan' iterations disagree: {cmp}")
         results[cdt] = (state0, video, zs, steps, per_iter, totals)
     return results[base.compute_dtype]
+
+
+def compare_engines(pallas_run, scan_run, tol):
+    """One iteration's ``(metrics, state)`` under 'pallas' against
+    'scan' from the same inputs: ``(comparison, within tol)``."""
+    (mp_, sp), (ms_, ss) = pallas_run, scan_run
+    cmp = {
+        "sinkhorn_loss": [float(mp_["sinkhorn_loss"]), float(ms_["sinkhorn_loss"])],
+        "pm": [float(mp_["pm"]), float(ms_["pm"])],
+        "max_rel_dmu": {},
+        "worst_dmu": {},
+    }
+    for group in ("enc", "dec", "h", "m"):
+        mk, mq = getattr(sp, f"{group}_opt").mu, getattr(ss, f"{group}_opt").mu
+        scale = max(float(v.abs().max()) for v in mq.values())
+        per = {k: float((mk[k] - mq[k]).abs().max()) / scale for k in mq}
+        cmp["max_rel_dmu"][group] = max(per.values())
+        cmp["worst_dmu"][group] = sorted(per.items(), key=lambda kv: -kv[1])[:3]
+    (lp, ls), (pp, ps) = cmp["sinkhorn_loss"], cmp["pm"]
+    ok = (abs(lp - ls) <= tol["loss_rtol"] * abs(ls) and abs(pp - ps) <= tol["pm_rtol"] * abs(ps)
+          and all(cmp["max_rel_dmu"][g] <= tol["mu_rel"][g] for g in tol["mu_rel"]))
+    return cmp, ok
 
 
 def training_inputs(cfg, dev):
@@ -1084,13 +1126,16 @@ def write_fixture(root):
     return train_path
 
 
-def check_trainer_cli(tmp, data):
-    """Phase 9a: the trainer's command line, counted: TRAINER_STEPS
-    'pallas' steps at mmnist_full on the fixture, checkpoints and samples
-    every TRAINER_EVERY steps."""
+def check_trainer_cli(tmp, data, options=(), tag="trainer_cli", per_step=PALLAS_COUNTS):
+    """Phase 9a (and 10e with ``options``): the trainer's command line,
+    counted: TRAINER_STEPS 'pallas' steps at mmnist_full on the fixture,
+    checkpoints and samples every TRAINER_EVERY steps, every kernel's
+    launches those of the steps (``per_step``) and the sampling rollouts.
+    With ``--decaying_sigma`` among the options, each step's logged sigma
+    must be the annealed one.  Printed as ``tag``."""
     argv = ["--preset", PRESET, "--dname", "mmnist", "--data_path", str(data), "--kernel_impl", "pallas",
-            "--max_steps", str(TRAINER_STEPS), "--ckpt_freq", str(TRAINER_EVERY),
-            "--save_freq", str(TRAINER_EVERY), "--out_dir", str(tmp), "--run_name", "cli"]
+            *options, "--max_steps", str(TRAINER_STEPS), "--ckpt_freq", str(TRAINER_EVERY),
+            "--save_freq", str(TRAINER_EVERY), "--out_dir", str(tmp), "--run_name", tag]
     out = io.StringIO()
     reset_counts()
     with contextlib.redirect_stdout(out):
@@ -1098,20 +1143,25 @@ def check_trainer_cli(tmp, data):
     torch.cuda.synchronize()
     launched = counts()
     summary = json.loads(out.getvalue().strip().splitlines()[-1])
-    run_dir = Path(tmp) / "cli"
+    run_dir = Path(tmp) / tag
     mets = read_metrics(run_dir)
     samples = [1] + list(range(TRAINER_EVERY, TRAINER_STEPS + 1, TRAINER_EVERY))
     losses = mets.get("Sinkhorn Loss", {})
     ckpts = sorted(int(p.stem.split("_")[1]) for p in (run_dir / "ckpt").glob("step_*.pt"))
     want = {n: TRAINER_STEPS * c[1] + (len(samples) * ROLLOUT_LAUNCHES if n == "convlstm_fwd" else 0)
-            for n, c in PALLAS_COUNTS.items()}
+            for n, c in per_step.items()}
     got = {n: c[1] for n, c in launched.items()}
-    print(json.dumps({"trainer_cli": {"argv": argv, "rc": rc, "summary": summary, "losses": losses,
-                                      "eval_psnr": mets.get("eval/psnr"), "eval_ssim": mets.get("eval/ssim"),
-                                      "checkpoints": ckpts, "launches": got, "expected_launches": want}}),
-          flush=True)
+    sigma = None
+    if "--decaying_sigma" in options:
+        sigma = {s: annealing_sigma(get_preset(PRESET).init_sigma, s) for s in range(1, TRAINER_STEPS + 1)}
+    print(json.dumps({tag: {"argv": argv, "rc": rc, "summary": summary, "losses": losses,
+                            "eval_psnr": mets.get("eval/psnr"), "eval_ssim": mets.get("eval/ssim"),
+                            "sigma_logged": mets.get("sigma"), "checkpoints": ckpts, "launches": got,
+                            "expected_launches": want}}), flush=True)
     if rc != 0 or summary["status"] != "completed" or summary["steps"] != TRAINER_STEPS:
         raise RuntimeError(f"trainer CLI: rc {rc}, summary {summary}")
+    if sigma is not None and mets.get("sigma") != sigma:
+        raise RuntimeError(f"trainer CLI: logged sigma {mets.get('sigma')}, expected {sigma}")
     if sorted(losses) != list(range(1, TRAINER_STEPS + 1)) or not all(np.isfinite(list(losses.values()))):
         raise RuntimeError(f"trainer CLI: Sinkhorn losses {losses}")
     for tag in ("eval/psnr", "eval/ssim"):
@@ -1124,10 +1174,11 @@ def check_trainer_cli(tmp, data):
     return summary, launched
 
 
-def check_resume(tmp, train_path, base):
+def check_resume(tmp, train_path, base, tag="trainer_resume"):
     """Phase 9b: 4 steps, checkpoint, restore into a new Trainer, 4 more,
     against 8 straight on the same batches, cuDNN deterministic: the
-    losses and every tensor of the state equal to the bit."""
+    losses and every tensor of the state equal to the bit.  Printed as
+    ``tag``."""
     data = load_mmnist(train_path, base.total_time_steps)
     batches = list(ArrayDataset(data, base.batch_size, seed=0).repeat(TRAINER_STEPS // 2))
     half = TRAINER_STEPS // 2
@@ -1157,7 +1208,7 @@ def check_resume(tmp, train_path, base):
         r_loss.get(i) for i in range(half + 1, TRAINER_STEPS + 1)]
     resume = {"max_abs_diff": diff, "losses_straight": s_loss, "losses_resumed": r_loss,
               "same_step_rng": [s_state.step, r_state.step, s_state.rng == r_state.rng]}
-    print(json.dumps({"trainer_resume": resume}), flush=True)
+    print(json.dumps({tag: resume}), flush=True)
     if not (same_losses and max(diff.values()) == 0.0 and s_state.step == r_state.step == TRAINER_STEPS
             and s_state.rng == r_state.rng):
         raise RuntimeError(f"resumed run differs from the straight run: {resume}")
@@ -1225,6 +1276,278 @@ def check_trainer(card, base, bare_pallas_ms):
         "prefetch_wait_max_ms": waits["max_ms"],
     }}), flush=True)
     return launched
+
+
+def dense_smoothing(video, sigma, mode, kernel_size=6):
+    """Phase 10a's reference: the smoothing as the original dense kernels,
+    built here from float64 taps: for '1d' a length-(2r+1) ``conv1d``
+    over the REFLECT-padded T, for '2d' a (2r+1)^2 ``conv2d`` with VALID
+    padding, for '3d' a (2r+1)^3 ``conv3d`` over the REFLECT-padded (T,
+    H, W); each divided by the global maximum."""
+    r = kernel_size // 2
+    x = torch.arange(-r, r + 1, dtype=torch.float64)
+    g = torch.exp(-x * x / (2.0 * sigma * sigma))
+    g = (g / g.sum()).float().to(video.device)
+    b, h, t, w, c = video.shape
+    if mode == "1d":
+        # padded as [B*C, H*W, T]: a grid dimension of the padding's CUDA
+        # kernel takes at most 65,535 rows
+        seq = F.pad(video.permute(0, 4, 1, 3, 2).reshape(b * c, h * w, t), (r, r), mode="reflect")
+        out = F.conv1d(seq.reshape(b * c * h * w, 1, t + 2 * r), g.view(1, 1, -1))
+        out = out.reshape(b, c, h, w, t).permute(0, 2, 4, 3, 1)
+    elif mode == "2d":
+        frames = video.permute(0, 2, 4, 1, 3).reshape(b * t * c, 1, h, w)
+        out = F.conv2d(frames, (g[:, None] * g[None, :])[None, None])
+        out = out.reshape(b, t, c, h - 2 * r, w - 2 * r).permute(0, 3, 1, 4, 2)
+    else:
+        vol = F.pad(video.permute(0, 4, 2, 1, 3).reshape(b * c, 1, t, h, w), (r,) * 6, mode="reflect")
+        out = F.conv3d(vol, (g[:, None, None] * g[None, :, None] * g[None, None, :])[None, None])
+        out = out.reshape(b, c, t, h, w).permute(0, 3, 2, 4, 1)
+    return out / out.amax()
+
+
+def check_smoothing(dev):
+    """Phase 10a: the port's separable smoothing against the dense
+    reference, outputs and VJPs for one seeded cotangent, in f32."""
+    errs = {}
+    for i, shape in enumerate(SMOOTH_SHAPES):
+        video = torch.from_numpy(np.random.default_rng(10 + i).uniform(size=shape).astype(np.float32)).to(dev)
+        for mode in SMOOTH_MODES:
+            outs, vjps = [], []
+            for fn in (apply_smoothing, lambda v, s, m: dense_smoothing(v, s, m)):
+                x = video.clone().requires_grad_()
+                y = fn(x, SMOOTH_SIGMA, mode)
+                ct = torch.randn(y.shape, generator=torch.Generator(device=dev).manual_seed(i), device=dev)
+                (vjp,) = torch.autograd.grad(y, x, ct)
+                outs.append(y.detach())
+                vjps.append(vjp)
+            (got, want), (got_v, want_v) = outs, vjps
+            if got.shape != want.shape:
+                raise RuntimeError(f"smoothing {mode} {shape}: shape {tuple(got.shape)} vs {tuple(want.shape)}")
+            errs[f"{mode} {list(shape)}"] = {
+                "out_max_abs_err": float((got - want).abs().max()),
+                "vjp_max_abs_err": float((got_v - want_v).abs().max()),
+                "vjp_err": float(((got_v - want_v).abs() / want_v.abs().clamp_min(1.0)).max()),
+                "vjp_largest": float(want_v.abs().max()),
+            }
+    print(json.dumps({"smoothing_check": {"sigma": SMOOTH_SIGMA, "tol": SMOOTH_TOL, "errors": errs}}), flush=True)
+    bad = {k: e for k, e in errs.items() if e["out_max_abs_err"] > SMOOTH_TOL or e["vjp_err"] > SMOOTH_TOL}
+    if bad:
+        raise RuntimeError(f"separable smoothing vs dense: {bad}")
+    return errs
+
+
+def check_options_training(card, base, dev):
+    """Phase 10b: 'pallas' iterations with each smoothing mode and
+    decaying sigma, counted per iteration; '3d' under both engines in
+    f32; the modes timed against 'none' in turns, and the smoothing's
+    own device time an iteration."""
+    state0, video, zs = training_inputs(base, dev)
+    steps = {mode: build_train_step(dataclasses.replace(
+        base, kernel_impl="pallas", kernel=mode, decaying_sigma=True), device=dev)
+        for mode in ("none",) + SMOOTH_MODES}
+    want = {n: list(c) for n, c in PALLAS_COUNTS.items()}
+    losses = {}
+    for mode in SMOOTH_MODES:
+        reset_counts()
+        st, before = state0, counts()
+        for i in range(2):
+            st, met = steps[mode](st, video, z=zs[i])
+            torch.cuda.synchronize()
+            now = counts()
+            it = {n: [a - b for a, b in zip(now[n], before[n])] for n in now}
+            before = now
+            if it != want:
+                raise RuntimeError(f"'pallas' {mode} iteration {i}: (calls, launches) {it}, expected {want}")
+            if not _all_finite(st, met) or float(met["sigma"]) != annealing_sigma(base.init_sigma, i + 1):
+                raise RuntimeError(f"'pallas' {mode} iteration {i}: non-finite, or sigma {float(met['sigma'])}")
+            losses.setdefault(mode, []).append(float(met["sinkhorn_loss"]))
+
+    cfg32 = dataclasses.replace(base, compute_dtype="float32", kernel="3d", decaying_sigma=True)
+    s32, v32, z32 = training_inputs(cfg32, dev)
+    runs = {impl: build_train_step(dataclasses.replace(cfg32, kernel_impl=impl), device=dev)(s32, v32, z=z32[0])
+            for impl in ("pallas", "scan")}
+    runs = {impl: (met, st) for impl, (st, met) in runs.items()}
+    cmp, ok = compare_engines(runs["pallas"], runs["scan"], ENGINE_TOL["float32"])
+    print(json.dumps({"options_check": {"preset": PRESET, "kernel_impl": "pallas", "decaying_sigma": True,
+                                        "per_iteration_counts": want, "losses": losses,
+                                        "engines_3d_float32": cmp, "tol": ENGINE_TOL["float32"]}}), flush=True)
+    if not ok:
+        raise RuntimeError(f"'3d' f32: 'pallas' and 'scan' iterations disagree: {cmp}")
+
+    ms = {mode: [] for mode in steps}
+    order = ("none",) + SMOOTH_MODES
+    for mode in order + order[::-1]:
+        ms[mode].append(cuda_ms(lambda: steps[mode](state0, video, z=zs[0]), reps=2))
+    # '3d' against 'none' over a longer window: 4 turns each of 6 iterations
+    long = {"none": [], "3d": []}
+    for mode in ("none", "3d", "3d", "none") * 2:
+        long[mode].append(cuda_ms(lambda: steps[mode](state0, video, z=zs[0]), reps=6))
+    # and from one trace of each: the device's busy time and its events
+    traced = {}
+    for mode in ("none", "3d"):
+        busy, span, n_events, _, _ = profiled(lambda: steps[mode](state0, video, z=zs[0]),
+                                              what=f"'pallas' iteration, kernel {mode}")
+        traced[mode] = {"device_busy_ms": busy, "span_ms": span, "device_events": n_events}
+
+    def smoothing_work(mode):
+        def run():
+            # an iteration's smoothing: the real video once, the fake in
+            # each phase, the generator phase's differentiated
+            apply_smoothing(video, SMOOTH_SIGMA, mode)
+            apply_smoothing(video, SMOOTH_SIGMA, mode)
+            x = video.clone().requires_grad_()
+            y = apply_smoothing(x, SMOOTH_SIGMA, mode)
+            torch.autograd.grad(y, x, torch.ones_like(y))
+        return run
+
+    frames = base.batch_size * base.total_time_steps
+    out = {}
+    for mode in order:
+        step_ms = sum(ms[mode]) / len(ms[mode])
+        out[mode] = {"step_ms": step_ms, "step_ms_runs": ms[mode], "training_frames_per_s": frames / step_ms * 1e3,
+                     "over_none": step_ms / (sum(ms["none"]) / len(ms["none"]))}
+        if mode != "none":
+            run = smoothing_work(mode)
+            run()
+            busy, span, n_events, _, _ = profiled(run, what=f"smoothing {mode}")
+            out[mode].update({"smoothing_device_ms_per_iteration": busy, "smoothing_span_ms": span,
+                              "smoothing_device_events": n_events})
+    long_ms = {k: sum(v) / len(v) for k, v in long.items()}
+    print(json.dumps({"smoothing_timings": {
+        "card": card, "preset": PRESET, "compute_dtype": base.compute_dtype, "kernel_impl": "pallas",
+        "modes": out, "long_window_3d": {"step_ms": long_ms, "step_ms_runs": long,
+                                         "over_none": long_ms["3d"] / long_ms["none"]},
+        "traced_iteration": traced,
+        "traced_3d_minus_none": {k: traced["3d"][k] - traced["none"][k] for k in traced["none"]},
+    }}), flush=True)
+    return out
+
+
+def check_convlstm_dropout(dev):
+    """Phase 10c: the ConvLSTM kernels' recurrent-dropout mode against the
+    plain versions with the same masks (``[4, B, H, W, f]``, keep 0.9, gate
+    g's conv over h_{t-1} * mask_g), forward with its hm stack and
+    backward, at the 8 layer shapes with the training T, f32 and bf16;
+    bf16 forward + backward times beside the unmasked kernels'."""
+    errs, times, failed = {}, {}, []
+    for i, (name, (hw, f, k)) in enumerate(LAYERS.items()):
+        t = train_t(name)
+        g = torch.Generator().manual_seed(300 + i)
+        masks = ((torch.rand(4, B, hw, hw, f, generator=g) < 1 - DROPOUT).float() / (1 - DROPOUT)).to(dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            args = layer_inputs(hw, f, k, dtype, dev, seed=300 + i, t=t)
+            y_p, cs_p, h_p, c_p, hm_p = _fwd_plain(*args, masks)
+            got_f = convlstm_fwd(*args, with_c_stack=True, rec_masks=masks)
+            cot = (torch.randn(y_p.shape, generator=g).to(dev, dtype), torch.randn(h_p.shape, generator=g).to(dev),
+                   torch.randn(c_p.shape, generator=g).to(dev))
+            got = convlstm_bwd(*args, y_p, cs_p, *cot, rec_masks=masks, hm=hm_p)
+            want = convlstm_bwd_reference(*args, y_p, cs_p, *cot, rec_masks=masks, hm=hm_p)
+            torch.cuda.synchronize()
+            tag = f"{name} T={t} {str(dtype).removeprefix('torch.')}"
+            e_fwd = max_err((*got_f[:4], got_f[4][0], got_f[4][1][:, :-1]),
+                            (y_p, cs_p, h_p, c_p, hm_p[0], hm_p[1][:, :-1]))
+            e_bwd = {n: rel_err([a], [b]) for n, a, b in zip(("dx", "dh0", "dc0", "drk", "db"), got, want)}
+            errs[tag] = {"forward_max_abs_err": e_fwd, "grad_err_of_largest": e_bwd,
+                         "grad_max_abs_err": max_err(got, want)}
+            # hm is cdt(h * mask): one rounding of a value up to 1 / keep, so
+            # the forward's bf16 tolerance is that of y times 1 / keep
+            if not (e_fwd <= TOL[dtype] / (1 - DROPOUT) and max(e_bwd.values()) <= GRAD_TOL[dtype]):
+                failed.append(tag)
+        args = layer_inputs(hw, f, k, torch.bfloat16, dev, seed=300 + i, t=t)
+        leaves = [a.clone().requires_grad_() for a in args]
+
+        def fwd_bwd(rec_masks):
+            y, (h, c) = convlstm_scan(*leaves, rec_masks)
+            torch.autograd.grad(y, leaves, torch.ones_like(y))
+
+        times[name] = {"masked_ms": cuda_ms(lambda: fwd_bwd(masks), reps=2),
+                       "unmasked_ms": cuda_ms(lambda: fwd_bwd(None), reps=2)}
+    tol = {str(d).removeprefix("torch."): {"forward_abs": TOL[d] / (1 - DROPOUT), "grad_of_largest": GRAD_TOL[d]}
+           for d in TOL}
+    print(json.dumps({"convlstm_dropout_check": {"keep": 1 - DROPOUT, "tol": tol, "errors": errs,
+                                                 "fwd_bwd_ms_bf16_B32": times}}), flush=True)
+    if failed:
+        raise RuntimeError(f"the ConvLSTM kernels' masked mode disagrees with its plain version: {failed}")
+    return times
+
+
+def check_dropout_training(card, base, dev):
+    """Phase 10d: 'pallas' iterations with dropout alone and with dropout
+    and recurrent dropout: every kernel's calls and launches those of an
+    iteration without dropout but for the context's second encoding
+    (``DROPOUT_COUNTS``; the ConvLSTM kernels take the masks), held
+    against 'scan' from the same state and masks in f32; then the bf16
+    iteration with both dropouts timed against none in turns."""
+    variants = {"dropout": (DROPOUT, 0.0), "dropout_rnn_dropout": (DROPOUT, DROPOUT)}
+
+    def with_dropout(cfg, name):
+        p, q = variants[name]
+        return dataclasses.replace(cfg, kernel_impl="pallas",
+                                   model=dataclasses.replace(cfg.model, dropout=p, rnn_dropout=q))
+
+    want = {n: list(c) for n, c in DROPOUT_COUNTS.items()}
+    losses, engines = {}, {}
+    for name in variants:
+        cfg = with_dropout(base, name)
+        state0, video, _ = training_inputs(cfg, dev)
+        step = build_train_step(cfg, device=dev)
+        reset_counts()
+        st, before = state0, counts()
+        for i in range(2):
+            st, met = step(st, video)
+            torch.cuda.synchronize()
+            now = counts()
+            it = {n: [a - b for a, b in zip(now[n], before[n])] for n in now}
+            before = now
+            if it != want:
+                raise RuntimeError(f"{name} iteration {i}: (calls, launches) {it}, expected {want}")
+            if not _all_finite(st, met):
+                raise RuntimeError(f"{name} iteration {i}: non-finite loss, pM, parameter or statistic")
+            losses.setdefault(name, []).append(float(met["sinkhorn_loss"]))
+        cfg32 = with_dropout(dataclasses.replace(base, compute_dtype="float32"), name)
+        s32, v32, _ = training_inputs(cfg32, dev)
+        runs = {impl: build_train_step(dataclasses.replace(cfg32, kernel_impl=impl), device=dev)(s32, v32)
+                for impl in ("pallas", "scan")}
+        cmp, ok = compare_engines(*((runs[i][1], runs[i][0]) for i in ("pallas", "scan")), ENGINE_TOL["float32"])
+        engines[name] = cmp
+        if not ok:
+            raise RuntimeError(f"{name} f32: 'pallas' and 'scan' iterations disagree: {cmp}")
+    cfg = with_dropout(base, "dropout_rnn_dropout")
+    state0, video, zs = training_inputs(cfg, dev)
+    steps = {"none": build_train_step(dataclasses.replace(base, kernel_impl="pallas"), device=dev),
+             "dropout": build_train_step(cfg, device=dev)}
+    ms = {"none": [], "dropout": []}
+    for name in ("none", "dropout", "dropout", "none"):
+        ms[name].append(cuda_ms(lambda: steps[name](state0, video, z=zs[0]), reps=3))
+    step_ms = {k: sum(v) / len(v) for k, v in ms.items()}
+    frames = base.batch_size * base.total_time_steps
+    print(json.dumps({"dropout_training": {
+        "card": card, "preset": PRESET, "compute_dtype": base.compute_dtype, "kernel_impl": "pallas",
+        "variants": variants, "per_iteration_counts": want, "losses": losses,
+        "engines_float32": engines, "tol": ENGINE_TOL["float32"],
+        "timed": "dropout_rnn_dropout against none", "step_ms": step_ms, "step_ms_runs": ms,
+        "training_frames_per_s": {k: frames / v * 1e3 for k, v in step_ms.items()},
+    }}), flush=True)
+    return step_ms
+
+
+def check_options(card, base, dev):
+    """Phase 10: the paper's training options (smoothing, annealing,
+    dropout) through the step, the CLI and a resume."""
+    errs = check_smoothing(dev)
+    smooth_times = check_options_training(card, base, dev)
+    check_convlstm_dropout(dev)
+    dropout_ms = check_dropout_training(card, base, dev)
+    opts = dataclasses.replace(base, kernel="3d", decaying_sigma=True, model=dataclasses.replace(
+        base.model, dropout=DROPOUT, rnn_dropout=DROPOUT))
+    with tempfile.TemporaryDirectory() as tmp:
+        train_path = write_fixture(Path(tmp) / "data")
+        check_trainer_cli(Path(tmp) / "runs", Path(tmp) / "data", tag="options_cli", per_step=DROPOUT_COUNTS,
+                          options=("--kernel", "3d", "--decaying_sigma", "--dropout", str(DROPOUT),
+                                   "--rnn_dropout", str(DROPOUT)))
+        check_resume(Path(tmp) / "resume", train_path, opts, tag="options_resume")
+    return errs, smooth_times, dropout_ms
 
 
 def main():
@@ -1313,6 +1636,10 @@ def main():
     # Phase 9: the trainer's path (CLI, resume, loop against the bare step),
     # every kernel counted over the CLI's run.
     trainer_counts = check_trainer(card, base, engine_ms["pallas"])
+
+    # Phase 10: the training options (smoothing, sigma annealing, dropout),
+    # each path counted from zero around its run.
+    check_options(card, base, dev)
 
     # Bounds of the work timed: the 8 T=10 layer scans of phase 2, one
     # Sinkhorn launch at the training step's [3, B, B], L, the 8 layer

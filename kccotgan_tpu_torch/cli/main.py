@@ -7,10 +7,12 @@ and ``--flag=value`` forms included).  A flag whose option the port does
 not carry is refused with an argparse error naming why: the multi-device
 meshes and the trace window wait for ROADMAP Queue 1 items 8 and 5; the
 layout and compile flags exist only for the TPU ("Not to port").  The
-options ``check_trainable`` rejects are parsed and rejected there.
+smoothing (``--kernel``, ``--init_sigma``, ``--decaying_sigma``) and
+dropout (``--dropout``, ``--rnn_dropout``) flags reach the trainer.
 
 Usage (on the card unless ``main`` is given ``device="cpu"``):
   python -m kccotgan_tpu_torch.cli.main --preset mmnist_full --dname synthetic --kernel_impl pallas --max_steps 100
+  python -m kccotgan_tpu_torch.cli.main --preset mmnist_full --dname synthetic --kernel_impl pallas --kernel 3d --decaying_sigma --dropout 0.1 --rnn_dropout 0.1
   python -m kccotgan_tpu_torch.cli.main --preset mmnist_full --data_path /data --checkpoint --ckpt_path trained/<run>/ckpt
 """
 

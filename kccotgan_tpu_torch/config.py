@@ -6,7 +6,7 @@ to them.
 
 Counterpart of ``kccotgan_tpu/config``; ``tests/test_torch_config.py``
 holds every preset here field by field against the JAX package's.
-``check_trainable`` names the training options the port does not carry
+``check_trainable`` names the training option the port does not carry
 yet, and the ROADMAP item that will.
 """
 
@@ -58,9 +58,11 @@ class TrainConfig:
     sinkhorn_solver: str = "auto"
 
     # kernel smoothing
-    kernel: str = "none"
+    kernel: str = "none"  # {'1d', '2d', '3d', 'none'}
     init_sigma: float = 5.0
     decaying_sigma: bool = False
+    temporal_kernel_size: int = 6
+    spatial_kernel_size: int = 6
 
     # optimization (Keras-3 Adam on a warmup + staircase-decay schedule)
     lr: float = 5e-4
@@ -115,22 +117,10 @@ class TrainConfig:
 def check_trainable(cfg: TrainConfig) -> None:
     """Raise ``NotImplementedError`` for a training option the port does
     not carry yet, naming the ROADMAP item that will."""
-    m = cfg.model
-    if cfg.kernel != "none":
-        raise NotImplementedError(
-            f"kernel={cfg.kernel!r}: smoothing is not ported (ROADMAP Queue 1, smoothing/gaussian.py)"
-        )
-    if cfg.decaying_sigma:
-        raise NotImplementedError(
-            "decaying_sigma: annealing_sigma is not ported (ROADMAP Queue 1, smoothing/gaussian.py)"
-        )
     if cfg.fused_discriminators:
         raise NotImplementedError(
-            "fused_discriminators=True is not ported (ROADMAP Queue 1, train/steps.py options)"
-        )
-    if m.dropout > 0.0 or m.rnn_dropout > 0.0:
-        raise NotImplementedError(
-            "dropout and rnn_dropout are not ported (ROADMAP Queue 1, dropout masks)"
+            "fused_discriminators=True is not ported (ROADMAP Queue 1 item 3: one batched pass "
+            "of the four discriminator calls needs a batching rule for the LSTM kernels)"
         )
     if cfg.sinkhorn_solver not in ("auto", "pallas", "scan"):
         raise ValueError(f"unknown sinkhorn_solver: {cfg.sinkhorn_solver!r}")

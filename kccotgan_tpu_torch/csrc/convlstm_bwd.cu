@@ -56,6 +56,18 @@
 //   load; kernel 2 chunks the 4f input channels so the staged tile fits;
 //   the drk GEMM uses 64x64 output tiles with a 4x4 register tile a
 //   thread.
+//
+// Recurrent dropout (convlstm_fwd.cu): gate g's conv read hm_g =
+// cdt(h_{t-1} * mask_g), which the forward saved as the [B, T, H, W, 4f]
+// hm stack (hm_{-1} apart).  Kernel 1 recomputes z from hm as the forward
+// did.  Kernel 2 needs, per (pixel, ci), the four gates' transposed convs
+// apart, dh = sum_g mask_g * dhm_g: on the tensor cores its GEMM takes N
+// = 4 gates x f in the gate-quad column order of the forward (B the
+// transposed block-diagonal weight), so one thread holds the four dhm_g
+// of a (pixel, ci) and sums them with the masks in its epilogue; in f32
+// the kernel walks the gates one after the other.  Kernel 3 runs one
+// GEMM a gate over the grid (drk's gate-g columns from hm_g and dz_g),
+// the MMAs of the unmasked one.
 
 #include "convlstm_tile.cuh"
 
@@ -72,7 +84,7 @@ convlstm_bwd_step_kernel(const float* __restrict__ x, long long x_bstride,
                          const float* __restrict__ dy, long long dy_bstride,
                          const float* __restrict__ dh, float* __restrict__ dc,
                          float* __restrict__ dx, long long dx_bstride, float* __restrict__ dbpart,
-                         int H, int W, int f, int kh, int kw,
+                         int masked, int H, int W, int f, int kh, int kw,
                          int tile_h, int tile_w, int tiles_w) {
   extern __shared__ float hs[];  // [tile_h+kh-1][tile_w+kw-1][f], then the db reduction
 
@@ -80,8 +92,10 @@ convlstm_bwd_step_kernel(const float* __restrict__ x, long long x_bstride,
   const int ty0 = (blockIdx.x / tiles_w) * tile_h;
   const int tx0 = (blockIdx.x % tiles_w) * tile_w;
   const int sw = tile_w + kw - 1;
-  stage_h(hs, hp + b * hp_bstride, H, W, f, kh, kw, ty0, tx0, tile_h, tile_w);
-  __syncthreads();
+  if (!masked) {
+    stage_h(hs, hp + b * hp_bstride, H, W, f, f, kh, kw, ty0, tx0, tile_h, tile_w);
+    __syncthreads();
+  }
 
   const int j = blockIdx.y * blockDim.x + threadIdx.x;
   const bool valid_j = j < f;
@@ -95,7 +109,11 @@ convlstm_bwd_step_kernel(const float* __restrict__ x, long long x_bstride,
   float acc[kPix][4];
 #pragma unroll
   for (int p = 0; p < kPix; ++p) acc[p][0] = acc[p][1] = acc[p][2] = acc[p][3] = 0.0f;
-  if (valid_j) rconv_gates<kPix>(acc, hs, rk4, off, j, f, kh, kw, sw);
+  if (masked)
+    rconv_gates_masked<kPix>(acc, hs, hp + b * hp_bstride, rk4, off, j, valid_j, H, W, f, kh, kw,
+                             ty0, tx0, tile_h, tile_w);
+  else if (valid_j)
+    rconv_gates<kPix>(acc, hs, rk4, off, j, f, kh, kw, sw);
 
   const int f4 = 4 * f;
   float dbp[4] = {0.0f, 0.0f, 0.0f, 0.0f};
@@ -231,22 +249,113 @@ convlstm_bwd_dh_kernel(const float* __restrict__ dx, long long dx_bstride,
   }
 }
 
+// Recurrent dropout: dh[b, y, x, ci] = sum_g mask_g[b, y, x, ci] * dhm_g,
+// dhm_g the transposed conv over gate g's channels n = g*f .. g*f+f-1
+// alone.  The gates are walked in order, each in chunks of nc channels;
+// rkT4 as above, read a weight at a time.  mask [B, H, W, 4f].
+template <int kPix>
+__global__ void __launch_bounds__(kThreads)
+convlstm_bwd_dh_masked_kernel(const float* __restrict__ dx, long long dx_bstride,
+                              const float4* __restrict__ rkT4, const float* __restrict__ mask,
+                              float* __restrict__ dh, int H, int W, int f, int kh, int kw, int nc,
+                              int tile_h, int tile_w, int tiles_w) {
+  extern __shared__ __align__(16) float dzs[];
+
+  const int b = blockIdx.z;
+  const int ty0 = (blockIdx.x / tiles_w) * tile_h;
+  const int tx0 = (blockIdx.x % tiles_w) * tile_w;
+  const int before_h = kh - 1 - (kh - 1) / 2, before_w = kw - 1 - (kw - 1) / 2;
+  const int sw = tile_w + kw - 1;
+  const int n_rows = (tile_h + kh - 1) * sw;
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int nthreads = blockDim.x * blockDim.y;
+  const int ci = blockIdx.y * blockDim.x + threadIdx.x;
+  const bool valid = ci < f;
+  const int nruns = blockDim.y;
+  const int f4 = 4 * f;
+  const float* dxb = dx + b * dx_bstride;
+  const float* rkT = reinterpret_cast<const float*>(rkT4);
+
+  int off[kPix];
+  bool in[kPix];
+  long long pixel[kPix];
+#pragma unroll
+  for (int p = 0; p < kPix; ++p) {
+    const int q = p * nruns + threadIdx.y;
+    off[p] = q < tile_h * tile_w ? ((q / tile_w) * sw + q % tile_w) * nc : 0;
+    const int gy = ty0 + q / tile_w, gx = tx0 + q % tile_w;
+    in[p] = valid && q < tile_h * tile_w && gy < H && gx < W;
+    pixel[p] = ((long long)b * H + gy) * W + gx;
+  }
+  float out[kPix];
+#pragma unroll
+  for (int p = 0; p < kPix; ++p) out[p] = 0.0f;
+
+  for (int g = 0; g < 4; ++g) {
+    float acc[kPix];
+#pragma unroll
+    for (int p = 0; p < kPix; ++p) acc[p] = 0.0f;
+    for (int c0 = 0; c0 < f; c0 += nc) {
+      const int ncur = f - c0 < nc ? f - c0 : nc;
+      const int n0 = g * f + c0;
+      for (int idx = tid; idx < n_rows * ncur; idx += nthreads) {
+        const int cc = idx % ncur;
+        const int r = idx / ncur;
+        const int gy = ty0 - before_h + r / sw;
+        const int gx = tx0 - before_w + r % sw;
+        float v = 0.0f;
+        if (gy >= 0 && gy < H && gx >= 0 && gx < W)
+          v = dxb[((long long)gy * W + gx) * f4 + n0 + cc];
+        dzs[r * nc + cc] = v;
+      }
+      __syncthreads();
+      if (valid) {
+        for (int ky = 0; ky < kh; ++ky) {
+          for (int kx = 0; kx < kw; ++kx) {
+            const float* base = dzs + ((kh - 1 - ky) * sw + (kw - 1 - kx)) * nc;
+            const long long tap = (long long)(ky * kw + kx) * (f4 / 4);
+            for (int cc = 0; cc < ncur; ++cc) {
+              const int n = n0 + cc;
+              const float wv = __ldg(rkT + ((tap + n / 4) * f + ci) * 4 + n % 4);
+#pragma unroll
+              for (int p = 0; p < kPix; ++p) acc[p] = fmaf(base[off[p] + cc], wv, acc[p]);
+            }
+          }
+        }
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int p = 0; p < kPix; ++p)
+      if (in[p]) out[p] = fmaf(mask[pixel[p] * f4 + g * f + ci], acc[p], out[p]);
+  }
+
+#pragma unroll
+  for (int p = 0; p < kPix; ++p)
+    if (in[p]) dh[pixel[p] * f + ci] = out[p];
+}
+
 constexpr int kTileM = 64, kTileN = 64, kTileK = 16;
 
 // part[s][m][n] = sum over the pixels p of split s of A[p][m] * dx[p][n],
 // A[p][m] = cdt(h_{t-1})[b, y+ky-lo_h, x+kx-lo_w, ci] (zero outside the
 // frame), m = (ky*kw + kx)*f + ci, p = ((b*T + t)*H + y)*W + x.
 // h_{t-1} is y[b, t-1] for t >= 1 and h0c[b] (cdt(h0)) at t = 0.
+// ngates = 4 (recurrent dropout): y and h0c are the hm stack and hm_{-1}
+// with 4f channels, and the grid's y runs over the gates too: the gate-g
+// columns of drk read hm_g (channels g*f ..) and dz_g (columns g*f ..).
 __global__ void __launch_bounds__(256)
 recurrent_wgrad_kernel(const float* __restrict__ y, const float* __restrict__ h0c,
                        const float* __restrict__ dx, float* __restrict__ part,
-                       int T_, int H, int W, int f, int kh, int kw,
+                       int T_, int H, int W, int f, int kh, int kw, int ngates,
                        long long P, long long chunk) {
   __shared__ __align__(16) float As[kTileK][kTileM];
   __shared__ __align__(16) float Bs[kTileK][kTileN];
 
-  const int M = kh * kw * f, N = 4 * f;
-  const int m0 = blockIdx.x * kTileM, n0 = blockIdx.y * kTileN;
+  const int M = kh * kw * f, N = 4 * f, Ng = N / ngates, lda = ngates == 4 ? N : f;
+  const int tiles_n = (Ng + kTileN - 1) / kTileN, gate = blockIdx.y / tiles_n;
+  const int m0 = blockIdx.x * kTileM, n0 = (blockIdx.y % tiles_n) * kTileN;
+  const int a_off = ngates == 4 ? gate * f : 0, b_off = gate * Ng;
   const long long p_begin = (long long)blockIdx.z * chunk;
   const long long p_end = p_begin + chunk < P ? p_begin + chunk : P;
   const int tid = threadIdx.x;
@@ -256,7 +365,7 @@ recurrent_wgrad_kernel(const float* __restrict__ y, const float* __restrict__ h0
   // tid/64 + 4q, q = 0..3.
   const int mm = tid % kTileM, nn = tid % kTileN, kk0 = tid / kTileM;
   const int m = m0 + mm, n = n0 + nn;
-  const bool m_ok = m < M, n_ok = n < N;
+  const bool m_ok = m < M, n_ok = n < Ng;
   const int tap = m_ok ? m / f : 0, ci = m_ok ? m % f : 0;
   const int dy_ = tap / kw - (kh - 1) / 2, dx_ = tap % kw - (kw - 1) / 2;
 
@@ -281,11 +390,11 @@ recurrent_wgrad_kernel(const float* __restrict__ y, const float* __restrict__ h0
           const int yy = py + dy_, xx = px + dx_;
           if (yy >= 0 && yy < H && xx >= 0 && xx < W) {
             const long long pix = (long long)yy * W + xx;
-            av = t == 0 ? h0c[(bb * H * W + pix) * f + ci]
-                        : y[((bb * T_ + t - 1) * H * W + pix) * f + ci];
+            av = t == 0 ? h0c[(bb * H * W + pix) * lda + a_off + ci]
+                        : y[((bb * T_ + t - 1) * H * W + pix) * lda + a_off + ci];
           }
         }
-        if (n_ok) bv = dx[p * N + n];
+        if (n_ok) bv = dx[p * N + b_off + n];
       }
       As[kk][mm] = av;
       Bs[kk][nn] = bv;
@@ -313,7 +422,7 @@ recurrent_wgrad_kernel(const float* __restrict__ y, const float* __restrict__ h0
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       const int no = n0 + tx * 4 + c;
-      if (no < N) out[(long long)mo * N + no] = acc[r][c];
+      if (no < Ng) out[(long long)mo * N + b_off + no] = acc[r][c];
     }
   }
 }
@@ -350,16 +459,16 @@ convlstm_bwd_step_tc_kernel(const bf16* __restrict__ x, long long x_bstride,
                             const bf16* __restrict__ dy, long long dy_bstride,
                             const float* __restrict__ dh, float* __restrict__ dc,
                             bf16* __restrict__ dx, long long dx_bstride,
-                            float* __restrict__ dbpart, int B, int H, int W, int f, int kh,
-                            int kw) {
+                            float* __restrict__ dbpart, int B, int H, int W, int f, int cin,
+                            int kh, int kw) {
   extern __shared__ __align__(16) unsigned char bwd_tc_smem[];
   __shared__ float red[Cfg::WM][Cfg::BN];
-  const int HW = H * W, M = B * HW, K = kh * kw * f;
+  const int HW = H * W, M = B * HW, K = kh * kw * cin;
   const int m0 = blockIdx.x * Cfg::BM, n0 = blockIdx.y * Cfg::BN;
   int kt0, kt1;
   split_range((K + Cfg::BK - 1) / Cfg::BK, blockIdx.z, gridDim.z, kt0, kt1);
-  ConvGatherA<Cfg, kVec> load_a(hp, hp_bstride, H, W, f, kw, K, 1, -(kh - 1) / 2, -(kw - 1) / 2,
-                                m0, M, kt0);
+  ConvGatherA<Cfg, kVec> load_a(hp, hp_bstride, H, W, cin, kw, K, 1, -(kh - 1) / 2,
+                                -(kw - 1) / 2, m0, M, kt0);
   const DenseB<Cfg> load_b{wpk, K, npad, n0};
   float acc[2][Cfg::NI][4];
   tc_gemm<Cfg, false>(acc, reinterpret_cast<bf16*>(bwd_tc_smem), kt0, kt1, load_a, load_b);
@@ -423,12 +532,15 @@ convlstm_bwd_step_tc_kernel(const bf16* __restrict__ x, long long x_bstride,
 }
 
 // Kernel 2: dh[m][ci] = sum_k A[m][k] wT[k][ci], A the transposed conv's
-// gather of dx_t (C = 4f, sgn = -1, o = +lo: the flipped pads).
+// gather of dx_t (C = 4f, sgn = -1, o = +lo: the flipped pads).  With
+// mask [B, H, W, 4f] (recurrent dropout), wT has the gate-quad columns of
+// the gate GEMM, 16*ceil(f/4) of them, column (g, ci) holding gate g's
+// rows alone, and dh[m][ci] = sum_g mask[m][g*f + ci] * (A wT)[m][(g, ci)].
 template <class Cfg, bool kVec>
 __global__ void __launch_bounds__(Cfg::kThreads)
 convlstm_bwd_dh_tc_kernel(const bf16* __restrict__ dx, long long dx_bstride,
-                          const bf16* __restrict__ wT, int npad, float* __restrict__ dh,
-                          int B, int H, int W, int f, int kh, int kw) {
+                          const bf16* __restrict__ wT, int npad, const float* __restrict__ mask,
+                          float* __restrict__ dh, int B, int H, int W, int f, int kh, int kw) {
   extern __shared__ __align__(16) unsigned char dh_tc_smem[];
   const int M = B * H * W, K = kh * kw * 4 * f;
   const int m0 = blockIdx.x * Cfg::BM, n0 = blockIdx.y * Cfg::BN;
@@ -440,6 +552,17 @@ convlstm_bwd_dh_tc_kernel(const bf16* __restrict__ dx, long long dx_bstride,
   float acc[2][Cfg::NI][4];
   tc_gemm<Cfg, false>(acc, reinterpret_cast<bf16*>(dh_tc_smem), kt0, kt1, load_a, load_b);
   if (!cluster_sum<Cfg>(acc, dh_tc_smem, gridDim.z)) return;
+  if (mask != nullptr) {
+    for_each_gate_quad<Cfg>(acc, m0, n0, [&](int m, int ci, int, const float(&a)[4]) {
+      if (m >= M || ci >= f) return;
+      const float* mp = mask + (long long)m * 4 * f + ci;
+      float v = 0.0f;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) v = fmaf(mp[g * f], a[g], v);
+      dh[(long long)m * f + ci] = v;
+    });
+    return;
+  }
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int wm = warp % Cfg::WM, wn = warp / Cfg::WM;
 #pragma unroll
@@ -468,14 +591,15 @@ struct WgradA {
   static constexpr int kCols = Cfg::BM / 8 / kTpr;
   static_assert(Cfg::kThreads % Cfg::BK == 0 && (Cfg::BM / 8) % kTpr == 0, "wgrad A layout");
   const bf16 *y, *h0c;
-  int T, H, W, f, kh, kw, M, m_first;
+  int T, H, W, f, ld, kh, kw, M, m_first;  // ld: the pixel stride of y and h0c
   int p, p_end, b, t, py, px;  // this thread's pixel in the next k-tile
   int dy[kCols], dx[kCols], ci[kCols];
 
   __device__ __forceinline__ WgradA(const bf16* y_, const bf16* h0c_, int T_, int H_, int W_,
-                                    int f_, int kh_, int kw_, int m0, int p_begin, int p_end_)
-      : y(y_), h0c(h0c_), T(T_), H(H_), W(W_), f(f_), kh(kh_), kw(kw_), M(kh_ * kw_ * f_),
-        p_end(p_end_) {
+                                    int f_, int ld_, int kh_, int kw_, int m0, int p_begin,
+                                    int p_end_)
+      : y(y_), h0c(h0c_), T(T_), H(H_), W(W_), f(f_), ld(ld_), kh(kh_), kw(kw_),
+        M(kh_ * kw_ * f_), p_end(p_end_) {
     m_first = m0 + (int)(threadIdx.x % kTpr) * 8;
     p = p_begin + (int)threadIdx.x / kTpr;
     px = p % W;
@@ -501,7 +625,7 @@ struct WgradA {
     if (yy < 0 || yy >= H || xx < 0 || xx >= W) return false;
     const long long pix = (long long)yy * W + xx;
     src = t == 0 ? h0c : y;
-    off = (t == 0 ? (long long)b * H * W + pix : ((long long)b * T + t - 1) * H * W + pix) * f + c;
+    off = (t == 0 ? (long long)b * H * W + pix : ((long long)b * T + t - 1) * H * W + pix) * ld + c;
     return true;
   }
 
@@ -544,7 +668,7 @@ struct WgradB {
   static constexpr int kTpr = Cfg::kThreads / Cfg::BK, kCols = Cfg::BN / 8 / kTpr;
   static_assert((Cfg::BN / 8) % kTpr == 0, "wgrad B layout");
   const bf16* dx;
-  int N, n0, p_begin, p_end;
+  int N, ld, n0, p_begin, p_end;  // columns n < N of rows ld apart
   __device__ __forceinline__ void operator()(int kt, bf16* dst) const {
     const int row = (int)threadIdx.x / kTpr;
     const int p = p_begin + kt * Cfg::BK + row;
@@ -554,30 +678,35 @@ struct WgradB {
       bf16* d = dst + row * Cfg::B_LD + cc * 8;
       if constexpr (kVec) {
         const bool ok = p < p_end && n < N;
-        cp_async16(d, ok ? dx + (long long)p * N + n : dx, ok);
+        cp_async16(d, ok ? dx + (long long)p * ld + n : dx, ok);
       } else {
         for (int e = 0; e < 8; ++e)
-          d[e] = p < p_end && n + e < N ? dx[(long long)p * N + n + e] : __float2bfloat16(0.0f);
+          d[e] = p < p_end && n + e < N ? dx[(long long)p * ld + n + e] : __float2bfloat16(0.0f);
       }
     }
   }
 };
 
 // part[s][m][n] = sum over the pixels of split s of A[p][m] * dx[p][n].
+// ngates = 4 (recurrent dropout): y and h0c are the hm stack and hm_{-1}
+// (4f channels), and grid y covers each gate's columns apart: gate g's
+// from hm_g and dx's gate-g columns.
 template <class Cfg, bool kVec>
 __global__ void __launch_bounds__(Cfg::kThreads)
 recurrent_wgrad_tc_kernel(const bf16* __restrict__ y, const bf16* __restrict__ h0c,
                           const bf16* __restrict__ dx, float* __restrict__ part,
-                          int T_, int H, int W, int f, int kh, int kw, long long P,
+                          int T_, int H, int W, int f, int kh, int kw, int ngates, long long P,
                           long long chunk) {
   extern __shared__ __align__(16) unsigned char wgrad_tc_smem[];
-  const int M = kh * kw * f, N = 4 * f;
-  const int m0 = blockIdx.x * Cfg::BM, n0 = blockIdx.y * Cfg::BN;
+  const int M = kh * kw * f, N = 4 * f, Ng = N / ngates, lda = ngates == 4 ? N : f;
+  const int tiles_n = (Ng + Cfg::BN - 1) / Cfg::BN, gate = blockIdx.y / tiles_n;
+  const int a_off = ngates == 4 ? gate * f : 0, b_off = gate * Ng;
+  const int m0 = blockIdx.x * Cfg::BM, n0 = (blockIdx.y % tiles_n) * Cfg::BN;
   const int p_begin = (int)(blockIdx.z * chunk);
   const int p_end = (int)(p_begin + chunk < P ? p_begin + chunk : P);
   const int nk = p_end > p_begin ? (p_end - p_begin + Cfg::BK - 1) / Cfg::BK : 0;
-  WgradA<Cfg, kVec> load_a(y, h0c, T_, H, W, f, kh, kw, m0, p_begin, p_end);
-  const WgradB<Cfg, kVec> load_b{dx, N, n0, p_begin, p_end};
+  WgradA<Cfg, kVec> load_a(y + a_off, h0c + a_off, T_, H, W, f, lda, kh, kw, m0, p_begin, p_end);
+  const WgradB<Cfg, kVec> load_b{dx + b_off, Ng, N, n0, p_begin, p_end};
   float acc[2][Cfg::NI][4];
   tc_gemm<Cfg, true>(acc, reinterpret_cast<bf16*>(wgrad_tc_smem), 0, nk, load_a, load_b);
   float* out = part + (long long)blockIdx.z * M * N;
@@ -591,7 +720,7 @@ recurrent_wgrad_tc_kernel(const bf16* __restrict__ y, const bf16* __restrict__ h
       for (int r = 0; r < 4; ++r) {
         const int m = m0 + wm * 32 + mi * 16 + (r >> 1) * 8 + (lane >> 2);
         const int n = n0 + wn * 8 * Cfg::NI + ni * 8 + 2 * (lane & 3) + (r & 1);
-        if (m < M && n < N) out[(long long)m * N + n] = acc[mi][ni][r];
+        if (m < M && n < Ng) out[(long long)m * N + b_off + n] = acc[mi][ni][r];
       }
 }
 
@@ -606,29 +735,32 @@ cudaError_t launch_step_tc(const void* x, long long x_bstride, const void* hp,
                            long long hp_bstride, const void* c_prev, long long cp_bstride,
                            const void* wpk, const void* bias, const void* dy, long long dy_bstride,
                            const void* dh, void* dc, void* dx, long long dx_bstride,
-                           void* dbpart, int B, int H, int W, int f, int kh, int kw,
+                           void* dbpart, int B, int H, int W, int f, int cin, int kh, int kw,
                            cudaStream_t stream) {
   const int npad = 16 * ((f + 3) / 4);
   const long long M = (long long)B * H * W;
   const dim3 grid((unsigned)((M + Cfg::BM - 1) / Cfg::BM), (npad + Cfg::BN - 1) / Cfg::BN);
-  const int split = pick_split(grid.x * grid.y, (kh * kw * f + Cfg::BK - 1) / Cfg::BK);
+  const int split = pick_split(grid.x * grid.y, (kh * kw * cin + Cfg::BK - 1) / Cfg::BK);
   return launch_split<Cfg>(
       convlstm_bwd_step_tc_kernel<Cfg, kVec>, grid, split, stream, static_cast<const bf16*>(x),
       x_bstride, static_cast<const bf16*>(hp), hp_bstride, static_cast<const float*>(c_prev),
       cp_bstride, static_cast<const bf16*>(wpk), npad, static_cast<const float*>(bias),
       static_cast<const bf16*>(dy), dy_bstride, static_cast<const float*>(dh),
       static_cast<float*>(dc), static_cast<bf16*>(dx), dx_bstride, static_cast<float*>(dbpart), B,
-      H, W, f, kh, kw);
+      H, W, f, cin, kh, kw);
 }
 
+// The tile, and so the db partial's rows (kccot_convlstm_bwd_rows), does
+// not depend on masked: only K does.
 cudaError_t step_tc(const void* x, long long x_bstride, const void* hp, long long hp_bstride,
                     const void* c_prev, long long cp_bstride, const void* wpk, const void* bias,
                     const void* dy, long long dy_bstride, const void* dh, void* dc, void* dx,
-                    long long dx_bstride, void* dbpart, int B, int H, int W, int f, int kh, int kw,
-                    cudaStream_t s) {
+                    long long dx_bstride, void* dbpart, int masked, int B, int H, int W, int f,
+                    int kh, int kw, cudaStream_t s) {
+  const int cin = masked ? 4 * f : f;
 #define KCCOT_STEP_TC(CFG, VEC)                                                                  \
   launch_step_tc<CFG, VEC>(x, x_bstride, hp, hp_bstride, c_prev, cp_bstride, wpk, bias, dy,     \
-                           dy_bstride, dh, dc, dx, dx_bstride, dbpart, B, H, W, f, kh, kw, s)
+                           dy_bstride, dh, dc, dx, dx_bstride, dbpart, B, H, W, f, cin, kh, kw, s)
   if (f % 8 != 0) return KCCOT_STEP_TC(Cfg64x64, false);
   if (!aligned16(hp) || hp_bstride % 8 != 0) return cudaErrorMisalignedAddress;
   switch (gate_shape(B, H, W, f)) {
@@ -640,24 +772,32 @@ cudaError_t step_tc(const void* x, long long x_bstride, const void* hp, long lon
 #undef KCCOT_STEP_TC
 }
 
+// The dh GEMM's padded N: f columns, or the four gates' quads with masks.
+inline int dh_npad(int f, bool masked) { return masked ? 16 * ((f + 3) / 4) : 8 * ((f + 7) / 8); }
+
 template <class Cfg, bool kVec>
-cudaError_t launch_dh_tc(const void* dx, long long dx_bstride, const void* wT, void* dh, int B,
-                         int H, int W, int f, int kh, int kw, cudaStream_t stream) {
-  const int npad = 8 * ((f + 7) / 8);
+cudaError_t launch_dh_tc(const void* dx, long long dx_bstride, const void* wT, const void* mask,
+                         void* dh, int B, int H, int W, int f, int kh, int kw,
+                         cudaStream_t stream) {
+  const int npad = dh_npad(f, mask != nullptr);
   const long long M = (long long)B * H * W;
   const dim3 grid((unsigned)((M + Cfg::BM - 1) / Cfg::BM), (npad + Cfg::BN - 1) / Cfg::BN);
   const int split = pick_split(grid.x * grid.y, (kh * kw * 4 * f + Cfg::BK - 1) / Cfg::BK);
   return launch_split<Cfg>(convlstm_bwd_dh_tc_kernel<Cfg, kVec>, grid, split, stream,
                            static_cast<const bf16*>(dx), dx_bstride, static_cast<const bf16*>(wT),
-                           npad, static_cast<float*>(dh), B, H, W, f, kh, kw);
+                           npad, static_cast<const float*>(mask), static_cast<float*>(dh), B, H,
+                           W, f, kh, kw);
 }
 
-cudaError_t dh_tc(const void* dx, long long dx_bstride, const void* wT, void* dh, int B, int H,
-                  int W, int f, int kh, int kw, cudaStream_t s) {
-#define KCCOT_DH_TC(CFG, VEC) launch_dh_tc<CFG, VEC>(dx, dx_bstride, wT, dh, B, H, W, f, kh, kw, s)
+cudaError_t dh_tc(const void* dx, long long dx_bstride, const void* wT, const void* mask, void* dh,
+                  int B, int H, int W, int f, int kh, int kw, cudaStream_t s) {
+#define KCCOT_DH_TC(CFG, VEC) \
+  launch_dh_tc<CFG, VEC>(dx, dx_bstride, wT, mask, dh, B, H, W, f, kh, kw, s)
   if (f % 2 != 0) return KCCOT_DH_TC(Cfg64x64, false);
   if (!aligned16(dx) || dx_bstride % 8 != 0) return cudaErrorMisalignedAddress;
-  switch (pick_shape((long long)B * H * W, 8 * ((f + 7) / 8))) {
+  // with masks N >= 16, so never the 128x8 tile, whose one n-tile a warp
+  // cannot hold a gate quad
+  switch (pick_shape((long long)B * H * W, dh_npad(f, mask != nullptr))) {
     case k128x64: return KCCOT_DH_TC(Cfg128x64, true);
     case k64x64: return KCCOT_DH_TC(Cfg64x64, true);
     case k32x64: return KCCOT_DH_TC(Cfg32x64, true);
@@ -668,24 +808,25 @@ cudaError_t dh_tc(const void* dx, long long dx_bstride, const void* wT, void* dh
 #undef KCCOT_DH_TC
 }
 
-// The drk GEMM's tile: 128 x 64, or 128 x 32 when 4f <= 32.
-inline TcShape wgrad_shape(int f) {
+// The drk GEMM's tile: 128 x 64, or 128 x 32 when a GEMM's N (4f, or f
+// a gate with masks) is at most 32.
+inline TcShape wgrad_shape(int f, int ngates) {
   if (f % 8 != 0) return k64x64;
-  return 4 * f <= 32 ? k128x32 : k128x64;
+  return 4 * f / ngates <= 32 ? k128x32 : k128x64;
 }
 
 template <class Cfg, bool kVec>
 cudaError_t launch_wgrad_tc(const void* y, const void* h0c, const void* dx, void* part,
                             int splits, long long chunk, int T_, int H, int W, int f, int kh,
-                            int kw, long long P, cudaStream_t s) {
-  const int M = kh * kw * f, N = 4 * f;
-  const dim3 grid((M + Cfg::BM - 1) / Cfg::BM, (N + Cfg::BN - 1) / Cfg::BN, splits);
+                            int kw, int ngates, long long P, cudaStream_t s) {
+  const int M = kh * kw * f, Ng = 4 * f / ngates;
+  const dim3 grid((M + Cfg::BM - 1) / Cfg::BM, ngates * ((Ng + Cfg::BN - 1) / Cfg::BN), splits);
   const auto kernel = recurrent_wgrad_tc_kernel<Cfg, kVec>;
   const cudaError_t err = allow_smem((const void*)kernel, Cfg::kSmem);
   if (err != cudaSuccess) return err;
   kernel<<<grid, Cfg::kThreads, Cfg::kSmem, s>>>(
       static_cast<const bf16*>(y), static_cast<const bf16*>(h0c), static_cast<const bf16*>(dx),
-      static_cast<float*>(part), T_, H, W, f, kh, kw, P, chunk);
+      static_cast<float*>(part), T_, H, W, f, kh, kw, ngates, P, chunk);
   return cudaGetLastError();
 }
 
@@ -693,8 +834,8 @@ template <int kPix>
 cudaError_t launch_step(const void* x, long long x_bstride, const void* hp, long long hp_bstride,
                         const void* c_prev, long long cp_bstride, const void* rk4,
                         const void* bias, const void* dy, long long dy_bstride, const void* dh,
-                        void* dc, void* dx, long long dx_bstride, void* dbpart, int B, int H,
-                        int W, int f, int kh, int kw, cudaStream_t stream) {
+                        void* dc, void* dx, long long dx_bstride, void* dbpart, int masked, int B,
+                        int H, int W, int f, int kh, int kw, cudaStream_t stream) {
   const Tile t = make_tile(H, W, f, kPix);
   const dim3 block(t.jt, t.nruns);
   const dim3 grid(t.tiles_w * t.tiles_h, (f + t.jt - 1) / t.jt, B);
@@ -708,17 +849,28 @@ cudaError_t launch_step(const void* x, long long x_bstride, const void* hp, long
       static_cast<const float*>(c_prev), cp_bstride, static_cast<const float4*>(rk4),
       static_cast<const float*>(bias), static_cast<const float*>(dy), dy_bstride,
       static_cast<const float*>(dh), static_cast<float*>(dc), static_cast<float*>(dx), dx_bstride,
-      static_cast<float*>(dbpart), H, W, f, kh, kw, t.tile_h, t.tile_w, t.tiles_w);
+      static_cast<float*>(dbpart), masked, H, W, f, kh, kw, t.tile_h, t.tile_w, t.tiles_w);
   return cudaGetLastError();
 }
 
 template <int kPix>
-cudaError_t launch_dh(const void* dx, long long dx_bstride, const void* rkT4, void* dh, int B,
-                      int H, int W, int f, int kh, int kw, cudaStream_t stream) {
+cudaError_t launch_dh(const void* dx, long long dx_bstride, const void* rkT4, const void* mask,
+                      void* dh, int B, int H, int W, int f, int kh, int kw, cudaStream_t stream) {
   const Tile t = make_tile(H, W, f, kPix);
-  const int nc = 4 * f < 64 ? 4 * f : 64;
   const dim3 block(t.jt, t.nruns);
   const dim3 grid(t.tiles_w * t.tiles_h, (f + t.jt - 1) / t.jt, B);
+  if (mask != nullptr) {
+    const int nc = f < 64 ? f : 64;
+    const size_t smem = (size_t)(t.tile_h + kh - 1) * (t.tile_w + kw - 1) * nc * sizeof(float);
+    const cudaError_t err = allow_smem((const void*)convlstm_bwd_dh_masked_kernel<kPix>, smem);
+    if (err != cudaSuccess) return err;
+    convlstm_bwd_dh_masked_kernel<kPix><<<grid, block, smem, stream>>>(
+        static_cast<const float*>(dx), dx_bstride, static_cast<const float4*>(rkT4),
+        static_cast<const float*>(mask), static_cast<float*>(dh), H, W, f, kh, kw, nc, t.tile_h,
+        t.tile_w, t.tiles_w);
+    return cudaGetLastError();
+  }
+  const int nc = 4 * f < 64 ? 4 * f : 64;
   const size_t smem = (size_t)(t.tile_h + kh - 1) * (t.tile_w + kw - 1) * nc * sizeof(float);
   const cudaError_t err = allow_smem((const void*)convlstm_bwd_dh_kernel<kPix>, smem);
   if (err != cudaSuccess) return err;
@@ -731,54 +883,54 @@ cudaError_t launch_dh(const void* dx, long long dx_bstride, const void* rkT4, vo
 cudaError_t step(const void* x, long long x_bstride, const void* hp, long long hp_bstride,
                  const void* c_prev, long long cp_bstride, const void* rk4, const void* bias,
                  const void* dy, long long dy_bstride, const void* dh, void* dc, void* dx,
-                 long long dx_bstride, void* dbpart, int B, int H, int W, int f, int kh, int kw,
-                 cudaStream_t s) {
+                 long long dx_bstride, void* dbpart, int masked, int B, int H, int W, int f,
+                 int kh, int kw, cudaStream_t s) {
+#define KCCOT_STEP(PIX)                                                                          \
+  launch_step<PIX>(x, x_bstride, hp, hp_bstride, c_prev, cp_bstride, rk4, bias, dy, dy_bstride, \
+                   dh, dc, dx, dx_bstride, dbpart, masked, B, H, W, f, kh, kw, s)
   switch (pixels_per_thread(H, W)) {
-    case 8:
-      return launch_step<8>(x, x_bstride, hp, hp_bstride, c_prev, cp_bstride, rk4, bias, dy,
-                               dy_bstride, dh, dc, dx, dx_bstride, dbpart, B, H, W, f, kh, kw, s);
-    case 4:
-      return launch_step<4>(x, x_bstride, hp, hp_bstride, c_prev, cp_bstride, rk4, bias, dy,
-                               dy_bstride, dh, dc, dx, dx_bstride, dbpart, B, H, W, f, kh, kw, s);
-    default:
-      return launch_step<2>(x, x_bstride, hp, hp_bstride, c_prev, cp_bstride, rk4, bias, dy,
-                               dy_bstride, dh, dc, dx, dx_bstride, dbpart, B, H, W, f, kh, kw, s);
+    case 8: return KCCOT_STEP(8);
+    case 4: return KCCOT_STEP(4);
+    default: return KCCOT_STEP(2);
   }
+#undef KCCOT_STEP
 }
 
-cudaError_t dh_step(const void* dx, long long dx_bstride, const void* rkT4, void* dh, int B, int H,
-                    int W, int f, int kh, int kw, cudaStream_t s) {
+cudaError_t dh_step(const void* dx, long long dx_bstride, const void* rkT4, const void* mask,
+                    void* dh, int B, int H, int W, int f, int kh, int kw, cudaStream_t s) {
   switch (pixels_per_thread(H, W)) {
-    case 8: return launch_dh<8>(dx, dx_bstride, rkT4, dh, B, H, W, f, kh, kw, s);
-    case 4: return launch_dh<4>(dx, dx_bstride, rkT4, dh, B, H, W, f, kh, kw, s);
-    default: return launch_dh<2>(dx, dx_bstride, rkT4, dh, B, H, W, f, kh, kw, s);
+    case 8: return launch_dh<8>(dx, dx_bstride, rkT4, mask, dh, B, H, W, f, kh, kw, s);
+    case 4: return launch_dh<4>(dx, dx_bstride, rkT4, mask, dh, B, H, W, f, kh, kw, s);
+    default: return launch_dh<2>(dx, dx_bstride, rkT4, mask, dh, B, H, W, f, kh, kw, s);
   }
 }
 
 cudaError_t wgrad(int dtype, const void* y, const void* h0c, const void* dx, void* part,
                   int splits, long long chunk, const void* dbpart, int rows, void* drk,
-                  void* dbias, int B, int T_, int H, int W, int f, int kh, int kw, cudaStream_t s) {
-  const int M = kh * kw * f, N = 4 * f;
+                  void* dbias, int B, int T_, int H, int W, int f, int kh, int kw, int ngates,
+                  cudaStream_t s) {
+  const int M = kh * kw * f, N = 4 * f, Ng = N / ngates;
   const long long P = (long long)B * T_ * H * W;
   if (splits <= 0 || chunk <= 0 || (long long)splits * chunk < P) return cudaErrorInvalidValue;
   if (dtype == 1 && (long long)splits * chunk >= (1LL << 31)) return cudaErrorInvalidValue;
   cudaError_t err;
   if (dtype == 0) {
-    const dim3 grid((M + kTileM - 1) / kTileM, (N + kTileN - 1) / kTileN, splits);
+    const dim3 grid((M + kTileM - 1) / kTileM, ngates * ((Ng + kTileN - 1) / kTileN), splits);
     recurrent_wgrad_kernel<<<grid, 256, 0, s>>>(
         static_cast<const float*>(y), static_cast<const float*>(h0c),
-        static_cast<const float*>(dx), static_cast<float*>(part), T_, H, W, f, kh, kw, P, chunk);
+        static_cast<const float*>(dx), static_cast<float*>(part), T_, H, W, f, kh, kw, ngates, P,
+        chunk);
     err = cudaGetLastError();
   } else {
 #define KCCOT_WGRAD_TC(CFG, VEC) \
-  launch_wgrad_tc<CFG, VEC>(y, h0c, dx, part, splits, chunk, T_, H, W, f, kh, kw, P, s)
+  launch_wgrad_tc<CFG, VEC>(y, h0c, dx, part, splits, chunk, T_, H, W, f, kh, kw, ngates, P, s)
     if (f % 8 != 0) {
       err = KCCOT_WGRAD_TC(Cfg64x64, false);
     } else if (!aligned16(y) || !aligned16(h0c) || !aligned16(dx)) {
       err = cudaErrorMisalignedAddress;
     } else {
-      err = wgrad_shape(f) == k128x32 ? KCCOT_WGRAD_TC(Cfg128x32, true)
-                                      : KCCOT_WGRAD_TC(Cfg128x64, true);
+      err = wgrad_shape(f, ngates) == k128x32 ? KCCOT_WGRAD_TC(Cfg128x32, true)
+                                              : KCCOT_WGRAD_TC(Cfg128x64, true);
     }
 #undef KCCOT_WGRAD_TC
   }
@@ -808,14 +960,15 @@ extern "C" int kccot_convlstm_bwd_rows(int dtype, int B, int H, int W, int f) {
 }
 
 // Output tiles of the weight-gradient GEMM at M = kh*kw*f, N = 4f (the
-// wrapper splits K so that tiles x splits fill the card).
-extern "C" int kccot_recurrent_wgrad_tiles(int dtype, int M, int f) {
+// wrapper splits K so that tiles x splits fill the card); masked: the
+// recurrent-dropout mode, four GEMMs of N = f.
+extern "C" int kccot_recurrent_wgrad_tiles(int dtype, int M, int f, int masked) {
   if (M <= 0 || f <= 0) return 0;
-  const int N = 4 * f;
-  if (dtype == 0) return ((M + kTileM - 1) / kTileM) * ((N + kTileN - 1) / kTileN);
-  const TcShape sh = wgrad_shape(f);
+  const int ngates = masked ? 4 : 1, Ng = 4 * f / ngates;
+  if (dtype == 0) return ((M + kTileM - 1) / kTileM) * ngates * ((Ng + kTileN - 1) / kTileN);
+  const TcShape sh = wgrad_shape(f, ngates);
   const int bm = shape_bm(sh), bn = sh == k128x32 ? 32 : 64;
-  return tc_blocks(M, N, bm, bn);
+  return ngates * tc_blocks(M, Ng, bm, bn);
 }
 
 // Step t of the reverse loop, kernel 1 (module comment).  dtype 0 =
@@ -824,35 +977,43 @@ extern "C" int kccot_recurrent_wgrad_tiles(int dtype, int M, int f) {
 // cdt(h0); c_prev at c_stack[:, t-1] or at c0; each with its per-sample
 // stride in elements.  dh (read) and dc (read and written) are the f32
 // carries [B, H, W, f]; w as in kccot_convlstm_fwd_step (float32: rk4;
-// bfloat16: the packed gate weight, on the tensor cores).
+// bfloat16: the packed gate weight, on the tensor cores).  masked: the
+// recurrent-dropout mode, hp at the hm stack's step t-1 or at hm_{-1}
+// ([B, *, H, W, 4f], kccot_convlstm_fwd_step) and, for bfloat16, w packed
+// from the block-diagonal weight.
 extern "C" int kccot_convlstm_bwd_step(int dtype, const void* x, long long x_bstride,
                                        const void* hp, long long hp_bstride, const void* c_prev,
                                        long long cp_bstride, const void* w, const void* bias,
                                        const void* dy, long long dy_bstride, const void* dh,
                                        void* dc, void* dx, long long dx_bstride, void* dbpart,
-                                       int B, int H, int W, int f, int kh, int kw, void* stream) {
+                                       int masked, int B, int H, int W, int f, int kh, int kw,
+                                       void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || f <= 0 || kh <= 0 || kw <= 0) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return step(x, x_bstride, hp, hp_bstride, c_prev, cp_bstride, w, bias, dy,
-                       dy_bstride, dh, dc, dx, dx_bstride, dbpart, B, H, W, f, kh, kw, s);
+                       dy_bstride, dh, dc, dx, dx_bstride, dbpart, masked, B, H, W, f, kh, kw, s);
   if (dtype == 1)
     return step_tc(x, x_bstride, hp, hp_bstride, c_prev, cp_bstride, w, bias, dy, dy_bstride, dh,
-                   dc, dx, dx_bstride, dbpart, B, H, W, f, kh, kw, s);
+                   dc, dx, dx_bstride, dbpart, masked, B, H, W, f, kh, kw, s);
   return cudaErrorInvalidValue;
 }
 
 // Step t, kernel 2: dh [B, H, W, f] float32 from dx at step t (per-sample
 // stride dx_bstride) and w: float32, rkT4 = cdt(rk) as float32,
 // [kh, kw, 4f/4, f, 4]; bfloat16 (tensor cores), wT = cdt(rk) transposed,
-// [kh*kw*4f, 8*ceil(f/8)] (models/cuda_convlstm.py::_pack_dh).
+// [kh*kw*4f, 8*ceil(f/8)] (models/cuda_convlstm.py::_pack_dh).  With
+// mask ([B, H, W, 4f] float32, recurrent dropout) the sum of the four
+// gates' transposed convs, each times its mask; bfloat16 then takes wT
+// with gate-quad columns, [kh*kw*4f, 16*ceil(f/4)]
+// (models/cuda_convlstm.py::_pack_dh_gates), float32 rkT4 as without.
 extern "C" int kccot_convlstm_bwd_dh(int dtype, const void* dx, long long dx_bstride,
-                                     const void* w, void* dh, int B, int H, int W, int f,
-                                     int kh, int kw, void* stream) {
+                                     const void* w, const void* mask, void* dh, int B, int H,
+                                     int W, int f, int kh, int kw, void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || f <= 0 || kh <= 0 || kw <= 0) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dh_step(dx, dx_bstride, w, dh, B, H, W, f, kh, kw, s);
-  if (dtype == 1) return dh_tc(dx, dx_bstride, w, dh, B, H, W, f, kh, kw, s);
+  if (dtype == 0) return dh_step(dx, dx_bstride, w, mask, dh, B, H, W, f, kh, kw, s);
+  if (dtype == 1) return dh_tc(dx, dx_bstride, w, mask, dh, B, H, W, f, kh, kw, s);
   return cudaErrorInvalidValue;
 }
 
@@ -862,14 +1023,16 @@ extern "C" int kccot_convlstm_bwd_dh(int dtype, const void* dx, long long dx_bst
 // [rows, 4f].  part is float32 scratch [splits, kh*kw*f, 4f]; split s
 // covers pixels [s*chunk, (s+1)*chunk) of the B*T*H*W.  Two launches:
 // the GEMM (CUDA cores for float32, tensor cores for bfloat16), then the
-// fixed-order finalize.
+// fixed-order finalize.  masked (recurrent dropout): y and h0c are the
+// hm stack [B, T, H, W, 4f] and hm_{-1} [B, H, W, 4f], and gate g's
+// columns of drk sum hm_g against dz_g alone.
 extern "C" int kccot_recurrent_wgrad(int dtype, const void* y, const void* h0c, const void* dx,
                                      void* part, int splits, long long chunk, const void* dbpart,
                                      int rows, void* drk, void* dbias, int B, int T, int H, int W,
-                                     int f, int kh, int kw, void* stream) {
+                                     int f, int kh, int kw, int masked, void* stream) {
   if (B <= 0 || T <= 0 || H <= 0 || W <= 0 || f <= 0 || kh <= 0 || kw <= 0 || rows < 0)
     return cudaErrorInvalidValue;
   if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
   return wgrad(dtype, y, h0c, dx, part, splits, chunk, dbpart, rows, drk, dbias, B, T, H, W, f,
-               kh, kw, static_cast<cudaStream_t>(stream));
+               kh, kw, masked ? 4 : 1, static_cast<cudaStream_t>(stream));
 }

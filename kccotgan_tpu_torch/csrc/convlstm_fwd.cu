@@ -37,6 +37,15 @@
 //   shared memory once; each thread keeps the four gate sums of kPix
 //   pixels in registers, so one 16-byte load of a weight's four gates
 //   (interleaved [kh, kw, f, f, 4]) feeds 4*kPix FMAs.
+// Recurrent dropout (Keras, models/layers.py::ConvLSTM2D): gate g's conv
+// reads hm_g = cdt(h_{t-1} * mask_g), four masks [B, H, W, f] fixed over
+// time.  The step that makes h_t also writes hm_t, gate-major [B, H, W,
+// 4f] (channel g*f + j), from the f32 h and the masks; the wrapper
+// rounds hm_{-1} from h0 once.  The bf16 engine then runs the gate GEMM
+// over K = kh*kw*4f, A gathered from hm with 4f channels, B the wrapper's
+// block-diagonal weight (gate g's columns read only hm_g's rows): four
+// times the MMAs, the same kernel.  The f32 engine stages hm_g gate by
+// gate (rconv_gates_masked), the FMAs of the unmasked kernel.
 // wgmma, TMA and fusing the T steps into one persistent launch are later
 // work.
 
@@ -54,7 +63,9 @@ convlstm_step_kernel(const float* __restrict__ x, long long x_bstride,
                      float* __restrict__ h_next, float* __restrict__ c_next,
                      float* __restrict__ y, long long y_bstride,
                      float* __restrict__ cs, long long cs_bstride,
-                     int H, int W, int f, int kh, int kw,
+                     const float* __restrict__ hm, long long hm_bstride,
+                     const float* __restrict__ mask, float* __restrict__ hm_out,
+                     long long hmo_bstride, int H, int W, int f, int kh, int kw,
                      int tile_h, int tile_w, int tiles_w) {
   extern __shared__ float hs[];  // [tile_h+kh-1][tile_w+kw-1][f]
 
@@ -62,11 +73,7 @@ convlstm_step_kernel(const float* __restrict__ x, long long x_bstride,
   const int ty0 = (blockIdx.x / tiles_w) * tile_h;
   const int tx0 = (blockIdx.x % tiles_w) * tile_w;
   const int sw = tile_w + kw - 1;
-  stage_h(hs, h_prev + (long long)b * H * W * f, H, W, f, kh, kw, ty0, tx0, tile_h, tile_w);
-  __syncthreads();
-
   const int j = blockIdx.y * blockDim.x + threadIdx.x;
-  if (j >= f) return;
   const int nruns = blockDim.y;
   int off[kPix];
 #pragma unroll
@@ -77,7 +84,16 @@ convlstm_step_kernel(const float* __restrict__ x, long long x_bstride,
   float acc[kPix][4];
 #pragma unroll
   for (int p = 0; p < kPix; ++p) acc[p][0] = acc[p][1] = acc[p][2] = acc[p][3] = 0.0f;
-  rconv_gates<kPix>(acc, hs, rk4, off, j, f, kh, kw, sw);
+  if (mask != nullptr) {
+    rconv_gates_masked<kPix>(acc, hs, hm + b * hm_bstride, rk4, off, j, j < f, H, W, f, kh, kw,
+                             ty0, tx0, tile_h, tile_w);
+    if (j >= f) return;
+  } else {
+    stage_h(hs, h_prev + (long long)b * H * W * f, H, W, f, f, kh, kw, ty0, tx0, tile_h, tile_w);
+    __syncthreads();
+    if (j >= f) return;
+    rconv_gates<kPix>(acc, hs, rk4, off, j, f, kh, kw, sw);
+  }
 
   const int f4 = 4 * f;
 #pragma unroll
@@ -98,14 +114,31 @@ convlstm_step_kernel(const float* __restrict__ x, long long x_bstride,
     h_next[s] = h;
     y[b * y_bstride + pix * f + j] = h;
     if (cs != nullptr) cs[b * cs_bstride + pix * f + j] = c;
+    if (hm_out != nullptr) {
+      const float* mp = mask + ((long long)b * H * W + pix) * f4 + j;
+      float* hp = hm_out + b * hmo_bstride + pix * f4 + j;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) hp[g * f] = h * mp[g * f];
+    }
   }
 }
+
+// The masked-mode operands of a step (all null without recurrent dropout):
+// hm = hm_{t-1} with its per-sample stride, the masks [B, H, W, 4f] f32,
+// and hm_out, where this step writes hm_t (null at the last step).
+struct Masked {
+  const void* hm;
+  long long hm_bstride;
+  const void* mask;
+  void* hm_out;
+  long long hmo_bstride;
+};
 
 template <int kPix>
 cudaError_t launch(const void* x, long long x_bstride, const void* h_prev, const void* c_prev,
                    const void* rk4, const void* bias, void* h_next, void* c_next, void* y,
-                   long long y_bstride, void* cs, long long cs_bstride, int B, int H, int W,
-                   int f, int kh, int kw, cudaStream_t stream) {
+                   long long y_bstride, void* cs, long long cs_bstride, const Masked& mk, int B,
+                   int H, int W, int f, int kh, int kw, cudaStream_t stream) {
   const Tile t = make_tile(H, W, f, kPix);
   const dim3 block(t.jt, t.nruns);
   const dim3 grid(t.tiles_w * t.tiles_h, (f + t.jt - 1) / t.jt, B);
@@ -117,25 +150,25 @@ cudaError_t launch(const void* x, long long x_bstride, const void* h_prev, const
       static_cast<const float*>(c_prev), static_cast<const float4*>(rk4),
       static_cast<const float*>(bias), static_cast<float*>(h_next),
       static_cast<float*>(c_next), static_cast<float*>(y), y_bstride, static_cast<float*>(cs),
-      cs_bstride, H, W, f, kh, kw, t.tile_h, t.tile_w, t.tiles_w);
+      cs_bstride, static_cast<const float*>(mk.hm), mk.hm_bstride,
+      static_cast<const float*>(mk.mask), static_cast<float*>(mk.hm_out), mk.hmo_bstride, H, W, f,
+      kh, kw, t.tile_h, t.tile_w, t.tiles_w);
   return cudaGetLastError();
 }
 
 cudaError_t dispatch(const void* x, long long x_bstride, const void* h_prev, const void* c_prev,
                      const void* rk4, const void* bias, void* h_next, void* c_next, void* y,
-                     long long y_bstride, void* cs, long long cs_bstride, int B, int H, int W,
-                     int f, int kh, int kw, cudaStream_t stream) {
+                     long long y_bstride, void* cs, long long cs_bstride, const Masked& mk, int B,
+                     int H, int W, int f, int kh, int kw, cudaStream_t stream) {
+#define KCCOT_FWD(PIX)                                                                           \
+  launch<PIX>(x, x_bstride, h_prev, c_prev, rk4, bias, h_next, c_next, y, y_bstride, cs,         \
+              cs_bstride, mk, B, H, W, f, kh, kw, stream)
   switch (pixels_per_thread(H, W)) {
-    case 8:
-      return launch<8>(x, x_bstride, h_prev, c_prev, rk4, bias, h_next, c_next, y, y_bstride,
-                          cs, cs_bstride, B, H, W, f, kh, kw, stream);
-    case 4:
-      return launch<4>(x, x_bstride, h_prev, c_prev, rk4, bias, h_next, c_next, y, y_bstride,
-                          cs, cs_bstride, B, H, W, f, kh, kw, stream);
-    default:
-      return launch<2>(x, x_bstride, h_prev, c_prev, rk4, bias, h_next, c_next, y, y_bstride,
-                          cs, cs_bstride, B, H, W, f, kh, kw, stream);
+    case 8: return KCCOT_FWD(8);
+    case 4: return KCCOT_FWD(4);
+    default: return KCCOT_FWD(2);
   }
+#undef KCCOT_FWD
 }
 
 // bf16, tensor cores.  wpk is cdt(rk) as [kh*kw*f, npad] with the gate
@@ -148,14 +181,16 @@ convlstm_step_tc_kernel(const bf16* __restrict__ x, long long x_bstride,
                         const float* __restrict__ bias, float* __restrict__ h_next,
                         float* __restrict__ c_next, bf16* __restrict__ y, long long y_bstride,
                         float* __restrict__ cs, long long cs_bstride,
-                        int B, int H, int W, int f, int kh, int kw) {
+                        const float* __restrict__ mask, bf16* __restrict__ hm_out,
+                        long long hmo_bstride, int B, int H, int W, int f, int cin, int kh,
+                        int kw) {
   extern __shared__ __align__(16) unsigned char fwd_tc_smem[];
-  const int HW = H * W, M = B * HW, K = kh * kw * f;
+  const int HW = H * W, M = B * HW, K = kh * kw * cin;
   const int m0 = blockIdx.x * Cfg::BM, n0 = blockIdx.y * Cfg::BN;
   int kt0, kt1;
   split_range((K + Cfg::BK - 1) / Cfg::BK, blockIdx.z, gridDim.z, kt0, kt1);
-  ConvGatherA<Cfg, kVec> load_a(hp, hp_bstride, H, W, f, kw, K, 1, -(kh - 1) / 2, -(kw - 1) / 2,
-                                m0, M, kt0);
+  ConvGatherA<Cfg, kVec> load_a(hp, hp_bstride, H, W, cin, kw, K, 1, -(kh - 1) / 2,
+                                -(kw - 1) / 2, m0, M, kt0);
   const DenseB<Cfg> load_b{wpk, K, npad, n0};
   float acc[2][Cfg::NI][4];
   tc_gemm<Cfg, false>(acc, reinterpret_cast<bf16*>(fwd_tc_smem), kt0, kt1, load_a, load_b);
@@ -177,6 +212,12 @@ convlstm_step_tc_kernel(const bf16* __restrict__ x, long long x_bstride,
     h_next[s] = h;
     y[b * y_bstride + (long long)pix * f + j] = from_f32<bf16>(h);
     if (cs != nullptr) cs[b * cs_bstride + (long long)pix * f + j] = c;
+    if (hm_out != nullptr) {
+      const float* mp = mask + (long long)m * f4 + j;
+      bf16* hq = hm_out + b * hmo_bstride + (long long)pix * f4 + j;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) hq[g * f] = from_f32<bf16>(h * mp[g * f]);
+    }
   });
 }
 
@@ -184,27 +225,33 @@ template <class Cfg, bool kVec>
 cudaError_t launch_tc(const void* x, long long x_bstride, const void* hp, long long hp_bstride,
                       const void* c_prev, const void* wpk, const void* bias, void* h_next,
                       void* c_next, void* y, long long y_bstride, void* cs, long long cs_bstride,
-                      int B, int H, int W, int f, int kh, int kw, cudaStream_t stream) {
+                      const Masked& mk, int B, int H, int W, int f, int cin, int kh, int kw,
+                      cudaStream_t stream) {
   const int npad = 16 * ((f + 3) / 4);
   const long long M = (long long)B * H * W;
   const dim3 grid((unsigned)((M + Cfg::BM - 1) / Cfg::BM), (npad + Cfg::BN - 1) / Cfg::BN);
-  const int split = pick_split(grid.x * grid.y, (kh * kw * f + Cfg::BK - 1) / Cfg::BK);
+  const int split = pick_split(grid.x * grid.y, (kh * kw * cin + Cfg::BK - 1) / Cfg::BK);
   return launch_split<Cfg>(
       convlstm_step_tc_kernel<Cfg, kVec>, grid, split, stream, static_cast<const bf16*>(x),
       x_bstride, static_cast<const bf16*>(hp), hp_bstride, static_cast<const float*>(c_prev),
       static_cast<const bf16*>(wpk), npad, static_cast<const float*>(bias),
       static_cast<float*>(h_next), static_cast<float*>(c_next), static_cast<bf16*>(y), y_bstride,
-      static_cast<float*>(cs), cs_bstride, B, H, W, f, kh, kw);
+      static_cast<float*>(cs), cs_bstride, static_cast<const float*>(mk.mask),
+      static_cast<bf16*>(mk.hm_out), mk.hmo_bstride, B, H, W, f, cin, kh, kw);
 }
 
+// hp: cdt(h_{t-1}) with f channels, or hm_{t-1} with 4f under recurrent
+// dropout (then wpk is the block-diagonal weight, [kh*kw*4f, npad]).
 cudaError_t dispatch_tc(const void* x, long long x_bstride, const void* hp, long long hp_bstride,
                         const void* c_prev, const void* wpk, const void* bias, void* h_next,
                         void* c_next, void* y, long long y_bstride, void* cs, long long cs_bstride,
-                        int B, int H, int W, int f, int kh, int kw, cudaStream_t stream) {
+                        const Masked& mk, int B, int H, int W, int f, int kh, int kw,
+                        cudaStream_t stream) {
+  const int cin = mk.mask != nullptr ? 4 * f : f;
 #define KCCOT_FWD_TC(CFG, VEC)                                                                  \
   launch_tc<CFG, VEC>(x, x_bstride, hp, hp_bstride, c_prev, wpk, bias, h_next, c_next, y,      \
-                      y_bstride, cs, cs_bstride, B, H, W, f, kh, kw, stream)
-  if (f % 8 != 0) return KCCOT_FWD_TC(Cfg64x64, false);
+                      y_bstride, cs, cs_bstride, mk, B, H, W, f, cin, kh, kw, stream)
+  if (cin % 8 != 0) return KCCOT_FWD_TC(Cfg64x64, false);
   if (!aligned16(hp) || hp_bstride % 8 != 0) return cudaErrorMisalignedAddress;
   switch (pick_shape((long long)B * H * W, 16 * ((f + 3) / 4))) {
     case k128x64: return KCCOT_FWD_TC(Cfg128x64, true);
@@ -229,21 +276,32 @@ cudaError_t dispatch_tc(const void* x, long long x_bstride, const void* hp, long
 // t-1, or cdt(h0)) with per-sample stride hp_bstride; w is cdt(rk)
 // packed [kh*kw*f, 16*ceil(f/4)] (models/cuda_convlstm.py::_pack_gates);
 // h_prev is not read.
+// Recurrent dropout: mask (the four masks, [B, H, W, 4f] float32, gate
+// g's at channel g*f + j) is not null.  Then hp is hm_{t-1} = cdt(h_{t-1}
+// * mask) [B, H, W, 4f] of the compute dtype, for both dtypes, with
+// per-sample stride hp_bstride (h_prev is not read); bfloat16 takes w
+// packed from the block-diagonal [kh, kw, 4f, 4f] weight
+// (models/cuda_convlstm.py::_block_diagonal), float32 rk4 as without
+// masks; and, if hm_out is not null, the step writes hm_t there with
+// per-sample stride hmo_bstride.
 // Returns the launch's cudaError_t (0 on success).
 extern "C" int kccot_convlstm_fwd_step(int dtype, const void* x, long long x_bstride,
                                        const void* h_prev, const void* hp, long long hp_bstride,
                                        const void* c_prev, const void* w, const void* bias,
                                        void* h_next, void* c_next, void* y, long long y_bstride,
-                                       void* cs, long long cs_bstride, int B, int H, int W, int f,
-                                       int kh, int kw, void* stream) {
+                                       void* cs, long long cs_bstride, const void* mask,
+                                       void* hm_out, long long hmo_bstride, int B, int H, int W,
+                                       int f, int kh, int kw, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || H <= 0 || W <= 0 || f <= 0 || kh <= 0 || kw <= 0) return cudaErrorInvalidValue;
+  if (mask == nullptr && hm_out != nullptr) return cudaErrorInvalidValue;
+  const Masked mk{mask != nullptr ? hp : nullptr, hp_bstride, mask, hm_out, hmo_bstride};
   if (dtype == 0)
     return dispatch(x, x_bstride, h_prev, c_prev, w, bias, h_next, c_next, y, y_bstride,
-                           cs, cs_bstride, B, H, W, f, kh, kw, s);
+                           cs, cs_bstride, mk, B, H, W, f, kh, kw, s);
   if (dtype == 1)
     return dispatch_tc(x, x_bstride, hp, hp_bstride, c_prev, w, bias, h_next, c_next, y,
-                       y_bstride, cs, cs_bstride, B, H, W, f, kh, kw, s);
+                       y_bstride, cs, cs_bstride, mk, B, H, W, f, kh, kw, s);
   return cudaErrorInvalidValue;
 }
 

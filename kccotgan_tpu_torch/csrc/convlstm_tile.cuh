@@ -85,10 +85,10 @@ inline cudaError_t allow_smem(const void* kernel, size_t smem) {
 // Stage f32 h over the block's tile and its 'SAME' halo (lo = (k-1)/2
 // rows and columns before the tile), [tile_h+kh-1][tile_w+kw-1][f].
 // Zeros outside the frame are the padding.  hb points at this sample's
-// [H, W, f] frame.
+// [H, W, ld] frame (f channels of each pixel's ld).
 __device__ __forceinline__ void stage_h(float* hs, const float* __restrict__ hb, int H, int W,
-                                        int f, int kh, int kw, int ty0, int tx0, int tile_h,
-                                        int tile_w) {
+                                        int f, int ld, int kh, int kw, int ty0, int tx0,
+                                        int tile_h, int tile_w) {
   const int lo_h = (kh - 1) / 2, lo_w = (kw - 1) / 2;
   const int sw = tile_w + kw - 1;
   const int n_stage = (tile_h + kh - 1) * sw * f;
@@ -100,7 +100,7 @@ __device__ __forceinline__ void stage_h(float* hs, const float* __restrict__ hb,
     const int gy = ty0 - lo_h + r / sw;
     const int gx = tx0 - lo_w + r % sw;
     float v = 0.0f;
-    if (gy >= 0 && gy < H && gx >= 0 && gx < W) v = hb[((long long)gy * W + gx) * f + ci];
+    if (gy >= 0 && gy < H && gx >= 0 && gx < W) v = hb[((long long)gy * W + gx) * ld + ci];
     hs[idx] = v;
   }
 }
@@ -127,6 +127,42 @@ __device__ __forceinline__ void rconv_gates(float (&acc)[kPix][4], const float* 
           acc[p][1] = fmaf(hv, wv.y, acc[p][1]);
           acc[p][2] = fmaf(hv, wv.z, acc[p][2]);
           acc[p][3] = fmaf(hv, wv.w, acc[p][3]);
+        }
+      }
+    }
+  }
+}
+
+// Recurrent dropout (f32): gate g's conv reads hm_g = h_{t-1} * mask_g,
+// which the previous step wrote, gate-major, into hmb's [H, W, 4f] frame
+// (channel g*f + ci).  The gates are staged one at a time into the tile
+// of stage_h, so shared memory stays that of the unmasked kernel, and
+// each gate's sum runs in the order of rconv_gates.  Every thread of the
+// block must call it (it holds barriers); `valid` says whether this
+// thread's channel j exists.
+template <int kPix>
+__device__ __forceinline__ void rconv_gates_masked(float (&acc)[kPix][4], float* hs,
+                                                   const float* __restrict__ hmb,
+                                                   const float4* __restrict__ rk4,
+                                                   const int (&off)[kPix], int j, bool valid,
+                                                   int H, int W, int f, int kh, int kw, int ty0,
+                                                   int tx0, int tile_h, int tile_w) {
+  const int sw = tile_w + kw - 1;
+  const float* rk = reinterpret_cast<const float*>(rk4);
+#pragma unroll
+  for (int g = 0; g < 4; ++g) {
+    __syncthreads();  // the previous gate's tile has been read
+    stage_h(hs, hmb + g * f, H, W, f, 4 * f, kh, kw, ty0, tx0, tile_h, tile_w);
+    __syncthreads();
+    if (!valid) continue;
+    for (int ky = 0; ky < kh; ++ky) {
+      for (int kx = 0; kx < kw; ++kx) {
+        const float* w = rk + ((long long)(ky * kw + kx) * f * f + j) * 4 + g;
+        const float* ht = hs + (ky * sw + kx) * f;
+        for (int ci = 0; ci < f; ++ci) {
+          const float wv = __ldg(w + (long long)ci * f * 4);
+#pragma unroll
+          for (int p = 0; p < kPix; ++p) acc[p][g] = fmaf(ht[off[p] + ci], wv, acc[p][g]);
         }
       }
     }

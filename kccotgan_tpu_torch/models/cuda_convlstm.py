@@ -20,6 +20,14 @@ c stack, ``dx = cdt(dz)``, ``db`` summed from the f32 ``dz``,
 ``dh_{t-1}`` the transposed conv of ``cdt(dz)`` kept in f32, and ``drk``
 the sum of ``cdt(h_{t-1})^T cdt(dz)`` over steps, samples and pixels.
 
+Recurrent dropout (``rec_masks [4, B, H', W', f]``, Keras
+``recurrent_dropout`` of ``layers.ConvLSTM2D``): gate g's conv reads
+``hm_g = cdt(h_{t-1} * rec_masks[g])`` instead of ``cdt(h_{t-1})``.  The
+forward then also returns ``hm = (hm0, hm stack)``, gate-major ``[B, H',
+W', 4f]`` frames (channel ``g*f + j``) for ``t = -1 .. T-2``, which the
+backward reads: ``dh_{t-1} = sum_g mask_g * dhm_g`` and gate g's columns
+of ``drk`` sum ``hm_g^T dz_g``.
+
 Dispatch: CPU tensors run the plain versions (``convlstm_fwd_reference``,
 ``convlstm_bwd_reference``); CUDA tensors launch ``csrc/convlstm_fwd.cu``
 once per time step and ``csrc/convlstm_bwd.cu`` twice per step plus twice
@@ -27,8 +35,12 @@ for the weight gradient (or raise).  The compute dtype picks the engine
 inside each kernel: bf16 runs the recurrent conv, dh and drk as implicit
 GEMMs on the tensor cores, with the weights packed here once per call
 (``_pack_gates``, ``_pack_dh``); f32 runs them on the CUDA cores in f32
-FMA (``_rk4``).  Each wrapper counts its calls in ``.calls`` and its
-kernel launches in ``.launches``.
+FMA (``_rk4``).  Under recurrent dropout the same kernels run in their
+masked mode, with the launches of the unmasked ones: bf16 takes the
+gate GEMM over the four masked h's and the block-diagonal weight
+(``_block_diagonal``), dh with gate-quad columns (``_pack_dh_gates``);
+f32 reads ``_rk4`` gate by gate.  Each wrapper counts its calls in
+``.calls`` and its kernel launches in ``.launches``.
 """
 
 from __future__ import annotations
@@ -56,15 +68,43 @@ def _same_pads(k: int) -> tuple[int, int]:
     return lo, k - 1 - lo
 
 
-def convlstm_fwd_reference(xconv, h0, c0, rec_kernel, bias):
-    """Plain PyTorch recurrence: ``(y, c_stack, h_n, c_n)``, the kernel's
-    oracle and the CPU path."""
+def _rconv(h, rec_kernel, cdt, rec_masks):
+    """The recurrent conv of ``h``, rounded to the compute dtype; with
+    ``rec_masks [4, B, H, W, f]`` each gate's conv reads its masked ``h``."""
+    if rec_masks is None:
+        return same_conv(h, rec_kernel, (1, 1), cdt, out_dtype=cdt).float()
+    f = h.shape[-1]
+    return torch.cat([
+        same_conv(h * m, rec_kernel[..., g * f : (g + 1) * f], (1, 1), cdt, out_dtype=cdt).float()
+        for g, m in enumerate(rec_masks)
+    ], dim=-1)
+
+
+def _gate_major(rec_masks):
+    """The masks ``[4, B, H, W, f]`` as the kernels read them, ``[B, H, W,
+    4f]`` float32 with gate g's at channel ``g*f + j``."""
+    g, b, h, w, f = rec_masks.shape
+    return rec_masks.permute(1, 2, 3, 0, 4).reshape(b, h, w, g * f).float().contiguous()
+
+
+def _masked_h(h, mask, cdt):
+    """``hm = cdt(h * mask_g)`` of every gate, gate-major ``[B, H, W, 4f]``."""
+    b, hh, ww, f = h.shape
+    return (h.unsqueeze(3) * mask.view(b, hh, ww, 4, f)).reshape(b, hh, ww, 4 * f).to(cdt)
+
+
+def _fwd_plain(xconv, h0, c0, rec_kernel, bias, rec_masks):
+    """``(y, c_stack, h_n, c_n, hm)``; ``hm`` is ``(hm0, hm stack)`` under
+    ``rec_masks`` (the module docstring), else None."""
     cdt = xconv.dtype
     f = h0.shape[-1]
     h, c = h0, c0
-    ys, cs = [], []
+    ys, cs, hms = [], [], []
+    mask = _gate_major(rec_masks) if rec_masks is not None else None
     for t in range(xconv.shape[1]):
-        rconv = same_conv(h, rec_kernel, (1, 1), cdt, out_dtype=cdt).float()
+        if mask is not None:
+            hms.append(_masked_h(h, mask, cdt))
+        rconv = _rconv(h, rec_kernel, cdt, rec_masks)
         z = (xconv[:, t].float() + bias) + rconv
         i = torch.sigmoid(z[..., :f])
         fg = torch.sigmoid(z[..., f : 2 * f])
@@ -72,13 +112,23 @@ def convlstm_fwd_reference(xconv, h0, c0, rec_kernel, bias):
         h = torch.sigmoid(z[..., 3 * f :]) * torch.tanh(c)
         ys.append(h.to(cdt))
         cs.append(c)
-    return torch.stack(ys, dim=1), torch.stack(cs, dim=1), h, c
+    hm = None
+    if mask is not None:  # the stack's slot t holds hm_t; its last slot is never read
+        hm = (hms[0], torch.stack(hms[1:] + hms[-1:], dim=1))
+    return torch.stack(ys, dim=1), torch.stack(cs, dim=1), h, c, hm
 
 
-def convlstm_scan_reference(xconv, h0, c0, rec_kernel, bias):
+def convlstm_fwd_reference(xconv, h0, c0, rec_kernel, bias, rec_masks=None):
+    """Plain PyTorch recurrence: ``(y, c_stack, h_n, c_n)``, the kernel's
+    oracle and the CPU path.  ``rec_masks`` applies Keras recurrent
+    dropout (``layers.ConvLSTM2D``) one gate's conv at a time."""
+    return _fwd_plain(xconv, h0, c0, rec_kernel, bias, rec_masks)[:4]
+
+
+def convlstm_scan_reference(xconv, h0, c0, rec_kernel, bias, rec_masks=None):
     """``(y, (h_n, c_n))`` of the plain recurrence; autograd differentiates
     it (the training step's recurrence under ``kernel_impl='scan'``)."""
-    y, _, h, c = convlstm_fwd_reference(xconv, h0, c0, rec_kernel, bias)
+    y, _, h, c = convlstm_fwd_reference(xconv, h0, c0, rec_kernel, bias, rec_masks)
     return y, (h, c)
 
 
@@ -90,28 +140,39 @@ def _shifted(hp, kh, kw):
     return [[padded[:, ky : ky + ho, kx : kx + wo] for kx in range(kw)] for ky in range(kh)]
 
 
-def convlstm_bwd_reference(xconv, h0, c0, rec_kernel, bias, y, c_stack, dy, dh_n, dc_n):
+def convlstm_bwd_reference(xconv, h0, c0, rec_kernel, bias, y, c_stack, dy, dh_n, dc_n,
+                           rec_masks=None, hm=None):
     """Plain port of ``_bwd_kernel``: ``(dx, dh0, dc0, drk, db)``.
 
     ``dy`` is in the compute dtype; the products of compute-dtype values
     are summed in f32 (the kernel's ``preferred_element_type``), and only
-    the recomputed recurrent conv is rounded to the compute dtype."""
+    the recomputed recurrent conv is rounded to the compute dtype.  With
+    ``rec_masks`` and the forward's ``hm``, the recurrence of the masked
+    h's, as one conv over the gate-major ``hm`` with the block-diagonal
+    weight."""
     cdt = xconv.dtype
     b, t_total, ho, wo, f4 = xconv.shape
     f = f4 // 4
     kh, kw = rec_kernel.shape[0], rec_kernel.shape[1]
+    masked = rec_masks is not None
+    if masked:
+        mask = _gate_major(rec_masks).view(b, ho, wo, 4, f)
+        rec_kernel = _block_diagonal(rec_kernel)
     rk = rec_kernel.to(cdt).float()
+    cin = rk.shape[2]
     dh, dc = dh_n.float(), dc_n.float()
     dx = torch.empty_like(xconv)
-    drk = torch.zeros(kh, kw, f, f4, dtype=torch.float32, device=xconv.device)
+    drk = torch.zeros(kh, kw, cin, f4, dtype=torch.float32, device=xconv.device)
     db = torch.zeros(f4, dtype=torch.float32, device=xconv.device)
     # dh_prev: correlate dz with the flipped kernel, pads (hi, lo) swapped
     w_t = torch.flip(rk, (0, 1)).permute(2, 3, 0, 1)  # [f, 4f, kh, kw]
     (lh, hh), (lw, hw) = _same_pads(kh), _same_pads(kw)
     for t in reversed(range(t_total)):
-        h_prev = h0 if t == 0 else y[:, t - 1].float()
         c_prev = c0 if t == 0 else c_stack[:, t - 1]
-        hp = h_prev.to(cdt)
+        if masked:
+            hp = hm[0] if t == 0 else hm[1][:, t - 1]
+        else:
+            hp = (h0 if t == 0 else y[:, t - 1]).to(cdt)
         rconv = same_conv(hp, rec_kernel, (1, 1), cdt, out_dtype=cdt).float()
         z = (xconv[:, t].float() + bias) + rconv
         i = torch.sigmoid(z[..., :f])
@@ -130,11 +191,15 @@ def convlstm_bwd_reference(xconv, h0, c0, rec_kernel, bias, y, c_stack, dy, dh_n
         dzc = dz.to(cdt).float()
         dzp = F.pad(dzc.permute(0, 3, 1, 2), (hw, lw, hh, lh))
         dh = F.conv2d(dzp, w_t).permute(0, 2, 3, 1)
+        if masked:
+            dh = (dh.reshape(b, ho, wo, 4, f) * mask).sum(3)
         hpf = hp.float()
         for ky, row in enumerate(_shifted(hpf, kh, kw)):
             for kx, sl in enumerate(row):
-                drk[ky, kx] += sl.reshape(-1, f).T @ dzc.reshape(-1, f4)
+                drk[ky, kx] += sl.reshape(-1, cin).T @ dzc.reshape(-1, f4)
         dc = dc * fg
+    if masked:  # gate g's columns from hm_g's rows: the diagonal blocks
+        drk = torch.cat([drk[:, :, g * f : (g + 1) * f, g * f : (g + 1) * f] for g in range(4)], -1)
     return dx, dh, dc, drk, db
 
 
@@ -183,18 +248,46 @@ def _rk4(rec_kernel, cdt):
     )
 
 
-def _pack_gates(rec_kernel, cdt):
-    """cdt(rk) as the tensor-core gate GEMM's B, [kh*kw*f, 16*ceil(f/4)]:
-    row (ky*kw + kx)*f + ci; gate g of channel j in column
-    16*(j//4) + 8*(g//2) + 2*(j%4) + g%2, so that one thread's
-    accumulators hold the four gates of a (pixel, j); zero columns for
-    the channels past f."""
-    kh, kw, f, f4 = rec_kernel.shape
+def _quad_columns(w):
+    """``[K, 4, f]`` (row, gate, channel) -> ``[K, 16*ceil(f/4)]`` with gate
+    g of channel j in column 16*(j//4) + 8*(g//2) + 2*(j%4) + g%2, so
+    that one thread's accumulators hold the four gates of a (pixel, j);
+    zero columns for the channels past f."""
+    k, _, f = w.shape
     jp = -(-f // 4) * 4
-    w = rec_kernel.detach().to(cdt).reshape(kh * kw * f, 4, f)
     w = F.pad(w, (0, jp - f))  # [K, g, j]
-    w = w.reshape(-1, 2, 2, jp // 4, 4).permute(0, 3, 1, 4, 2)  # [K, j//4, g//2, j%4, g%2]
-    return w.reshape(kh * kw * f, 4 * jp).contiguous()
+    w = w.reshape(k, 2, 2, jp // 4, 4).permute(0, 3, 1, 4, 2)  # [K, j//4, g//2, j%4, g%2]
+    return w.reshape(k, 4 * jp).contiguous()
+
+
+def _pack_gates(rec_kernel, cdt):
+    """cdt(rk) ``[kh, kw, cin, 4f]`` as the tensor-core gate GEMM's B,
+    ``[kh*kw*cin, 16*ceil(f/4)]``: row (ky*kw + kx)*cin + ci, columns by
+    ``_quad_columns``.  cin is f, or 4f for the block-diagonal weight."""
+    kh, kw, cin, f4 = rec_kernel.shape
+    return _quad_columns(rec_kernel.detach().to(cdt).reshape(kh * kw * cin, 4, f4 // 4))
+
+
+def _block_diagonal(rec_kernel):
+    """``[kh, kw, f, 4f]`` -> ``[kh, kw, 4f, 4f]``: input channel g*f + ci
+    (``hm_g``'s channel ci) feeds gate g's columns alone, so one conv over
+    the gate-major ``hm`` is the four gates' masked convs."""
+    kh, kw, f, f4 = rec_kernel.shape
+    out = rec_kernel.new_zeros(kh, kw, 4, f, 4, f)
+    for g in range(4):
+        out[:, :, g, :, g, :] = rec_kernel[..., g * f : (g + 1) * f]
+    return out.reshape(kh, kw, f4, f4)
+
+
+def _pack_dh_gates(rec_kernel, cdt):
+    """Under recurrent dropout, cdt(rk) as the tensor-core dh GEMM's B,
+    ``[kh*kw*4f, 16*ceil(f/4)]``: row (ky*kw + kx)*4f + n, column (g, ci)
+    in ``_quad_columns`` order holding rk[ky, kx, ci, n] where n is a
+    channel of gate g, else zero."""
+    kh, kw, f, f4 = rec_kernel.shape
+    return _quad_columns(
+        _block_diagonal(rec_kernel.detach().to(cdt)).permute(0, 1, 3, 2).reshape(kh * kw * f4, 4, f)
+    )
 
 
 def _pack_dh(rec_kernel, cdt):
@@ -205,14 +298,29 @@ def _pack_dh(rec_kernel, cdt):
     return F.pad(w, (0, -(-f // 8) * 8 - f)).contiguous()
 
 
-def _launch_fwd(xconv, h0, c0, rec_kernel, bias, with_c_stack):
+def _masks_for_kernels(rec_masks, b, ho, wo, f, dev):
+    """The masks gate-major, checked, or None."""
+    if rec_masks is None:
+        return None
+    _check("rec_masks", rec_masks, (4, b, ho, wo, f), torch.float32, dev)
+    return _gate_major(rec_masks)
+
+
+def _launch_fwd(xconv, h0, c0, rec_kernel, bias, with_c_stack, rec_masks):
     from .._build import load_library
 
     b, t, ho, wo, f, kh, kw = _geometry(xconv, h0, c0, rec_kernel, bias)
     cdt, dev = xconv.dtype, xconv.device
+    mask = _masks_for_kernels(rec_masks, b, ho, wo, f, dev)
     tc = cdt == torch.bfloat16  # tensor cores; they read h_{t-1} as y[t-1] or cdt(h0)
-    w = _pack_gates(rec_kernel, cdt) if tc else _rk4(rec_kernel, cdt)
-    h0c = h0.to(cdt) if tc else None
+    if tc:
+        w = _pack_gates(rec_kernel if mask is None else _block_diagonal(rec_kernel), cdt)
+    else:
+        w = _rk4(rec_kernel, cdt)
+    h0c = h0.to(cdt) if tc and mask is None else None
+    if mask is not None:  # every gate's conv reads hm_{t-1}, for both dtypes
+        hm0 = _masked_h(h0, mask, cdt)
+        hm = torch.empty(b, t, ho, wo, 4 * f, dtype=cdt, device=dev)
     lib = load_library()
     y = torch.empty(b, t, ho, wo, f, dtype=cdt, device=dev)
     cs = torch.empty(b, t, ho, wo, f, dtype=torch.float32, device=dev) if with_c_stack else None
@@ -227,7 +335,15 @@ def _launch_fwd(xconv, h0, c0, rec_kernel, bias, with_c_stack):
     convlstm_fwd.calls += 1
     for s in range(t):
         h_next, c_next = hbuf[s % 2], cbuf[s % 2]
-        if not tc:
+        hm_out = None
+        if mask is not None:
+            if s:
+                hp, hp_bstride = hm.data_ptr() + (s - 1) * hw * 4 * f * isz, 4 * y_bstride
+            else:
+                hp, hp_bstride = hm0.data_ptr(), hw * 4 * f
+            if s < t - 1:  # hm_{T-1} is read by no step
+                hm_out = hm.data_ptr() + s * hw * 4 * f * isz
+        elif not tc:
             hp, hp_bstride = None, 0
         elif s:
             hp, hp_bstride = y.data_ptr() + (s - 1) * hw * f * isz, y_bstride
@@ -241,24 +357,31 @@ def _launch_fwd(xconv, h0, c0, rec_kernel, bias, with_c_stack):
             h_next.data_ptr(), c_next.data_ptr(),
             y.data_ptr() + s * hw * f * isz, y_bstride,
             cs.data_ptr() + s * hw * f * 4 if cs is not None else None, y_bstride,
+            mask.data_ptr() if mask is not None else None, hm_out, 4 * y_bstride,
             b, ho, wo, f, kh, kw, stream,
         )
         _raise_on(lib, err, "convlstm_fwd")
         convlstm_fwd.launches += 1
         h_prev, c_prev = h_next, c_next
-    return y, cs, h_prev, c_prev
+    return y, cs, h_prev, c_prev, (hm0, hm) if mask is not None else None
 
 
-def convlstm_fwd(xconv, h0, c0, rec_kernel, bias, with_c_stack=False):
+def convlstm_fwd(xconv, h0, c0, rec_kernel, bias, with_c_stack=False, rec_masks=None):
     """``(y, c_stack or None, h_n, c_n)``: the plain version for CPU
-    tensors, the forward kernel (one launch a step) for CUDA tensors."""
-    devices = {x.device.type for x in (xconv, h0, c0, rec_kernel, bias)}
+    tensors, the forward kernel (one launch a step) for CUDA tensors.
+    With ``rec_masks`` (recurrent dropout) a fifth element, ``hm``, which
+    ``convlstm_bwd`` takes (module docstring)."""
+    args = (xconv, h0, c0, rec_kernel, bias)
+    devices = {x.device.type for x in args if x is not None}
+    devices |= {rec_masks.device.type} if rec_masks is not None else set()
     if devices == {"cpu"}:
-        y, cs, h, c = convlstm_fwd_reference(xconv, h0, c0, rec_kernel, bias)
-        return y, cs if with_c_stack else None, h, c
-    if devices == {"cuda"}:
-        return _launch_fwd(xconv, h0, c0, rec_kernel, bias, with_c_stack)
-    raise ValueError(f"convlstm: inputs on devices {sorted(devices)}")
+        y, cs, h, c, hm = _fwd_plain(*args, rec_masks)
+        out = y, cs if with_c_stack else None, h, c
+    elif devices == {"cuda"}:
+        *out, hm = _launch_fwd(*args, with_c_stack, rec_masks)
+    else:
+        raise ValueError(f"convlstm: inputs on devices {sorted(devices)}")
+    return (*out, hm) if rec_masks is not None else tuple(out)
 
 
 def _wgrad_splits(pixels, tiles):
@@ -269,16 +392,18 @@ def _wgrad_splits(pixels, tiles):
     return splits, -(-pixels // splits)
 
 
-def recurrent_wgrad(lib, y, h0c, dx, dbpart, kh, kw):
+def recurrent_wgrad(lib, y, h0c, dx, dbpart, kh, kw, masked=False):
     """``(drk [kh, kw, f, 4f], db [4f])`` by ``kccot_recurrent_wgrad``
     (two launches): ``y [B, T, H, W, f]`` and ``h0c`` give ``cdt(h_{t-1})``,
     ``dx [B, T, H, W, 4f]`` is ``cdt(dz)``, ``dbpart [rows, 4f]`` the f32
-    partial sums of dz.  Shared with the dense LSTM (H = W = kh = kw = 1)."""
-    b, t, ho, wo, f = y.shape
+    partial sums of dz.  ``masked``: y and h0c are the hm stack and hm0,
+    ``[B, *, H, W, 4f]`` (recurrent dropout)."""
+    b, t, ho, wo, f = dx.shape
+    f //= 4
     f4, m = 4 * f, kh * kw * f
     pixels = b * t * ho * wo
     code = _DTYPE_CODES[y.dtype]
-    splits, chunk = _wgrad_splits(pixels, lib.kccot_recurrent_wgrad_tiles(code, m, f))
+    splits, chunk = _wgrad_splits(pixels, lib.kccot_recurrent_wgrad_tiles(code, m, f, int(masked)))
     dev = y.device
     part = torch.empty(splits, m, f4, dtype=torch.float32, device=dev)
     drk = torch.empty(kh, kw, f, f4, dtype=torch.float32, device=dev)
@@ -286,13 +411,13 @@ def recurrent_wgrad(lib, y, h0c, dx, dbpart, kh, kw):
     err = lib.kccot_recurrent_wgrad(
         code, y.data_ptr(), h0c.data_ptr(), dx.data_ptr(), part.data_ptr(),
         splits, chunk, dbpart.data_ptr(), dbpart.shape[0], drk.data_ptr(), db.data_ptr(),
-        b, t, ho, wo, f, kh, kw, torch.cuda.current_stream(dev).cuda_stream,
+        b, t, ho, wo, f, kh, kw, int(masked), torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(lib, err, "recurrent_wgrad")
     return drk, db
 
 
-def _launch_bwd(xconv, h0, c0, rec_kernel, bias, y, c_stack, dy, dh_n, dc_n):
+def _launch_bwd(xconv, h0, c0, rec_kernel, bias, y, c_stack, dy, dh_n, dc_n, rec_masks, hm):
     from .._build import load_library
 
     b, t, ho, wo, f, kh, kw = _geometry(xconv, h0, c0, rec_kernel, bias)
@@ -302,7 +427,15 @@ def _launch_bwd(xconv, h0, c0, rec_kernel, bias, y, c_stack, dy, dh_n, dc_n):
     _check("dh_n", dh_n, (b, ho, wo, f), torch.float32, dev)
     _check("dc_n", dc_n, (b, ho, wo, f), torch.float32, dev)
     f4 = 4 * f
-    if cdt == torch.bfloat16:  # tensor cores
+    mask = _masks_for_kernels(rec_masks, b, ho, wo, f, dev)
+    if mask is not None:
+        if hm is None:
+            raise ValueError("convlstm: recurrent dropout's backward needs the forward's hm")
+        _check("hm0", hm[0], (b, ho, wo, f4), cdt, dev)
+        _check("hm", hm[1], (b, t, ho, wo, f4), cdt, dev)
+    if cdt == torch.bfloat16 and mask is not None:  # tensor cores, masked
+        w, wT = _pack_gates(_block_diagonal(rec_kernel), cdt), _pack_dh_gates(rec_kernel, cdt)
+    elif cdt == torch.bfloat16:  # tensor cores
         w, wT = _pack_gates(rec_kernel, cdt), _pack_dh(rec_kernel, cdt)
     else:
         w = _rk4(rec_kernel, cdt)
@@ -321,39 +454,45 @@ def _launch_bwd(xconv, h0, c0, rec_kernel, bias, y, c_stack, dy, dh_n, dc_n):
     isz, hw = xconv.element_size(), ho * wo
     x_bs, y_bs = t * hw * f4, t * hw * f
     convlstm_bwd.calls += 1
+    # hm_{t-1} (masked) or cdt(h_{t-1}): the stack at t-1, or its t = 0 frame
+    h_stack, h_first, c_in = (hm[1], hm[0], f4) if mask is not None else (y, h0c, f)
     for s in reversed(range(t)):
         if s:
-            hp, hp_bs = y.data_ptr() + (s - 1) * hw * f * isz, y_bs
+            hp, hp_bs = h_stack.data_ptr() + (s - 1) * hw * c_in * isz, t * hw * c_in
             cp, cp_bs = c_stack.data_ptr() + (s - 1) * hw * f * 4, y_bs
         else:
-            hp, hp_bs, cp, cp_bs = h0c.data_ptr(), hw * f, c0.data_ptr(), hw * f
+            hp, hp_bs, cp, cp_bs = h_first.data_ptr(), hw * c_in, c0.data_ptr(), hw * f
         dx_t = dx.data_ptr() + s * hw * f4 * isz
         err = lib.kccot_convlstm_bwd_step(
             code, xconv.data_ptr() + s * hw * f4 * isz, x_bs, hp, hp_bs, cp, cp_bs,
             w.data_ptr(), bias.data_ptr(), dy.data_ptr() + s * hw * f * isz, y_bs,
-            dh.data_ptr(), dc.data_ptr(), dx_t, x_bs, dbpart.data_ptr(),
+            dh.data_ptr(), dc.data_ptr(), dx_t, x_bs, dbpart.data_ptr(), int(mask is not None),
             b, ho, wo, f, kh, kw, stream,
         )
         _raise_on(lib, err, "convlstm_bwd step")
         err = lib.kccot_convlstm_bwd_dh(
-            code, dx_t, x_bs, wT.data_ptr(), dh.data_ptr(), b, ho, wo, f, kh, kw, stream
+            code, dx_t, x_bs, wT.data_ptr(), mask.data_ptr() if mask is not None else None,
+            dh.data_ptr(), b, ho, wo, f, kh, kw, stream,
         )
         _raise_on(lib, err, "convlstm_bwd dh")
         convlstm_bwd.launches += 2
-    drk, db = recurrent_wgrad(lib, y, h0c, dx, dbpart, kh, kw)
+    drk, db = recurrent_wgrad(lib, h_stack, h_first, dx, dbpart, kh, kw, mask is not None)
     convlstm_bwd.launches += 2
     return dx, dh, dc, drk, db
 
 
-def convlstm_bwd(xconv, h0, c0, rec_kernel, bias, y, c_stack, dy, dh_n, dc_n):
+def convlstm_bwd(xconv, h0, c0, rec_kernel, bias, y, c_stack, dy, dh_n, dc_n, rec_masks=None,
+                 hm=None):
     """``(dx, dh0, dc0, drk, db)`` of the recurrence: the plain version for
-    CPU tensors, the backward kernels for CUDA tensors."""
+    CPU tensors, the backward kernels for CUDA tensors.  ``rec_masks`` and
+    the forward's ``hm``: recurrent dropout."""
     args = (xconv, h0, c0, rec_kernel, bias, y, c_stack, dy, dh_n, dc_n)
     devices = {x.device.type for x in args}
+    devices |= {rec_masks.device.type} if rec_masks is not None else set()
     if devices == {"cpu"}:
-        return convlstm_bwd_reference(*args)
+        return convlstm_bwd_reference(*args, rec_masks, hm)
     if devices == {"cuda"}:
-        return _launch_bwd(*args)
+        return _launch_bwd(*args, rec_masks, hm)
     raise ValueError(f"convlstm: inputs on devices {sorted(devices)}")
 
 
@@ -363,33 +502,39 @@ for _fn in (convlstm_fwd, convlstm_bwd):
 
 class ConvLstmScan(torch.autograd.Function):
     """The recurrence under autograd: saves ``(xconv, h0, c0, rec_kernel,
-    bias, y, c_stack)`` as ``_vjp_fwd`` does; unused ``(h_n, c_n)`` count
-    as zero cotangents."""
+    bias, y, c_stack)`` as ``_vjp_fwd`` does, and under recurrent dropout
+    the masks and ``hm``; unused ``(h_n, c_n)`` count as zero cotangents.
+    The masks are constants (no gradient)."""
 
     @staticmethod
-    def forward(ctx, xconv, h0, c0, rec_kernel, bias):
-        y, cs, h, c = convlstm_fwd(xconv, h0, c0, rec_kernel, bias, with_c_stack=True)
-        ctx.save_for_backward(xconv, h0, c0, rec_kernel, bias, y, cs)
+    def forward(ctx, xconv, h0, c0, rec_kernel, bias, rec_masks=None):
+        y, cs, h, c, *hm = convlstm_fwd(
+            xconv, h0, c0, rec_kernel, bias, with_c_stack=True, rec_masks=rec_masks
+        )
+        hm = hm[0] if hm else (None, None)
+        ctx.save_for_backward(xconv, h0, c0, rec_kernel, bias, y, cs, rec_masks, *hm)
         return y, h, c
 
     @staticmethod
     def backward(ctx, dy, dh_n, dc_n):
-        xconv, h0, c0, rec_kernel, bias, y, cs = ctx.saved_tensors
+        xconv, h0, c0, rec_kernel, bias, y, cs, rec_masks, hm0, hm = ctx.saved_tensors
         dx, dh0, dc0, drk, db = convlstm_bwd(
             xconv, h0, c0, rec_kernel, bias, y, cs,
             dy.to(xconv.dtype).contiguous(), dh_n.float().contiguous(), dc_n.float().contiguous(),
+            rec_masks, (hm0, hm) if rec_masks is not None else None,
         )
-        return dx, dh0, dc0, drk.to(rec_kernel.dtype), db.to(bias.dtype)
+        return dx, dh0, dc0, drk.to(rec_kernel.dtype), db.to(bias.dtype), None
 
 
-def convlstm_scan(xconv, h0, c0, rec_kernel, bias):
+def convlstm_scan(xconv, h0, c0, rec_kernel, bias, rec_masks=None):
     """The fused ConvLSTM recurrence (contract in the module docstring):
     ``ConvLstmScan`` when autograd needs a gradient, else the forward
     alone.  CPU tensors take the plain versions, CUDA tensors the kernels;
-    anything the kernels do not take raises."""
+    anything the kernels do not take raises.  ``rec_masks [4, B, H', W',
+    f]``: Keras recurrent dropout, one mask a gate."""
     args = (xconv, h0, c0, rec_kernel, bias)
     if torch.is_grad_enabled() and any(x.requires_grad for x in args):
-        y, h, c = ConvLstmScan.apply(*args)
+        y, h, c = ConvLstmScan.apply(*args, rec_masks)
         return y, (h, c)
-    y, _, h, c = convlstm_fwd(*args)
+    y, _, h, c, *_ = convlstm_fwd(*args, rec_masks=rec_masks)
     return y, (h, c)

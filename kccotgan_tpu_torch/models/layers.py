@@ -12,8 +12,12 @@ layers do under ``kernel_impl``: the fused recurrence (``convlstm_scan``,
 ``lstm_scan``: the Hopper kernels for CUDA tensors, under autograd
 through their backward kernels) unless ``plain`` is set, which runs the
 plain loop under autograd (the ``'scan'`` engine, and the kernels'
-reference).  The other layers are plain PyTorch.  Dropout and sequence
-parallelism raise instead of being ignored.
+reference).  Keras dropout (``ConvLSTM2D``'s ``dropout`` and
+``recurrent_dropout``, masks only in training) stays on the chosen
+engine: the input masks change only the hoisted input conv, and the
+recurrence takes the recurrent masks (the kernels' masked mode).  The
+other layers are plain PyTorch.  Sequence parallelism raises instead
+of being ignored.
 """
 
 from __future__ import annotations
@@ -28,7 +32,10 @@ from .conv import same_conv
 from .cuda_convlstm import convlstm_scan, convlstm_scan_reference
 from .cuda_lstm import lstm_scan, lstm_scan_reference
 
-__all__ = ["LSTM", "BatchNorm", "Conv2D", "ConvLSTM2D", "ConvTranspose2D", "LayerNorm", "leaky_relu"]
+__all__ = [
+    "LSTM", "BatchNorm", "Conv2D", "ConvLSTM2D", "ConvTranspose2D", "LayerNorm", "bernoulli_source",
+    "leaky_relu",
+]
 
 _ACTIVATIONS = {"tanh": torch.tanh, "sigmoid": torch.sigmoid}
 
@@ -62,6 +69,16 @@ class LayerNorm(nn.Module):
         return (x - mu) * (torch.rsqrt(var + self.eps) * self.scale) + self.bias
 
 
+def bernoulli_source(generator: torch.Generator):
+    """A mask source, ``draw(keep_prob, shape) -> 0/1 float32 tensor``,
+    drawing every mask from ``generator`` on its device."""
+
+    def draw(keep_prob: float, shape):
+        return torch.empty(shape, device=generator.device).bernoulli_(keep_prob, generator=generator)
+
+    return draw
+
+
 def _glorot_uniform_(w, fan_in: int, fan_out: int, generator):
     limit = math.sqrt(6.0 / (fan_in + fan_out))
     with torch.no_grad():
@@ -80,6 +97,16 @@ class ConvLSTM2D(nn.Module):
     on the CPU.  ``plain=True`` runs the plain loop on any device, which
     autograd differentiates: the kernels' reference on the card, and the
     training step's recurrence under ``kernel_impl='scan'``.
+
+    Keras dropout, with ``training=True`` and a mask source ``masks``
+    (``bernoulli_source``): four input masks ``[B, H, W, C]`` and four
+    recurrent masks ``[B, H', W', f]``, one a gate, each ``bernoulli(1 -
+    p) / (1 - p)`` and shared across time, drawn in that order.  Gate g's
+    input conv reads ``x * in_mask[g]`` and its recurrent conv ``h_{t-1}
+    * rec_mask[g]``.  The engine stays the one ``plain`` chose: the masked
+    input convs form the recurrence's ``xconv``, and the recurrent masks
+    go to ``convlstm_scan``, whose kernels take them (where the JAX layer
+    under ``'pallas'`` runs ``lax.scan`` instead).
     """
 
     def __init__(
@@ -94,18 +121,18 @@ class ConvLSTM2D(nn.Module):
         recurrent_dropout: float = 0.0,
         seq_axis: str | None = None,
         plain: bool = False,
+        name: str | None = None,
     ):
         super().__init__()
         self.plain = plain
-        if dropout > 0.0 or recurrent_dropout > 0.0:
-            raise NotImplementedError(
-                "ConvLSTM2D: dropout and recurrent_dropout are not ported"
-            )
         if seq_axis is not None:
             raise NotImplementedError("ConvLSTM2D: seq_axis is not ported")
         kh, kw = kernel_size
         self.filters = filters
         self.strides = tuple(strides)
+        self.dropout = dropout
+        self.recurrent_dropout = recurrent_dropout
+        self.name = name
         self.cdt = _torch_dtype(compute_dtype)
         self.kernel = nn.Parameter(torch.empty(kh, kw, in_channels, 4 * filters))
         self.recurrent_kernel = nn.Parameter(torch.empty(kh, kw, filters, 4 * filters))
@@ -125,15 +152,37 @@ class ConvLSTM2D(nn.Module):
                 self.bias.zero_()
                 self.bias[self.filters : 2 * self.filters] = 1.0
 
-    def forward(self, x_seq, initial_state=None):
+    def forward(self, x_seq, initial_state=None, training=False, masks=None):
         b, t, h, w, c = x_seq.shape
         f = self.filters
-        xconv = same_conv(
-            x_seq.reshape(b * t, h, w, c), self.kernel, self.strides,
-            self.cdt, out_dtype=self.cdt,
-        )
+        in_p = self.dropout if training else 0.0
+        rec_p = self.recurrent_dropout if training else 0.0
+        if (in_p > 0.0 or rec_p > 0.0) and masks is None:
+            raise ValueError(
+                f"ConvLSTM2D {self.name or '<unnamed>'}: dropout in training needs a mask source"
+            )
+        if in_p > 0.0:
+            keep = 1.0 - in_p
+            in_masks = [masks(keep, (b, h, w, c)) / keep for _ in range(4)]
+            # One conv a gate over its masked input.  Rounded once to the
+            # compute dtype, as the JAX layer's f32-typed result holds.
+            xconv = torch.cat([
+                same_conv(
+                    (x_seq * m[:, None]).reshape(b * t, h, w, c), self.kernel[..., g * f : (g + 1) * f],
+                    self.strides, self.cdt, out_dtype=self.cdt,
+                )
+                for g, m in enumerate(in_masks)
+            ], dim=-1)
+        else:
+            xconv = same_conv(
+                x_seq.reshape(b * t, h, w, c), self.kernel, self.strides, self.cdt, out_dtype=self.cdt
+            )
         ho, wo = xconv.shape[1], xconv.shape[2]
         xconv = xconv.reshape(b, t, ho, wo, 4 * f)
+        rec_masks = None
+        if rec_p > 0.0:
+            keep = 1.0 - rec_p
+            rec_masks = torch.stack([masks(keep, (b, ho, wo, f)) / keep for _ in range(4)])
         if initial_state is None:
             h0 = x_seq.new_zeros(b, ho, wo, f, dtype=torch.float32)
             c0 = torch.zeros_like(h0)
@@ -143,7 +192,7 @@ class ConvLSTM2D(nn.Module):
             4 * f, dtype=torch.float32
         )
         scan = convlstm_scan_reference if self.plain else convlstm_scan
-        y, state = scan(xconv, h0, c0, self.recurrent_kernel, bias)
+        y, state = scan(xconv, h0, c0, self.recurrent_kernel, bias, rec_masks)
         return y.float(), state
 
 

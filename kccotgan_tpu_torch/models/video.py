@@ -56,19 +56,21 @@ class VideoEncoder(nn.Module):
             self.add_module(f"encoder{i + 1}", ConvLSTM2D(
                 c_in, filters, (k, k), strides=(2, 2), use_bias=False,
                 compute_dtype=compute_dtype, dropout=dropout,
-                recurrent_dropout=rnn_dropout, plain=plain,
+                recurrent_dropout=rnn_dropout, plain=plain, name=f"encoder{i + 1}",
             ))
             if use_norm:
                 self.add_module(f"norm{i + 1}", LayerNorm(filters, _LN_EPS))
             c_in = filters
 
-    def forward(self, video, carry=None, return_carry=False, slice_time=True):
+    def forward(self, video, carry=None, return_carry=False, slice_time=True, training=False, masks=None):
         """Encode ``video [B, H, T, W, C]``.
 
         Returns the 5-level pyramid (raw input and the four ConvLSTM
         outputs), each sliced to ``[:, Tc-1:]`` unless ``slice_time`` is
         False.  ``carry`` / ``return_carry`` thread the four ``(h, c)``
         states so a rollout extends the encoding one frame at a time.
+        ``training`` turns the ConvLSTMs' dropout on, drawn from the mask
+        source ``masks`` layer by layer in forward order.
         """
         x = video.permute(0, 2, 1, 3, 4)  # -> [B, T, H, W, C]
         tc = self.int_time_steps if slice_time else 1
@@ -77,7 +79,7 @@ class VideoEncoder(nn.Module):
         new_carry = []
         for i in range(4):
             h, state = getattr(self, f"encoder{i + 1}")(
-                h, initial_state=None if carry is None else carry[i]
+                h, initial_state=None if carry is None else carry[i], training=training, masks=masks
             )
             new_carry.append(state)
             if self.use_norm:
@@ -100,11 +102,13 @@ def _decoder_geometry(x_height: int, x_width: int):
 class VideoDecoder(nn.Module):
     """U-Net ConvLSTM decoder.
 
-    ``forward(pyramid, z, training=False)`` takes the encoder's 5-level
-    pyramid and noise ``z [B, T_z, h4, w4, z_channels]`` and returns frames
-    ``[B, H, T_z, W, C]``.  Training (teacher forcing) consumes the skip
-    frames ``[:, :-1]``, so ``T_z`` is the pyramid's time minus one;
-    inference consumes the last frame's features only, with ``T_z = 1``.
+    ``forward(pyramid, z, training=False, masks=None)`` takes the encoder's
+    5-level pyramid and noise ``z [B, T_z, h4, w4, z_channels]`` and
+    returns frames ``[B, H, T_z, W, C]``.  Training (teacher forcing)
+    consumes the skip frames ``[:, :-1]``, so ``T_z`` is the pyramid's
+    time minus one, and turns the ConvLSTMs' dropout on, drawn from the
+    mask source ``masks``; inference consumes the last frame's features
+    only, with ``T_z = 1``.
     """
 
     def __init__(
@@ -127,10 +131,10 @@ class VideoDecoder(nn.Module):
         self.x_height, self.x_width, self.nchannel = x_height, x_width, nchannel
         self.use_norm = use_norm
 
-        def convlstm(c_in, filters, k, bias):
+        def convlstm(c_in, filters, k, bias, name):
             return ConvLSTM2D(
                 c_in, filters, k, use_bias=bias, compute_dtype=compute_dtype,
-                dropout=dropout, recurrent_dropout=rnn_dropout, plain=plain,
+                dropout=dropout, recurrent_dropout=rnn_dropout, plain=plain, name=name,
             )
 
         def conv_t(c_in, filters, k, s, act="tanh"):
@@ -152,19 +156,19 @@ class VideoDecoder(nn.Module):
         ]
         c = f * 32
         for _, skip_c, (cf, ck, cb), (tf_, tk, ts), dec_name, ct_name in self.stages:
-            self.add_module(dec_name, convlstm(skip_c + c, cf, ck, cb))
+            self.add_module(dec_name, convlstm(skip_c + c, cf, ck, cb, dec_name))
             norm(dec_name + "_norm", cf)
             self.add_module(ct_name, conv_t(cf, tf_, tk, ts))
             norm(ct_name + "_norm", tf_)
             c = tf_
-        self.decoder5 = convlstm(nchannel + c, f, (8, 8), True)
+        self.decoder5 = convlstm(nchannel + c, f, (8, 8), True, "decoder5")
         norm("decoder5_norm", f)
         self.conv_transpose5 = conv_t(f, nchannel, (8, 8), (1, 1), output_activation)
 
     def _norm(self, h, name):
         return getattr(self, name)(h) if self.use_norm else h
 
-    def forward(self, pyramid, z, training=False):
+    def forward(self, pyramid, z, training=False, masks=None):
         b, t = z.shape[0], z.shape[1]
 
         def skip(level):
@@ -180,12 +184,12 @@ class VideoDecoder(nn.Module):
         h = self._norm(h, "conv_norm1")
         for level, _, _, _, dec_name, ct_name in self.stages:
             h = torch.cat([skip(level), unfold(h)], dim=-1)
-            h, _ = getattr(self, dec_name)(h)
+            h, _ = getattr(self, dec_name)(h, training=training, masks=masks)
             h = self._norm(h, dec_name + "_norm")
             h = getattr(self, ct_name)(fold(h))
             h = self._norm(h, ct_name + "_norm")
         h = torch.cat([skip(0), unfold(h)], dim=-1)
-        h, _ = self.decoder5(h)
+        h, _ = self.decoder5(h, training=training, masks=masks)
         h = self._norm(h, "decoder5_norm")
         y = self.conv_transpose5(fold(h))
         y = y.reshape(b, t, self.x_height, self.x_width, self.nchannel)

@@ -32,9 +32,11 @@ __all__ = ["Trainer"]
 
 
 class _Pending:
-    """A step's loss and pM on their way to the host."""
+    """A step's loss and pM on their way to the host, beside its sigma
+    (a host value)."""
 
     def __init__(self, metrics: dict):
+        self._sigma = float(metrics["sigma"])
         vals = torch.stack([metrics["sinkhorn_loss"].float(), metrics["pm"].float()])
         self._event = None
         if vals.device.type == "cpu":
@@ -49,7 +51,7 @@ class _Pending:
         if self._event is not None:
             self._event.synchronize()
         loss, pm = self._host.tolist()
-        return {"sinkhorn_loss": loss, "pm": pm}
+        return {"sinkhorn_loss": loss, "pm": pm, "sigma": self._sigma}
 
 
 class Trainer:
@@ -96,8 +98,9 @@ class Trainer:
         """Train on ``batches`` (film-strips ``[B, H, T, W, C]``; a batch
         of another size is skipped) until they run out or ``max_steps``.
         Returns the last state and the summary: ``status`` ("completed" or
-        "failed"), ``steps``, ``wall_time_sec``, ``recoveries`` and the
-        three rates."""
+        "failed"), ``steps``, ``wall_time_sec``, ``recoveries``, the
+        smoothing ``kernel`` and the last step's ``sigma``, and the three
+        rates.  Each step's loss, pM and sigma are logged."""
         cfg = self.cfg
         if state is None:
             state = self.init_state()
@@ -119,6 +122,7 @@ class Trainer:
         step = int(state.step)
         retries_left = cfg.nan_recovery_retries
         recoveries = 0
+        sigma = None
 
         def note(text: str) -> None:
             with open(notes, "a") as f:
@@ -127,6 +131,7 @@ class Trainer:
         def log(vals: dict, at: int) -> None:
             self.logger.scalar("Sinkhorn Loss", vals["sinkhorn_loss"], at)
             self.logger.scalar("pM", vals["pm"], at)
+            self.logger.scalar("sigma", vals["sigma"], at)
 
         try:
             if retries_left > 0:
@@ -175,6 +180,7 @@ class Trainer:
                             )
                             continue
                     pending = _Pending(metrics)
+                    sigma = float(metrics["sigma"])
 
                     # A checkpoint only of a step whose own loss is finite, so
                     # that a divergence at this very step cannot become the
@@ -199,6 +205,8 @@ class Trainer:
                 "steps": step,
                 "wall_time_sec": time.time() - t_start,
                 "recoveries": recoveries,
+                "kernel": cfg.kernel,
+                "sigma": sigma,
                 **rates,
             }
             for k, v in rates.items():

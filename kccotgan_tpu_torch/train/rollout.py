@@ -3,7 +3,8 @@
 Counterpart of ``kccotgan_tpu/train/rollout.py``: the encoder runs over
 the context once and keeps its ConvLSTM carries; each predicted frame is
 decoded from the last frame's features and noise, then encoded onto the
-carries, so the rollout does O(T) encoder work.
+carries, so the rollout does O(T) encoder work.  Both run with
+``training=False``, so a model trained with dropout samples without it.
 """
 
 from __future__ import annotations
@@ -49,7 +50,7 @@ def build_rollout(cfg, *, device="cuda", plain=False) -> Callable:
 
         def encode(video, **kw):
             return functional_call(
-                encoder, enc_p, (video,), dict(return_carry=True, **kw), strict=True
+                encoder, enc_p, (video,), dict(return_carry=True, training=False, **kw), strict=True
             )
 
         pyramid, carry = encode(context)
@@ -60,7 +61,7 @@ def build_rollout(cfg, *, device="cuda", plain=False) -> Callable:
             zs = z[s] if z is not None else torch.randn(
                 z_shape, generator=generator, device=device
             )
-            frame = functional_call(decoder, dec_p, (feats, zs), strict=True)
+            frame = functional_call(decoder, dec_p, (feats, zs), {"training": False}, strict=True)
             pyramid, carry = encode(frame, carry=carry, slice_time=False)
             feats = [p[:, -1:] for p in pyramid]
             frames.append(frame)

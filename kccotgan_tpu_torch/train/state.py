@@ -7,8 +7,11 @@ statistics are dicts of ``state_dict`` keys (the flax paths joined by
 dots) to tensors.  ``rng`` is a 63-bit integer key, split like a JAX key
 (``split_key``, ``fold_in``): a step draws its noise from a fresh
 ``torch.Generator`` seeded from one half and carries the other on, so a
-draw depends on the key alone and a resumed run replays its noise.  The
-two packages' random streams differ, so the port's keys are its own.
+draw depends on the key alone and a resumed run replays its noise.  With
+dropout on, a step takes a further split for its masks (``dropout_keys``),
+so the dropout-free key sequence is the same with or without it in the
+code.  The two packages' random streams differ, so the port's keys are
+its own.
 """
 
 from __future__ import annotations
@@ -21,7 +24,10 @@ from ..weights import init_discriminator_params, init_generator_params
 from .keras_adam import KerasAdam, KerasAdamState
 from .schedule import warmup_staircase_exponential_decay
 
-__all__ = ["TrainState", "create_train_state", "fold_in", "key_from_seed", "make_optimizers", "split_key"]
+__all__ = [
+    "TrainState", "create_train_state", "dropout_keys", "fold_in", "key_from_seed", "make_optimizers",
+    "split_key",
+]
 
 _M64 = (1 << 64) - 1
 _KEY_BITS = (1 << 63) - 1  # a key fits an int64 and any torch.Generator seed
@@ -48,6 +54,15 @@ def split_key(key: int) -> tuple[int, int]:
 def fold_in(key: int, data: int) -> int:
     """A new key from ``key`` and an integer, as ``jax.random.fold_in``."""
     return _mix(key ^ _mix(data & _M64)) & _KEY_BITS
+
+
+def dropout_keys(key: int) -> tuple[int, tuple[int, int], tuple[int, int]]:
+    """``(next key, disc phase's seeds, gen phase's seeds)``: the split a
+    step takes for its dropout masks, each phase's pair seeding its
+    encoder's masks and its decoder's."""
+    key, d = split_key(key)
+    d_disc, d_gen = split_key(d)
+    return key, split_key(d_disc), split_key(d_gen)
 
 
 @dataclass

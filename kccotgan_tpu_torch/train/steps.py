@@ -1,21 +1,30 @@
 """GAN training step of the PyTorch port: discriminator phase, then
 generator phase.
 
-Counterpart of ``kccotgan_tpu/train/steps.py`` under its usual
-configuration (``kernel='none'``, no dropout, sequential discriminators):
+Counterpart of ``kccotgan_tpu/train/steps.py`` with sequential
+discriminators:
 
-* the context is encoded once (``share_context_encoding``): the
-  discriminator phase reads the pyramid detached, and the generator phase
-  backpropagates through the same pyramid into the encoder, which is the
-  port's form of the JAX step's ``jax.vjp``;
+* the context is encoded once (``share_context_encoding``, off with
+  dropout): the discriminator phase reads the pyramid detached, and the
+  generator phase backpropagates through the same pyramid into the
+  encoder, which is the port's form of the JAX step's ``jax.vjp``; the
+  real video is then smoothed once a step too.  Otherwise each phase
+  encodes the context, under its own dropout masks, and smooths the real
+  video itself;
 * discriminator phase: noise z1, the decoder in teacher forcing (no graph:
-  none of its inputs needs a gradient), the four discriminator passes
-  h(fake), h(real), m(real), m(fake) with the BatchNorm statistics chained
-  in that order, the mixed Sinkhorn divergence and pM on ``m_real``;
-  ``-loss + pM`` is minimized over h and m by two Keras-exact Adams;
+  none of its inputs needs a gradient), Gaussian smoothing of the real
+  and the fake video (``cfg.kernel``, at ``sigma``), the four
+  discriminator passes h(fake), h(real), m(real), m(fake) with the
+  BatchNorm statistics chained in that order, the mixed Sinkhorn
+  divergence of the smoothed videos and pM on ``m_real``; ``-loss + pM``
+  is minimized over h and m by two Keras-exact Adams;
 * generator phase: new noise z2 against the updated discriminators,
   starting from the statistics the discriminator phase left; ``loss`` is
   minimized over the encoder and the decoder.
+
+``sigma`` is ``cfg.init_sigma``, or under ``cfg.decaying_sigma``
+``annealing_sigma(init_sigma, step + 1)``, computed on the host from the
+integer step.
 
 Recurrence engine, ``cfg.kernel_impl``: under ``'scan'`` (and ``'auto'``)
 every ConvLSTM and LSTM recurrence runs its plain loop under autograd,
@@ -25,22 +34,29 @@ layout (``time_major=False, conv_packing='off'``): on the card the
 ConvLSTM and LSTM forward kernels, and their backward kernels wherever
 autograd needs a gradient.  The discriminator phase's decoder needs none
 (its parameters, pyramid and noise carry no gradient), so it runs the
-forward kernel alone.  The Sinkhorn solves go through the fused kernels
-(``ot/cuda_sinkhorn.py``: one forward and one backward launch a phase)
-unless ``cfg.sinkhorn_solver`` is ``'scan'``.
+forward kernel alone.  Dropout keeps each engine: under ``'pallas'`` the
+ConvLSTM kernels take the recurrent masks (their masked mode) and the
+input masks change only the hoisted input convs (``models/layers.py``),
+where JAX's ``'pallas'`` sends such a layer to ``lax.scan``.  The
+Sinkhorn solves go through the fused kernels (``ot/cuda_sinkhorn.py``:
+one forward and one backward launch a phase) unless
+``cfg.sinkhorn_solver`` is ``'scan'``.
 """
 
 from __future__ import annotations
 
 from typing import Callable
 
+import numpy as np
 import torch
 from torch.func import functional_call
 
 from ..config import check_trainable
+from ..models.layers import bernoulli_source
 from ..models.video import discriminator_modules, generator_modules
 from ..ot import compute_sinkhorn_loss, martingale_regularization
-from .state import TrainState, make_optimizers, split_key
+from ..smoothing import annealing_sigma, apply_smoothing
+from .state import TrainState, dropout_keys, make_optimizers, split_key
 
 __all__ = ["build_train_step", "gan_forward"]
 
@@ -56,21 +72,39 @@ class GanModules:
             self.disc_h, self.disc_m = discriminator_modules(cfg)
 
 
-def gan_forward(mods, cfg, dec_params, h_params, m_params, h_stats, m_stats, real_data, z,
-                pyramid):
-    """Decode (teacher forcing) from ``pyramid``, discriminate, and return
-    ``(loss, pm, h_stats, m_stats)``: the mixed Sinkhorn divergence, pM
-    on ``m_real`` and the chained BatchNorm statistics."""
-    fake_pred = functional_call(mods.decoder, dec_params, (pyramid, z), {"training": True})
+def _smooth(cfg, video, sigma):
+    return apply_smoothing(
+        video, sigma, cfg.kernel,
+        temporal_kernel=cfg.temporal_kernel_size, spatial_kernel=cfg.spatial_kernel_size,
+    )
+
+
+def gan_forward(mods, cfg, enc_params, dec_params, h_params, m_params, h_stats, m_stats, real_data, z,
+                sigma, masks=None, pyramid=None, real_smoothed=None):
+    """One full forward pass: encode, decode (teacher forcing), smooth,
+    discriminate.  Returns ``(loss, pm, h_stats, m_stats)``: the mixed
+    Sinkhorn divergence of the smoothed videos, pM on ``m_real`` and the
+    chained BatchNorm statistics.
+
+    ``masks = (encoder's, decoder's)`` mask sources for the ConvLSTMs'
+    dropout, needed when the config has dropout.  ``pyramid`` supplies
+    the context encoding (``enc_params`` is then unused), and
+    ``real_smoothed`` the smoothed real video, both computed once a step
+    when the encoding is shared."""
+    enc_masks, dec_masks = masks if masks is not None else (None, None)
+    if pyramid is None:
+        pyramid = functional_call(mods.encoder, enc_params, (real_data,), {"training": True, "masks": enc_masks})
+    fake_pred = functional_call(mods.decoder, dec_params, (pyramid, z), {"training": True, "masks": dec_masks})
     fake = torch.cat([real_data[:, :, : cfg.int_time_steps], fake_pred], dim=2)
-    real = real_data  # kernel='none': no smoothing
-    h_fake, h_stats = functional_call(mods.disc_h, h_params, (fake, h_stats))
-    h_real, h_stats = functional_call(mods.disc_h, h_params, (real, h_stats))
-    m_real, m_stats = functional_call(mods.disc_m, m_params, (real, m_stats))
-    m_fake, m_stats = functional_call(mods.disc_m, m_params, (fake, m_stats))
+    real_s = real_smoothed if real_smoothed is not None else _smooth(cfg, real_data, sigma)
+    fake_s = _smooth(cfg, fake, sigma)
+    h_fake, h_stats = functional_call(mods.disc_h, h_params, (fake_s, h_stats))
+    h_real, h_stats = functional_call(mods.disc_h, h_params, (real_s, h_stats))
+    m_real, m_stats = functional_call(mods.disc_m, m_params, (real_s, m_stats))
+    m_fake, m_stats = functional_call(mods.disc_m, m_params, (fake_s, m_stats))
     scaling = cfg.effective_scaling
     loss = compute_sinkhorn_loss(
-        real, fake, scaling, h_fake, m_real, h_real, m_fake,
+        real_s, fake_s, scaling, h_fake, m_real, h_real, m_fake,
         video=True, epsilon=cfg.sinkhorn_eps, num_iters=cfg.sinkhorn_l,
         cost_method=cfg.cost_method, solver=cfg.sinkhorn_solver,
     )
@@ -90,17 +124,23 @@ def _grads(loss, *groups):
 
 
 def build_train_step(cfg, *, device="cuda") -> Callable:
-    """Returns ``train_step(state, real_data, generator=None, z=None) ->
-    (state, metrics)``.
+    """Returns ``train_step(state, real_data, generator=None, z=None,
+    masks=None) -> (state, metrics)``.
 
     ``real_data`` is the film-strip batch ``[B, H, T, W, C]`` (context and
     future along axis 2) on ``device``.  ``z = (z1, z2)``, each
     ``[B, pred_time_steps, z_h, z_w, z_c]``, injects the two phases' noise;
     otherwise both are drawn with ``torch.randn`` on ``device`` from
     ``generator`` or, when none is given, from a generator seeded by a
-    split of ``state.rng``, whose other half the new state carries.
+    split of ``state.rng``, whose other half the new state carries.  With
+    dropout, ``masks`` (a mask source, ``models.layers.bernoulli_source``)
+    injects every mask of the step in the order they are drawn:
+    discriminator phase's encoder, its decoder, then the generator
+    phase's; otherwise each of the four draws from a generator seeded by
+    ``dropout_keys`` of the state's key.
     ``metrics`` is ``{"sinkhorn_loss", "pm", "sigma"}`` as 0-d tensors
-    (the generator phase's loss, the discriminator phase's pM).
+    (the generator phase's loss on the card, the discriminator phase's
+    pM, and the host's sigma).
     ``cfg.kernel_impl`` picks the recurrences' engine (module
     docstring); ``cfg.sinkhorn_solver='scan'`` solves the Sinkhorn
     problems with the plain loop under autograd, the kernels' reference.
@@ -110,8 +150,22 @@ def build_train_step(cfg, *, device="cuda") -> Callable:
     mods = GanModules(cfg)
     opts = make_optimizers(cfg)
     m = cfg.model
+    needs_dropout = m.dropout > 0.0 or m.rnn_dropout > 0.0
+    share_ctx = cfg.share_context_encoding and not needs_dropout
 
-    def train_step(state: TrainState, real_data, generator=None, z=None):
+    def phase_masks(rng, masks):
+        """``(rng, (disc phase's mask sources, gen phase's))``."""
+        if not needs_dropout:
+            return rng, (None, None)
+        if masks is not None:
+            return rng, ((masks, masks), (masks, masks))
+        rng, *phases = dropout_keys(rng)
+        return rng, tuple(
+            tuple(bernoulli_source(torch.Generator(device=device).manual_seed(k)) for k in seeds)
+            for seeds in phases
+        )
+
+    def train_step(state: TrainState, real_data, generator=None, z=None, masks=None):
         rng = state.rng
         if z is None:
             if generator is None:
@@ -122,33 +176,36 @@ def build_train_step(cfg, *, device="cuda") -> Callable:
             z2 = torch.randn(shape, generator=generator, device=device)
         else:
             z1, z2 = z
-        sigma = torch.tensor(cfg.init_sigma, dtype=torch.float32)
+        rng, (disc_masks, gen_masks) = phase_masks(rng, masks)
+        if cfg.decaying_sigma:
+            sigma = annealing_sigma(cfg.init_sigma, state.step + 1)  # the reference's steps count from 1
+        else:
+            sigma = float(np.float32(cfg.init_sigma))
 
         enc_p = _leaves(state.enc_params)
-
-        def encode(params):
-            return functional_call(mods.encoder, params, (real_data,))
-
-        pyramid = encode(enc_p) if cfg.share_context_encoding else None
+        if share_ctx:
+            pyramid = functional_call(mods.encoder, enc_p, (real_data,), {"training": True})
+            real_s = _smooth(cfg, real_data, sigma)
+        else:
+            pyramid = real_s = None
 
         # ---------------- discriminator phase -----------------
         h_p, m_p = _leaves(state.h_params), _leaves(state.m_params)
-        pyr = [p.detach() for p in pyramid] if pyramid is not None else encode(state.enc_params)
         loss, pm, h_stats, m_stats = gan_forward(
-            mods, cfg, state.dec_params, h_p, m_p, state.h_stats, state.m_stats,
-            real_data, z1, pyr,
+            mods, cfg, state.enc_params, state.dec_params, h_p, m_p, state.h_stats, state.m_stats,
+            real_data, z1, sigma, masks=disc_masks,
+            pyramid=[p.detach() for p in pyramid] if pyramid is not None else None, real_smoothed=real_s,
         )
         gh, gm = _grads(-loss + pm, h_p, m_p)
         h_params, h_opt = opts["h"].update(gh, state.h_opt, state.h_params)
         m_params, m_opt = opts["m"].update(gm, state.m_opt, state.m_params)
-        del loss, h_p, m_p, pyr
+        del loss, h_p, m_p
 
         # ---------------- generator phase -----------------
         dec_p = _leaves(state.dec_params)
-        pyr = pyramid if pyramid is not None else encode(enc_p)
         gen_loss, _, h_stats, m_stats = gan_forward(
-            mods, cfg, dec_p, h_params, m_params, h_stats, m_stats,
-            real_data, z2, pyr,
+            mods, cfg, enc_p, dec_p, h_params, m_params, h_stats, m_stats,
+            real_data, z2, sigma, masks=gen_masks, pyramid=pyramid, real_smoothed=real_s,
         )
         ge, gd = _grads(gen_loss, enc_p, dec_p)
         enc_params, enc_opt = opts["enc"].update(ge, state.enc_opt, state.enc_params)
@@ -168,7 +225,10 @@ def build_train_step(cfg, *, device="cuda") -> Callable:
             h_opt=h_opt,
             m_opt=m_opt,
         )
-        metrics = {"sinkhorn_loss": gen_loss.detach(), "pm": pm.detach(), "sigma": sigma}
+        metrics = {
+            "sinkhorn_loss": gen_loss.detach(), "pm": pm.detach(),
+            "sigma": torch.tensor(sigma, dtype=torch.float32),
+        }
         return new_state, metrics
 
     return train_step

@@ -22,6 +22,38 @@ def port_cfg(cfg):
     })
 
 
+def bernoulli_streams(seed):
+    """The same 0/1 dropout masks for both packages: ``(jax_bernoulli,
+    port_draw)``, each consuming its own copy of one seeded numpy stream
+    in call order.  ``jax_bernoulli`` takes the place of
+    ``jax.random.bernoulli`` (monkeypatched by the test); ``port_draw``
+    is a mask source for the port's ConvLSTMs."""
+    jr, tr = np.random.default_rng(seed), np.random.default_rng(seed)
+
+    def jax_bernoulli(key, p, shape):
+        del key
+        return jr.uniform(size=shape) < p
+
+    def port_draw(keep, shape):
+        return torch.from_numpy((tr.uniform(size=shape) < keep).astype(np.float32))
+
+    return jax_bernoulli, port_draw
+
+
+def flax_tree(flat):
+    """The nested flax tree (numpy arrays) of a dict of dotted ``state_dict``
+    keys to tensors: the inverse of ``weights.flatten_flax_tree``, which
+    lets the JAX side run on parameters the port initialised."""
+    tree = {}
+    for key, value in flat.items():
+        *path, leaf = key.split(".")
+        node = tree
+        for name in path:
+            node = node.setdefault(name, {})
+        node[leaf] = value.detach().numpy()
+    return tree
+
+
 def tiny_train_cfg(compute_dtype="float32"):
     """The tiny training geometry of ``tests/test_train.py`` (B=2, 16x16x1,
     T=5 with 3 context, f=2, state 3, z 1x1x4, L=10), built with the

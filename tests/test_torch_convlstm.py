@@ -161,9 +161,34 @@ def test_mixed_devices_raise():
         convlstm_scan(xconv, *rest)
 
 
-@pytest.mark.parametrize(
-    "kw", [dict(dropout=0.1), dict(recurrent_dropout=0.1), dict(seq_axis="seq")]
-)
+@pytest.mark.parametrize("kw", [dict(seq_axis="seq")])
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError):
         ConvLSTM2D(3, 4, (3, 3), **kw)
+
+
+@pytest.mark.parametrize("kw,shape", [
+    (dict(dropout=0.3), (2, 8, 8, 3)), (dict(recurrent_dropout=0.3), (2, 4, 4, 4)),
+])
+def test_dropout_applies_only_in_training(kw, shape):
+    """Outside training the layer is its dropout-free twin to the bit; in
+    training it draws four masks of the input's (or the recurrent state's)
+    shape, with keep probability 1 - p, and the same masks give the same
+    output."""
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=(2, 3, 8, 8, 3)).astype(np.float32))
+    layer = ConvLSTM2D(3, 4, (3, 3), strides=(2, 2), **kw)
+    layer.reset_parameters(torch.Generator().manual_seed(0))
+    twin = ConvLSTM2D(3, 4, (3, 3), strides=(2, 2))
+    twin.load_state_dict(layer.state_dict())
+    assert torch.equal(layer(x)[0], twin(x)[0])
+    drawn = []
+
+    def masks(keep, mask_shape):
+        drawn.append((keep, tuple(mask_shape)))
+        g = torch.Generator().manual_seed(len(drawn) % 4)
+        return torch.empty(mask_shape).bernoulli_(keep, generator=g)
+
+    a = layer(x, training=True, masks=masks)[0]
+    assert drawn == [(0.7, shape)] * 4
+    assert torch.equal(layer(x, training=True, masks=masks)[0], a)
+    assert not torch.equal(a, twin(x)[0])

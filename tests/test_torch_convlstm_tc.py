@@ -18,6 +18,11 @@ lay it out, and checks the result against the plain versions
 * drk: A^T[p][m] the shifted h_{t-1} over the B*T*H*W pixels, split over
   K into partials that are added in the finalize's order; db from
   per-M-tile partial rows, accumulated over the steps and added in order.
+* Recurrent dropout (the kernels' masked mode): the gate GEMM gathers
+  the gate-major masked h's (4f channels) against the block-diagonal
+  weight (``_block_diagonal``); dh takes the gate-quad columns of
+  ``_pack_dh_gates`` and sums the four gates times their masks; drk is
+  one GEMM a gate, hm_g against dz_g.
 
 All in f32, where the products and sums are the plain versions' own up to
 summation order: tolerance 1e-5 of each output's largest entry.  Small
@@ -29,7 +34,11 @@ import pytest
 import torch
 
 from kccotgan_tpu_torch.models.cuda_convlstm import (
+    _block_diagonal,
+    _fwd_plain,
+    _gate_major,
     _pack_dh,
+    _pack_dh_gates,
     _pack_gates,
     _wgrad_splits,
     convlstm_bwd_reference,
@@ -231,3 +240,108 @@ def test_backward_gemms_match_reference(f, k):
     got = _emulate_bwd(*args, y, cs, *cot)
     for g, w, name in zip(got, want, ("dx", "dh0", "dc0", "drk", "db")):
         _assert_rel(g, w, name)
+
+
+def _masks(b, h, w, f, seed, keep=0.7):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy((rng.random((4, b, h, w, f)) < keep).astype(np.float32) / keep)
+
+
+def _emulate_fwd_masked(xconv, h0, c0, rk, bias, masks):
+    """The masked gate GEMM: A gathered from hm = h_{t-1} * mask_g
+    (gate-major, 4f channels), B packed from the block-diagonal weight;
+    each step also writes hm_t, as the epilogue does."""
+    f = h0.shape[-1]
+    mask = _gate_major(masks)
+    wp = _pack_gates(_block_diagonal(rk), torch.float32)
+    kh, kw = rk.shape[0], rk.shape[1]
+    h, c, ys, cs = h0, c0, [], []
+    hm = (h0.unsqueeze(3) * mask.view(*h0.shape[:3], 4, f)).reshape(mask.shape)
+    hms = [hm]
+    for t in range(xconv.shape[1]):
+        a = _gather(hm, kh, kw, 1, -((kh - 1) // 2), -((kw - 1) // 2))
+        z = (xconv[:, t] + bias) + _unpack_gates(_gemm_k16(a, wp), f).reshape(*h.shape[:3], 4 * f)
+        i, fg = torch.sigmoid(z[..., :f]), torch.sigmoid(z[..., f : 2 * f])
+        c = fg * c + i * torch.tanh(z[..., 2 * f : 3 * f])
+        h = torch.sigmoid(z[..., 3 * f :]) * torch.tanh(c)
+        hm = (h.unsqueeze(3) * mask.view(*h.shape[:3], 4, f)).reshape(mask.shape)
+        hms.append(hm)
+        ys.append(h)
+        cs.append(c)
+    return torch.stack(ys, 1), torch.stack(cs, 1), h, c, (hms[0], torch.stack(hms[1:], 1))
+
+
+def _emulate_bwd_masked(xconv, h0, c0, rk, bias, y, c_stack, dy, dh_n, dc_n, masks, hm):
+    """The masked backward's GEMMs in their kernel layouts (f32)."""
+    b, t_total, h, w, f4 = xconv.shape
+    f = f4 // 4
+    kh, kw = rk.shape[0], rk.shape[1]
+    mask = _gate_major(masks).view(b, h, w, 4, f)
+    wp, wq = _pack_gates(_block_diagonal(rk), torch.float32), _pack_dh_gates(rk, torch.float32)
+    assert wq.shape == (kh * kw * f4, 16 * -(-f // 4))
+    dh, dc = dh_n.clone(), dc_n.clone()
+    dx = torch.empty_like(xconv)
+    db = torch.zeros(f4)
+    hms = [hm[0]] + [hm[1][:, s] for s in range(t_total - 1)]  # hm_{t-1} of step t
+    for t in reversed(range(t_total)):
+        cp = c0 if t == 0 else c_stack[:, t - 1]
+        a = _gather(hms[t], kh, kw, 1, -((kh - 1) // 2), -((kw - 1) // 2))
+        z = (xconv[:, t] + bias) + _unpack_gates(_gemm_k16(a, wp), f).reshape(b, h, w, f4)
+        i, fg = torch.sigmoid(z[..., :f]), torch.sigmoid(z[..., f : 2 * f])
+        g, o = torch.tanh(z[..., 2 * f : 3 * f]), torch.sigmoid(z[..., 3 * f :])
+        tc = torch.tanh(fg * cp + i * g)
+        dhv = dh + dy[:, t]
+        dcv = dc + dhv * o * (1.0 - tc * tc)
+        dz = torch.cat([dcv * g * i * (1 - i), dcv * cp * fg * (1 - fg), dcv * i * (1 - g * g),
+                        dhv * tc * o * (1 - o)], dim=-1)
+        dx[:, t] = dz
+        db += dz.reshape(-1, f4).sum(0)
+        quads = _gemm_k16(_gather(dz, kh, kw, -1, (kh - 1) // 2, (kw - 1) // 2), wq)
+        dhm = _unpack_gates(quads, f).reshape(b, h, w, 4, f)
+        dh = sum(mask[..., q, :] * dhm[..., q, :] for q in range(4))
+        dc = dcv * fg
+    hprev = torch.stack(hms, 1).reshape(b * t_total, h, w, f4)
+    drk = []
+    for q in range(4):  # one GEMM a gate: hm_g against dz_g
+        a_t = _gather(hprev[..., q * f : (q + 1) * f].contiguous(), kh, kw, 1,
+                      -((kh - 1) // 2), -((kw - 1) // 2))
+        drk.append(a_t.T @ dx[..., q * f : (q + 1) * f].reshape(-1, f))
+    return dx, dh, dc, torch.cat(drk, 1).reshape(kh, kw, f, f4), db
+
+
+@pytest.mark.parametrize("f,k", [(8, 3), (16, 4)])
+def test_masked_gemms_match_reference(f, k):
+    """Recurrent dropout: the forward's and the backward's GEMMs in their
+    masked layouts against the plain versions with the same masks."""
+    args = _inputs(2, 3, 5, 6, f, k, seed=20 + f + k)
+    masks = _masks(2, 5, 6, f, seed=f)
+    want = _fwd_plain(*args, masks)
+    got = _emulate_fwd_masked(*args, masks)
+    for g, w, name in zip(got[:4], want[:4], ("y", "c_stack", "h", "c")):
+        _assert_rel(g, w, name)
+    _assert_rel(got[4][0], want[4][0], "hm0")
+    _assert_rel(got[4][1][:, :-1], want[4][1][:, :-1], "hm")
+    y, cs, h, c, hm = want
+    rng = np.random.default_rng(f * k)
+    cot = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+           for s in (y.shape, h.shape, c.shape)]
+    want = convlstm_bwd_reference(*args, y, cs, *cot, rec_masks=masks, hm=hm)
+    got = _emulate_bwd_masked(*args, y, cs, *cot, masks, hm)
+    for g, w, name in zip(got, want, ("dx", "dh0", "dc0", "drk", "db")):
+        _assert_rel(g, w, name)
+
+
+def test_masked_packings_layout():
+    """The block-diagonal weight feeds gate g's columns from hm_g's rows
+    alone, and the masked dh weight holds gate g's rows in its gate-g
+    columns, zero elsewhere."""
+    rk = torch.arange(1, 2 * 2 * 4 * 16 + 1, dtype=torch.float32).reshape(2, 2, 4, 16)
+    kh, kw, f, f4 = rk.shape
+    bd = _block_diagonal(rk)
+    assert bd.shape == (kh, kw, f4, f4)
+    for ky, kx, gi, ci, n in np.ndindex(kh, kw, 4, f, f4):
+        assert bd[ky, kx, gi * f + ci, n] == (rk[ky, kx, ci, n] if n // f == gi else 0)
+    wq = _pack_dh_gates(rk, torch.float32)
+    for ky, kx, n, g, ci in np.ndindex(kh, kw, f4, 4, f):
+        col = 16 * (ci // 4) + 8 * (g // 2) + 2 * (ci % 4) + g % 2
+        assert wq[(ky * kw + kx) * f4 + n, col] == (rk[ky, kx, ci, n] if n // f == g else 0)

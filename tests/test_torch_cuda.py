@@ -13,7 +13,9 @@ multiple of its 32-channel tile, a rectangular frame, and shared memory
 beyond the default 48 KiB; the backward adds B=1 and f=2.  The bf16
 engine (tensor cores) adds ragged M, f = 8 and 256 on a 4x4 frame, f =
 12 (its element-by-element gather) and the bitwise determinism of drk
-and db.  The LSTM
+and db; the kernels' recurrent-dropout mode (four masks, gate g's conv
+over h_{t-1} * mask_g) at the same kinds of shape in both dtypes, under
+autograd, and its weight gradient bitwise over two calls.  The LSTM
 shapes: B=1, U=3 (an odd U, and fewer units than a warp), ragged row
 blocks (B=5, 17, 33), U=64, whose staged recurrent kernel needs more
 than 48 KiB of shared memory, the flagship's B=32, T=20 at U = 8, 32, 64
@@ -57,6 +59,7 @@ import torch
 from kccotgan_tpu_torch.data import device_prefetch
 
 from kccotgan_tpu_torch.models.cuda_convlstm import (
+    _fwd_plain,
     convlstm_bwd,
     convlstm_bwd_reference,
     convlstm_fwd,
@@ -214,6 +217,74 @@ def test_weight_gradient_is_deterministic(cuda):
         torch.cuda.synchronize()
         for name, a, b in zip(("dx", "dh0", "dc0", "drk", "db"), first, second):
             assert torch.equal(a, b), (dtype, name)
+
+
+def _rec_masks(b, h, w, f, dev, seed, keep=0.7):
+    """Keras recurrent-dropout masks ``[4, B, H, W, f]``: 0 or 1 / keep."""
+    g = torch.Generator().manual_seed(seed)
+    return ((torch.rand(4, b, h, w, f, generator=g) < keep).float() / keep).to(dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "b,h,w,f,k",
+    [(1, 6, 6, 2, 3), (3, 5, 7, 16, 3), (2, 9, 13, 40, 5), (2, 7, 7, 8, 8), (2, 4, 4, 256, 5),
+     (1, 9, 9, 12, 3), (2, 16, 16, 32, 6)],
+)
+def test_recurrent_dropout_kernels_match_plain(cuda, b, h, w, f, k, dtype):
+    """The kernels' masked mode (Keras recurrent dropout, gate g's conv
+    over h_{t-1} * mask_g): forward and backward against the plain
+    versions with the same masks, with the launches of the unmasked
+    kernels.  Shapes as the unmasked tests (f = 2 and 12 take the
+    element-by-element gathers, 4x4 at f = 256 the widest staged tile),
+    and the 16x16 frame at f = 32, k = 6 of the first encoder layer."""
+    t = 4
+    args = _inputs(b, t, h, w, f, k, dtype, cuda, seed=5 * f + k)
+    masks = _rec_masks(b, h, w, f, cuda, seed=f)
+    with torch.no_grad():
+        y, cs, h_n, c_n, hm = _fwd_plain(*args, masks)
+        g = torch.Generator().manual_seed(k)
+        cot = (torch.randn(y.shape, generator=g).to(cuda, dtype),
+               *(torch.randn(h_n.shape, generator=g).to(cuda) for _ in range(2)))
+        launches = (convlstm_fwd.launches, convlstm_bwd.launches)
+        got_fwd = convlstm_fwd(*args, with_c_stack=True, rec_masks=masks)
+        got = convlstm_bwd(*args, y, cs, *cot, rec_masks=masks, hm=hm)
+        want = convlstm_bwd_reference(*args, y, cs, *cot, rec_masks=masks, hm=hm)
+    torch.cuda.synchronize()
+    assert (convlstm_fwd.launches, convlstm_bwd.launches) == (launches[0] + t, launches[1] + 2 * t + 2)
+    for got_x, want_x in zip(got_fwd[:4], (y, cs, h_n, c_n)):
+        torch.testing.assert_close(got_x.float(), want_x.float(), rtol=0, atol=TOL[dtype])
+    # hm, the masked h's the gates read (its last slot is never read)
+    torch.testing.assert_close(got_fwd[4][0].float(), hm[0].float(), rtol=0, atol=TOL[dtype])
+    torch.testing.assert_close(got_fwd[4][1][:, : t - 1].float(), hm[1][:, : t - 1].float(),
+                               rtol=0, atol=TOL[dtype] * 2)
+    _assert_grads_close(got, want, dtype, ("dx", "dh0", "dc0", "drk", "db"))
+
+
+def test_recurrent_dropout_autograd_and_determinism(cuda):
+    """``convlstm_scan`` with masks under autograd gives autograd's
+    gradients through the plain loop (f32), and the masked weight
+    gradient is bitwise equal over two calls (bf16)."""
+    args = _inputs(2, 3, 8, 8, 16, 5, torch.float32, cuda, seed=21)
+    masks = _rec_masks(2, 8, 8, 16, cuda, seed=22)
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    ref = [a.clone().requires_grad_(True) for a in args]
+    y, (h, c) = convlstm_scan(*leaves, masks)
+    y_p, (h_p, c_p) = convlstm_scan_reference(*ref, masks)
+    w = torch.randn(y.shape, generator=torch.Generator().manual_seed(5)).to(cuda)
+    ((y * w).sum() + (h * c).sum()).backward()
+    ((y_p * w).sum() + (h_p * c_p).sum()).backward()
+    _assert_grads_close([x.grad for x in leaves], [x.grad for x in ref], torch.float32,
+                        ("dx", "dh0", "dc0", "drk", "db"))
+    args = _inputs(4, 6, 8, 8, 32, 5, torch.bfloat16, cuda, seed=23)
+    masks = _rec_masks(4, 8, 8, 32, cuda, seed=24)
+    with torch.no_grad():
+        y, cs, h_n, c_n, hm = _fwd_plain(*args, masks)
+        cot = (torch.ones_like(y), torch.ones_like(h_n), torch.zeros_like(c_n))
+        first = convlstm_bwd(*args, y, cs, *cot, rec_masks=masks, hm=hm)
+        second = convlstm_bwd(*args, y, cs, *cot, rec_masks=masks, hm=hm)
+    for name, a, b in zip(("dx", "dh0", "dc0", "drk", "db"), first, second):
+        assert torch.equal(a, b), name
 
 
 def _lstm_inputs(b, t, u, dtype, dev, seed=0):

@@ -27,6 +27,7 @@ from kccotgan_tpu_torch.ckpt import CheckpointWriter, latest_step, restore_check
 from kccotgan_tpu_torch.cli.main import main
 from kccotgan_tpu_torch.config import ModelConfig, TrainConfig
 from kccotgan_tpu_torch.data import ArrayDataset, bouncing_blobs, device_prefetch
+from kccotgan_tpu_torch.smoothing import annealing_sigma
 from kccotgan_tpu_torch.train import Trainer, build_train_step, create_train_state
 from kccotgan_tpu_torch.train.state import fold_in
 
@@ -219,9 +220,23 @@ def test_cli_refuses_what_the_port_does_not_carry(flags, capsys):
     assert "ROADMAP" in capsys.readouterr().err
 
 
-def test_cli_keeps_check_trainable_rejections():
-    with pytest.raises(NotImplementedError, match="smoothing"):
-        main([*TINY_FLAGS, "--kernel", "1d"], device="cpu")
+@pytest.mark.parametrize("kernel", ["1d", "2d", "3d"])
+def test_cli_trains_with_smoothing_and_dropout(kernel, tmp_path, capsys):
+    """The smoothing and dropout flags reach the trainer: two steps, each
+    logging the annealed sigma of its step beside its loss; the summary
+    names the kernel and the last sigma."""
+    rc = main([*TINY_FLAGS, "--kernel", kernel, "--decaying_sigma", "--init_sigma", "3", "--dropout", "0.1",
+               "--rnn_dropout", "0.1", "--out_dir", str(tmp_path), "--run_name", "opts"], device="cpu")
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rc == 0 and summary["status"] == "completed" and summary["steps"] == 2
+    assert summary["kernel"] == kernel and summary["sigma"] == annealing_sigma(3.0, 2)
+    logged = {}
+    with open(tmp_path / "opts" / "log" / "metrics.jsonl") as f:
+        for line in f:
+            r = json.loads(line)
+            logged.setdefault(r["tag"], {})[r["step"]] = r["value"]
+    assert logged["sigma"] == {1: annealing_sigma(3.0, 1), 2: annealing_sigma(3.0, 2)}
+    assert all(np.isfinite(list(logged["Sinkhorn Loss"].values())))
 
 
 def test_no_card_raises_instead_of_falling_back():

@@ -211,8 +211,9 @@ def test_port_never_imports_jax():
     """Neither the port nor ``chip_smoke.py`` imports JAX, flax or the JAX
     package, which the GPU machine lacks: every module of the port is
     imported, and a tiny rollout, a tiny training iteration under each
-    recurrence engine and two steps of the trainer's command line run,
-    before ``sys.modules`` is read."""
+    recurrence engine and two steps of the trainer's command line (with
+    '3d' smoothing, annealing and both dropouts) run, before
+    ``sys.modules`` is read."""
     code = (
         "import importlib, pkgutil, sys, torch\n"
         "import chip_smoke, kccotgan_tpu_torch\n"
@@ -241,6 +242,7 @@ def test_port_never_imports_jax():
         "    assert main(['--dname', 'synthetic', '-bs', '2', '-tts', '3', '-its', '2', '-sinkl', '3',\n"
         "                 '-xh', '16', '-xw', '16', '-gfs', '1', '-dfs', '1', '-dss', '2', '-nz', '2',\n"
         "                 '-ne', '1', '--max_steps', '2', '--ckpt_freq', '2', '--kernel_impl', 'pallas',\n"
+        "                 '--kernel', '3d', '--decaying_sigma', '--dropout', '0.1', '--rnn_dropout', '0.1',\n"
         "                 '--out_dir', d], device='cpu') == 0\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'kccotgan_tpu'))\n"
         "assert not bad, bad\n"

@@ -31,6 +31,7 @@ norms and the Sinkhorn divergence amplify them.
 """
 
 import dataclasses
+import warnings
 
 import jax
 import jax.numpy as jnp
@@ -43,7 +44,9 @@ from kccotgan_tpu.train import build_train_step as jax_build_train_step
 from kccotgan_tpu.train import create_train_state as jax_create_train_state
 from kccotgan_tpu.train.keras_adam import keras_adam as jax_keras_adam
 from kccotgan_tpu.train import warmup_staircase_exponential_decay as jax_schedule
+from kccotgan_tpu_torch.models import layers
 from kccotgan_tpu_torch.ot import cuda_sinkhorn
+from kccotgan_tpu_torch.smoothing import annealing_sigma
 from kccotgan_tpu_torch.train import (
     KerasAdam,
     build_train_step,
@@ -214,17 +217,59 @@ def test_make_optimizers_offsets():
     assert float(opts["dec"].learning_rate(opts["dec"].keras_iter(0))) > 0.0
 
 
-@pytest.mark.parametrize("field,value", [
-    ("kernel", "1d"), ("decaying_sigma", True), ("fused_discriminators", True),
-])
+@pytest.mark.parametrize("field,value", [("fused_discriminators", True)])
 def test_unported_options_raise(field, value):
     cfg = dataclasses.replace(port_cfg(tiny_train_cfg()), **{field: value})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_train_step(cfg, device="cpu")
 
 
-def test_dropout_raises():
+@pytest.mark.parametrize("kernel", ["1d", "2d", "3d"])
+def test_smoothing_options_train(kernel):
+    """Each smoothing mode with ``decaying_sigma`` trains: finite losses,
+    ``metrics["sigma"]`` the annealed sigma of the 1-based step, and
+    another loss than the unsmoothed step's from the same state and z."""
+    base = port_cfg(tiny_train_cfg())
+    cfg = dataclasses.replace(base, kernel=kernel, decaying_sigma=True, init_sigma=2.0)
+    state = create_train_state(cfg, torch.Generator().manual_seed(0), device="cpu")
+    video = torch.rand(2, 16, 5, 16, 1, generator=torch.Generator().manual_seed(1))
+    z = tuple(torch.randn(2, cfg.pred_time_steps, 1, 1, 4, generator=torch.Generator().manual_seed(i))
+              for i in range(2))
+    step = build_train_step(cfg, device="cpu")
+    s, losses = state, []
+    for i in range(2):
+        s, metrics = step(s, video, z=z)
+        assert float(metrics["sigma"]) == annealing_sigma(2.0, i + 1) < 2.0
+        losses.append(float(metrics["sinkhorn_loss"]))
+    assert np.isfinite(losses).all()
+    _, plain = build_train_step(base, device="cpu")(state, video, z=z)
+    assert float(plain["sigma"]) == base.init_sigma
+    assert float(plain["sinkhorn_loss"]) != losses[0]
+
+
+@pytest.mark.parametrize("kernel_impl", ["scan", "pallas"])
+def test_dropout_trains(kernel_impl, monkeypatch):
+    """Dropout and recurrent dropout train under either engine, without a
+    warning, and the parameters move; under 'pallas' every ConvLSTM call
+    of the step goes through ``convlstm_scan`` with its recurrent masks,
+    and the loss is the 'scan' engine's on the same masks (drawn from the
+    state's key)."""
     cfg = port_cfg(tiny_train_cfg())
-    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, dropout=0.1))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_train_step(cfg, device="cpu")
+    cfg = dataclasses.replace(cfg, kernel_impl=kernel_impl,
+                              model=dataclasses.replace(cfg.model, dropout=0.1, rnn_dropout=0.1))
+    state = create_train_state(cfg, torch.Generator().manual_seed(0), device="cpu")
+    video = torch.rand(2, 16, 5, 16, 1, generator=torch.Generator().manual_seed(1))
+    step = build_train_step(cfg, device="cpu")
+    masked = []
+    real_scan = layers.convlstm_scan
+    monkeypatch.setattr(layers, "convlstm_scan", lambda *a: masked.append(a[5] is not None) or real_scan(*a))
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        s1, metrics = step(state, video)
+    # per phase: the encoder's 4 and the decoder's 4 ConvLSTMs
+    assert masked == ([] if kernel_impl == "scan" else [True] * 16)
+    assert s1.step == 1 and np.isfinite(float(metrics["sinkhorn_loss"]))
+    if kernel_impl == "pallas":
+        _, plain = build_train_step(dataclasses.replace(cfg, kernel_impl="scan"), device="cpu")(state, video)
+        np.testing.assert_allclose(float(metrics["sinkhorn_loss"]), float(plain["sinkhorn_loss"]), rtol=1e-4)
+    assert any(not torch.equal(s1.dec_params[k], v) for k, v in state.dec_params.items())
