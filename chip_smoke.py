@@ -57,7 +57,19 @@ ported paths at the ``mmnist_full`` preset (B=32, 64x64x1, 10 context +
   'scan' on the same masks in f32, timed; and the CLI with ``--kernel 3d
   --decaying_sigma --dropout 0.1 --rnn_dropout 0.1``, counted, its logged
   sigma the annealed one, and a resumed run equal to the straight one to
-  the bit.
+  the bit;
+* the datasets: fixtures written on the host in each reader's format (a
+  BAIR set of 64 + 16 RGB videos, a flat-float ``animation`` set and,
+  where PIL is installed, a GQN mazes set of 84x84 JPEG frames; a line
+  says whether PIL and cv2 are present and what was not run); the native
+  TFRecord reader built and byte-identical to the Python one, records/s
+  and videos/s of each; then at the RGB presets ``robot_push`` and
+  ``mazes`` (B=8, 64x64x3, 5 + 10 frames): the CLI through ``'pallas'``
+  with every kernel's calls and launches derived from the preset's T,
+  ``'pallas'`` against ``'scan'`` on the reader's first batch in f32 and
+  bf16, each kernel against its plain version at B=8 and T=15/10, the
+  bf16 iteration timed and profiled, and the loop reading the fixture
+  against the loop from memory and the bare step.
 
 The bf16 engine runs the ConvLSTM's recurrent conv, dh and drk, and the
 dense LSTM's step, dh and dR, on the tensor cores: the built library's
@@ -78,8 +90,11 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import importlib.util
 import io
+import itertools
 import json
+import os
 import re
 import subprocess
 import sys
@@ -95,7 +110,23 @@ from kccotgan_tpu_torch._build import _FLAGS, BUILD_DIR, _nvcc, load_library
 from kccotgan_tpu_torch.ckpt import latest_step
 from kccotgan_tpu_torch.cli.main import main as train_main
 from kccotgan_tpu_torch.config import get_preset
-from kccotgan_tpu_torch.data import ArrayDataset, load_mmnist, mmnist_paths, write_mmnist_fixture
+from kccotgan_tpu_torch.data import (
+    ArrayDataset,
+    bouncing_blobs,
+    encode_example,
+    encode_sequence_example,
+    load_mmnist,
+    make_dataset,
+    mmnist_paths,
+    native_io,
+    tfrecord,
+    write_mmnist_fixture,
+    write_tfrecord,
+)
+from kccotgan_tpu_torch.data import io as data_io
+from kccotgan_tpu_torch.data.bair import robot_push_samples
+from kccotgan_tpu_torch.data.generic import flat_feature_samples
+from kccotgan_tpu_torch.data.gqn import GQN_DATASETS, GqnReader, gqn_record_files
 from kccotgan_tpu_torch.models.cuda_convlstm import (
     _fwd_plain,
     convlstm_bwd,
@@ -230,21 +261,30 @@ ENGINE_TOL = {
     "bfloat16": {"loss_rtol": 1e-3, "pm_rtol": 1e-3,
                  "mu_rel": {"enc": 2e-2, "dec": 2e-2, "h": 0.2, "m": 0.2}},
 }
-# Per 'pallas' iteration at mmnist_full: (calls, launches) of each kernel.
-# ConvLSTM forward: the encoder's 4 layers over 20 steps, the decoder's 4
-# over 10 in each phase, one launch a step.  Backward (generator phase
-# only): two launches a step and two for the weight gradient.  LSTM: 3
-# layers x 8 discriminator passes forward, x 6 differentiated passes
-# backward (one launch each: the recurrence, dR and db).  Sinkhorn: one
-# forward and one backward a phase.
-PALLAS_COUNTS = {
-    "convlstm_fwd": (12, 4 * 20 + 8 * 10),
-    "convlstm_bwd": (8, 4 * (2 * 20 + 2) + 4 * (2 * 10 + 2)),
-    "lstm_fwd": (24, 24),
-    "lstm_bwd": (18, 18),
-    "sinkhorn_fwd": (2, 2),
-    "sinkhorn_bwd": (2, 2),
-}
+
+
+def pallas_counts(cfg):
+    """(calls, launches) of each kernel in one 'pallas' iteration of
+    ``cfg`` (shared context, no dropout), from its T frames of which T_p
+    are predicted.  ConvLSTM forward: the encoder's 4 layers once over the
+    T frames, the decoder's 4 over T_p in each phase, one launch a step.
+    Backward (generator phase only): two launches a step and two for the
+    weight gradient.  LSTM: 3 layers x 8 discriminator passes forward, x 6
+    differentiated passes backward (one launch each: the recurrence, dR
+    and db).  Sinkhorn: one forward and one backward a phase."""
+    t, tp = cfg.total_time_steps, cfg.pred_time_steps
+    return {
+        "convlstm_fwd": (12, 4 * t + 8 * tp),
+        "convlstm_bwd": (8, 4 * (2 * t + 2) + 4 * (2 * tp + 2)),
+        "lstm_fwd": (24, 24),
+        "lstm_bwd": (18, 18),
+        "sinkhorn_fwd": (2, 2),
+        "sinkhorn_bwd": (2, 2),
+    }
+
+
+# At mmnist_full (T = 20, T_p = 10): ConvLSTM 12 / 160 and 8 / 256.
+PALLAS_COUNTS = pallas_counts(get_preset(PRESET))
 # With dropout the context is not shared (each phase encodes it under its
 # own masks): the discriminator phase adds the encoder's 4 forward calls
 # over the 20 frames; nothing else changes.
@@ -287,14 +327,14 @@ TRAIN_TOL = {"loss_rtol": 1e-3, "pm_rtol": 1e-4, "mu_rel": 1e-3, "param_atol": 1
 # The trainer phase: the CLI trains TRAINER_STEPS 'pallas' steps at
 # mmnist_full on an MMNIST-layout fixture of FIXTURE_VIDEOS videos (two
 # batches an epoch), checkpointing and sampling every TRAINER_EVERY steps
-# (samples at 1, 4, 8), and every kernel of the iteration launches as
-# often as PALLAS_COUNTS says, the ConvLSTM forward also ROLLOUT_LAUNCHES
-# a sample.  The resumed run (4 steps, checkpoint, a new Trainer, 4 more)
+# (samples at 1, 4, 8), and every kernel of the iteration is called and
+# launched as often as PALLAS_COUNTS says, the ConvLSTM forward also as
+# often as a rollout calls and launches it (``rollout_counts``: 4 T_c +
+# 8 T_p launches) a sample.  The resumed run (4 steps, checkpoint, a new Trainer, 4 more)
 # must equal the straight 8 to the bit, cuDNN deterministic: every kernel
 # of the port sums in a fixed order, the noise comes from the state's
 # key, and a checkpoint holds every bit of the state, so no tolerance.
 TRAINER_STEPS, TRAINER_EVERY, FIXTURE_VIDEOS = 8, 4, 64
-ROLLOUT_LAUNCHES = 4 * 10 + 8 * 10
 # Loop against the bare step, in turns (loop, bare, bare, loop), over this
 # many batches with no checkpoint or sample in the window.
 LOOP_STEPS = 10
@@ -325,14 +365,14 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def layer_inputs(hw, f, k, dtype, dev, seed, t=T):
+def layer_inputs(hw, f, k, dtype, dev, seed, t=T, b=B):
     g = torch.Generator().manual_seed(seed)
 
     def randn(*shape, scale=1.0):
         return (torch.randn(*shape, generator=g) * scale).to(dev)
 
-    xconv = randn(B, t, hw, hw, 4 * f).to(dtype)
-    h0, c0 = randn(B, hw, hw, f, scale=0.5), randn(B, hw, hw, f, scale=0.5)
+    xconv = randn(b, t, hw, hw, 4 * f).to(dtype)
+    h0, c0 = randn(b, hw, hw, f, scale=0.5), randn(b, hw, hw, f, scale=0.5)
     rk = randn(k, k, f, 4 * f, scale=(k * k * f) ** -0.5)
     bias = randn(4 * f, scale=0.1)
     return xconv, h0, c0, rk, bias
@@ -634,7 +674,7 @@ def check_training(cfg, dev):
     return state0, video, zs, step_k, step_p, launches
 
 
-def time_training(card, cfg, state0, video, zs, paths, marker, what, required=()):
+def time_training(card, cfg, state0, video, zs, paths, marker, what, required=(), preset=PRESET):
     """ms per iteration (CUDA events, the two paths in turns: reference,
     kernel, kernel, reference), frames/s, peak memory, and one iteration
     per path under ``torch.profiler``.  ``paths`` is ``((reference name,
@@ -675,7 +715,7 @@ def time_training(card, cfg, state0, video, zs, paths, marker, what, required=()
         print(json.dumps({"profile_training": {"what": what, "path": path, **profiles[path]}}), flush=True)
     print(json.dumps({what: {
         "card": card,
-        "preset": PRESET,
+        "preset": preset,
         "compute_dtype": cfg.compute_dtype,
         "sinkhorn_l": cfg.sinkhorn_l,
         "step_ms": step_ms,
@@ -683,7 +723,7 @@ def time_training(card, cfg, state0, video, zs, paths, marker, what, required=()
         "training_frames_per_s": {p: frames / (t / 1e3) for p, t in step_ms.items()},
         "peak_memory_gib": peak,
     }}), flush=True)
-    return step_ms, profiles
+    return step_ms, profiles, peak
 
 
 COUNTED = {
@@ -759,14 +799,14 @@ def check_convlstm_bwd(dev):
     return errs, times
 
 
-def lstm_inputs(in_features, u, dtype, dev, seed):
+def lstm_inputs(in_features, u, dtype, dev, seed, b=LSTM_B, t=LSTM_T):
     g = torch.Generator().manual_seed(seed)
 
     def randn(*shape, scale=1.0):
         return (torch.randn(*shape, generator=g) * scale).to(dev)
 
-    xproj = randn(LSTM_B, LSTM_T, 4 * u).to(dtype)
-    h0, c0 = randn(LSTM_B, u, scale=0.5), randn(LSTM_B, u, scale=0.5)
+    xproj = randn(b, t, 4 * u).to(dtype)
+    h0, c0 = randn(b, u, scale=0.5), randn(b, u, scale=0.5)
     rk = randn(u, 4 * u, scale=u ** -0.5)
     bias = randn(4 * u, scale=0.1)
     return xproj, h0, c0, rk, bias
@@ -1026,14 +1066,15 @@ def check_sass(lib):
         raise RuntimeError(f"LSTM kernels' HMMA counts: {hmma}")
 
 
-def check_engines(base, dev):
-    """Two flagship iterations under 'pallas' against two under 'scan'
-    from the same state, video and z, in f32 and in the preset's bf16;
-    every kernel's calls and launches counted per 'pallas' iteration."""
+def check_engines(base, dev, per_step=PALLAS_COUNTS, video=None, preset=PRESET):
+    """Two iterations of ``base`` under 'pallas' against two under 'scan'
+    from the same state, video (``video`` if given, else a seeded uniform
+    one) and z, in f32 and in the preset's bf16; every kernel's calls and
+    launches counted per 'pallas' iteration against ``per_step``."""
     results = {}
     for cdt in ("float32", base.compute_dtype):
         cfg = dataclasses.replace(base, compute_dtype=cdt)
-        state0, video, zs = training_inputs(cfg, dev)
+        state0, video_in, zs = training_inputs(cfg, dev, video)
         steps = {impl: build_train_step(dataclasses.replace(cfg, kernel_impl=impl), device=dev)
                  for impl in ("pallas", "scan")}
         runs, per_iter, totals = {}, [], None
@@ -1041,7 +1082,7 @@ def check_engines(base, dev):
             reset_counts()
             st, mets, before = state0, [], counts()
             for i in range(2):
-                st, met = step(st, video, z=zs[i])
+                st, met = step(st, video_in, z=zs[i])
                 torch.cuda.synchronize()
                 now = counts()
                 mets.append((met, st))
@@ -1056,16 +1097,16 @@ def check_engines(base, dev):
                 raise RuntimeError(f"{cdt} {impl}: non-finite loss, pM, parameter or statistic")
             runs[impl] = mets
         for i, it in enumerate(per_iter):
-            want = {n: list(c) for n, c in PALLAS_COUNTS.items()}
+            want = {n: list(c) for n, c in per_step.items()}
             if it != want:
                 raise RuntimeError(f"{cdt} 'pallas' iteration {i}: (calls, launches) {it}, expected {want}")
         cmp, ok = compare_engines(runs["pallas"][0], runs["scan"][0], ENGINE_TOL[cdt])
         cmp["second_iteration_loss"] = [float(runs[i][1][0]["sinkhorn_loss"]) for i in ("pallas", "scan")]
-        print(json.dumps({"engines_check": {"compute_dtype": cdt, "per_iteration": per_iter[0],
+        print(json.dumps({"engines_check": {"preset": preset, "compute_dtype": cdt, "per_iteration": per_iter[0],
                                             "tol": ENGINE_TOL[cdt], **cmp}}), flush=True)
         if not ok:
             raise RuntimeError(f"{cdt}: 'pallas' and 'scan' iterations disagree: {cmp}")
-        results[cdt] = (state0, video, zs, steps, per_iter, totals)
+        results[cdt] = (state0, video_in, zs, steps, per_iter, totals)
     return results[base.compute_dtype]
 
 
@@ -1091,15 +1132,16 @@ def compare_engines(pallas_run, scan_run, tol):
     return cmp, ok
 
 
-def training_inputs(cfg, dev):
-    """The seeded state, video and the two iterations' (z1, z2)."""
+def training_inputs(cfg, dev, video=None):
+    """The seeded state, the video (``video``, a host batch, if given, else
+    a seeded uniform one) on the card and the two iterations' (z1, z2)."""
     state0 = create_train_state(cfg, torch.Generator().manual_seed(0), device=dev)
     m = cfg.model
-    video = torch.from_numpy(
-        np.random.default_rng(1).uniform(
+    if video is None:
+        video = np.random.default_rng(1).uniform(
             size=(cfg.batch_size, m.x_height, cfg.total_time_steps, m.x_width, m.n_channels)
         ).astype(np.float32)
-    ).to(dev)
+    video = torch.from_numpy(np.ascontiguousarray(video, dtype=np.float32)).to(dev)
     zg = torch.Generator(device=dev).manual_seed(2)
     z_shape = (cfg.batch_size, cfg.pred_time_steps, m.z_height, m.z_width, m.z_channels)
     zs = [tuple(torch.randn(z_shape, generator=zg, device=dev) for _ in range(2)) for _ in range(2)]
@@ -1126,14 +1168,18 @@ def write_fixture(root):
     return train_path
 
 
-def check_trainer_cli(tmp, data, options=(), tag="trainer_cli", per_step=PALLAS_COUNTS):
-    """Phase 9a (and 10e with ``options``): the trainer's command line,
-    counted: TRAINER_STEPS 'pallas' steps at mmnist_full on the fixture,
+def check_trainer_cli(tmp, data, options=(), tag="trainer_cli", per_step=PALLAS_COUNTS, preset=PRESET,
+                      dname="mmnist"):
+    """Phase 9a (10e with ``options``, 11 with another ``preset`` and
+    ``dname``): the trainer's command line, counted: TRAINER_STEPS
+    'pallas' steps of ``preset`` on the fixture under ``data``,
     checkpoints and samples every TRAINER_EVERY steps, every kernel's
-    launches those of the steps (``per_step``) and the sampling rollouts.
-    With ``--decaying_sigma`` among the options, each step's logged sigma
-    must be the annealed one.  Printed as ``tag``."""
-    argv = ["--preset", PRESET, "--dname", "mmnist", "--data_path", str(data), "--kernel_impl", "pallas",
+    calls and launches those of the steps (``per_step``) and the sampling
+    rollouts (``rollout_counts``).  With ``--decaying_sigma`` among the
+    options, each step's logged sigma must be the annealed one.  Printed
+    as ``tag``."""
+    per_sample = rollout_counts(get_preset(preset), torch.device("cuda", 0))
+    argv = ["--preset", preset, "--dname", dname, "--data_path", str(data), "--kernel_impl", "pallas",
             *options, "--max_steps", str(TRAINER_STEPS), "--ckpt_freq", str(TRAINER_EVERY),
             "--save_freq", str(TRAINER_EVERY), "--out_dir", str(tmp), "--run_name", tag]
     out = io.StringIO()
@@ -1148,16 +1194,16 @@ def check_trainer_cli(tmp, data, options=(), tag="trainer_cli", per_step=PALLAS_
     samples = [1] + list(range(TRAINER_EVERY, TRAINER_STEPS + 1, TRAINER_EVERY))
     losses = mets.get("Sinkhorn Loss", {})
     ckpts = sorted(int(p.stem.split("_")[1]) for p in (run_dir / "ckpt").glob("step_*.pt"))
-    want = {n: TRAINER_STEPS * c[1] + (len(samples) * ROLLOUT_LAUNCHES if n == "convlstm_fwd" else 0)
-            for n, c in per_step.items()}
-    got = {n: c[1] for n, c in launched.items()}
+    want = {n: [TRAINER_STEPS * c + len(samples) * r for c, r in zip(per_step[n], per_sample[n])]
+            for n in per_step}
+    got = {n: list(c) for n, c in launched.items()}
     sigma = None
     if "--decaying_sigma" in options:
-        sigma = {s: annealing_sigma(get_preset(PRESET).init_sigma, s) for s in range(1, TRAINER_STEPS + 1)}
+        sigma = {s: annealing_sigma(get_preset(preset).init_sigma, s) for s in range(1, TRAINER_STEPS + 1)}
     print(json.dumps({tag: {"argv": argv, "rc": rc, "summary": summary, "losses": losses,
                             "eval_psnr": mets.get("eval/psnr"), "eval_ssim": mets.get("eval/ssim"),
                             "sigma_logged": mets.get("sigma"), "checkpoints": ckpts, "launches": got,
-                            "expected_launches": want}}), flush=True)
+                            "expected_launches": want, "per_sample": per_sample}}), flush=True)
     if rc != 0 or summary["status"] != "completed" or summary["steps"] != TRAINER_STEPS:
         raise RuntimeError(f"trainer CLI: rc {rc}, summary {summary}")
     if sigma is not None and mets.get("sigma") != sigma:
@@ -1170,7 +1216,7 @@ def check_trainer_cli(tmp, data, options=(), tag="trainer_cli", per_step=PALLAS_
     if ckpts != [s for s in samples if s % TRAINER_EVERY == 0] or latest_step(str(run_dir / "ckpt")) != TRAINER_STEPS:
         raise RuntimeError(f"trainer CLI: checkpoints at {ckpts}")
     if got != want:
-        raise RuntimeError(f"trainer CLI: kernel launches {got}, expected {want}")
+        raise RuntimeError(f"trainer CLI: kernel (calls and) launches {got}, expected {want}")
     return summary, launched
 
 
@@ -1550,6 +1596,378 @@ def check_options(card, base, dev):
     return errs, smooth_times, dropout_ms
 
 
+# Phase 11, the datasets: the paper's RGB presets (B=8, 64x64x3, 5 context
+# + 10 predicted frames) on fixtures written here in each reader's format.
+# BAIR: BAIR_TRAIN + BAIR_TEST videos of 30 frames, the train split over
+# BAIR_SHARDS shards; flat-float 'animation': FLAT_RECORDS records over two
+# shards; GQN mazes (with PIL): GQN_FILES shards of GQN_RECORDS records of
+# GQN_FRAMES 84x84 JPEG frames, and the np_mazes_test.npy batch (with an
+# alpha channel).  Reader rates over READER_VIDEOS videos a backend.
+DATA_PRESETS = ("robot_push", "mazes")
+BAIR_TRAIN, BAIR_TEST, BAIR_SHARDS = 64, 16, 4
+FLAT_RECORDS = 32
+GQN_FILES, GQN_RECORDS, GQN_FRAMES = 4, 16, 16
+READER_VIDEOS = 64
+TINT = np.array([1.0, 0.6, 0.3], np.float32)  # each channel its own share of the blobs
+
+
+def tinted_strips(n, t, hw, seed):
+    """``n`` bouncing-blob film-strips ``[n, hw, t, hw, 3]`` in [0, 1], the
+    channels unequal."""
+    return bouncing_blobs(n, t, hw, hw, channels=3, seed=seed) * TINT
+
+
+def frames_u8(strip):
+    """A film-strip ``[H, T, W, C]`` in [0, 1] as ``[T, H, W, C]`` uint8."""
+    return (np.transpose(strip, (1, 0, 2, 3)) * 255).astype(np.uint8)
+
+
+def write_data_fixtures(root, have_pil):
+    """The fixtures of phase 11 under ``root``: BAIR's
+    ``softmotion30_44k/{train,test}/``, ``animation/`` and, with PIL, GQN's
+    ``mazes/train/`` and ``mazes/np_mazes_test.npy``.  Returns each set's
+    shard paths."""
+    shards = {}
+    strips = tinted_strips(BAIR_TRAIN + BAIR_TEST, 30, 64, seed=3)
+    recs = [encode_sequence_example({f"{i}/image_aux1/encoded": [f.tobytes()] for i, f in enumerate(frames_u8(s))})
+            for s in strips]
+    per = BAIR_TRAIN // BAIR_SHARDS
+    base = root / "softmotion30_44k"
+    shards["bair"] = [base / "train" / f"traj_{k}.tfrecords" for k in range(BAIR_SHARDS)] + [
+        base / "test" / "traj_0.tfrecords"]
+    for k, path in enumerate(shards["bair"]):
+        write_tfrecord(str(path), recs[k * per:(k + 1) * per] if k < BAIR_SHARDS else recs[BAIR_TRAIN:])
+    cfg = get_preset("robot_push")
+    t = cfg.total_time_steps
+    flat = tinted_strips(FLAT_RECORDS, t, 64, seed=4)
+    shards["animation"] = [root / "animation" / f"part_{k}.tfrecord" for k in range(2)]
+    for k, path in enumerate(shards["animation"]):
+        write_tfrecord(str(path), [encode_example({"x": v.ravel().tolist()}) for v in flat[k::2]])
+    if have_pil:
+        from PIL import Image
+
+        def jpeg(frame):
+            buf = io.BytesIO()
+            Image.fromarray(frame).save(buf, format="JPEG", quality=95)
+            return buf.getvalue()
+
+        strips = tinted_strips(GQN_FILES * GQN_RECORDS, GQN_FRAMES, 84, seed=5)
+        shards["mazes"] = [Path(p) for p in gqn_record_files(GQN_DATASETS["mazes"], "train", str(root))[:GQN_FILES]]
+        for k, path in enumerate(shards["mazes"]):
+            write_tfrecord(str(path), [encode_example({"frames": [jpeg(f) for f in frames_u8(s)]})
+                                       for s in strips[k * GQN_RECORDS:(k + 1) * GQN_RECORDS]])
+        test = tinted_strips(cfg.batch_size, t, 64, seed=6)
+        np.save(root / "mazes" / "np_mazes_test.npy",
+                np.concatenate([test, np.ones_like(test[..., :1])], axis=-1).astype(np.float32))
+    return shards
+
+
+def same_values(a, b):
+    """Equal values of equal types, through dicts, lists and arrays."""
+    if isinstance(b, dict):
+        return isinstance(a, dict) and list(a) == list(b) and all(same_values(a[k], b[k]) for k in b)
+    if isinstance(b, (list, tuple)):
+        return type(a) is type(b) and len(a) == len(b) and all(same_values(x, y) for x, y in zip(a, b))
+    if isinstance(b, np.ndarray):
+        return isinstance(a, np.ndarray) and a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b)
+    return type(a) is type(b) and a == b
+
+
+@contextlib.contextmanager
+def io_backend(name):
+    """``data.io`` pinned to the backend ``name`` (``KCCOT_FORCE_PY_IO``)."""
+    before = os.environ.pop("KCCOT_FORCE_PY_IO", None)
+    if name == "python":
+        os.environ["KCCOT_FORCE_PY_IO"] = "1"
+    try:
+        if data_io.backend() != name:
+            raise RuntimeError(f"data.io backend {data_io.backend()!r}, wanted {name!r}")
+        yield
+    finally:
+        os.environ.pop("KCCOT_FORCE_PY_IO", None)
+        if before is not None:
+            os.environ["KCCOT_FORCE_PY_IO"] = before
+
+
+def check_readers(root, shards):
+    """Phase 11b: the native backend on the card's host, byte-identical to
+    the Python one on every fixture shard (records under verify_crc, each
+    record's masked CRC32C, and the parse each loader uses) and in the
+    loaders' samples; records/s and videos/s of each backend."""
+    if data_io.backend() != "native":
+        raise RuntimeError(f"data.io backend {data_io.backend()!r}: the native reader did not load")
+    parse_of = {"bair": "parse_sequence_example", "animation": "parse_example_arrays", "mazes": "parse_example"}
+    n_records = {}
+    for kind, paths in shards.items():
+        n_records[kind] = 0
+        for path in paths:
+            recs = list(native_io.iter_tfrecord(str(path), verify_crc=True))
+            if recs != list(tfrecord.iter_tfrecord(str(path), verify_crc=True)) or not recs:
+                raise RuntimeError(f"{path}: the backends' records differ")
+            for rec in recs:
+                if native_io.masked_crc32c(rec) != tfrecord.masked_crc32c(rec) or not same_values(
+                        getattr(native_io, parse_of[kind])(rec), getattr(tfrecord, parse_of[kind])(rec)):
+                    raise RuntimeError(f"{path}: the backends' {parse_of[kind]} differ")
+            n_records[kind] += len(recs)
+    cfg = get_preset("robot_push")
+    t, m = cfg.total_time_steps, cfg.model
+    bair_root = str(root / "softmotion30_44k")
+    pattern = str(root / "animation" / "*.tfrecord")
+    train_shards = [str(p) for p in shards["bair"][:BAIR_SHARDS]]
+    rates, samples = {}, {}
+    for name in ("native", "python"):
+        with io_backend(name):
+            t0 = time.perf_counter()
+            n = sum(1 for path in train_shards for _ in data_io.iter_tfrecord(path))
+            t1 = time.perf_counter()
+            for path in train_shards:
+                for rec in data_io.iter_tfrecord(path):
+                    data_io.parse_sequence_example(rec)
+            t2 = time.perf_counter()
+            bair_videos = list(robot_push_samples(bair_root, t))
+            t3 = time.perf_counter()
+            flat = list(itertools.islice(flat_feature_samples(pattern, m.x_height, m.x_width, t, m.n_channels,
+                                                              seed=1), READER_VIDEOS))
+            t4 = time.perf_counter()
+        samples[name] = (bair_videos, flat)
+        rates[name] = {"bair_records_per_s": n / (t1 - t0), "bair_records_parsed_per_s": n / (t2 - t1),
+                       "robot_push_videos_per_s": len(bair_videos) / (t3 - t2),
+                       "flat_feature_videos_per_s": len(flat) / (t4 - t3)}
+    if len(samples["native"][0]) != BAIR_TRAIN or not same_values(samples["native"], samples["python"]):
+        raise RuntimeError("the loaders' samples differ between the backends")
+    return {"backend": data_io.backend(), "records_checked": n_records, "rates": rates}
+
+
+def rollout_counts(cfg, dev):
+    """(calls, launches) of each kernel in one rollout of ``cfg`` (seeded
+    weights, a uniform context), the ConvLSTM forward's launches checked
+    against 4 T_c + 8 T_p and no other kernel launched."""
+    params = init_generator_params(cfg, torch.Generator().manual_seed(0))
+    params = {part: {k: v.to(dev) for k, v in p.items()} for part, p in params.items()}
+    m = cfg.model
+    context = torch.rand(cfg.batch_size, m.x_height, cfg.int_time_steps, m.x_width, m.n_channels,
+                         generator=torch.Generator().manual_seed(0)).to(dev)
+    reset_counts()
+    build_rollout(cfg, device=dev)(params, context, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    got = counts()
+    if got["convlstm_fwd"][1] != 4 * cfg.int_time_steps + 8 * cfg.pred_time_steps or any(
+            c[1] for n, c in got.items() if n != "convlstm_fwd"):
+        raise RuntimeError(f"a rollout at {cfg.dname}: {got}")
+    return got
+
+
+def check_kernels_at(cfg, dev):
+    """Phase 11d: each kernel against its plain version at ``cfg``'s batch
+    and T, with the tolerances of mmnist_full: the ConvLSTM forward (and
+    its c stack) and backward at the 8 layer shapes (encoder over T,
+    decoder over T_p; enc4's M = B H W = 128 rows at B=8), the LSTM
+    forward and backward at lstm1-3 over T, and the Sinkhorn at [3, B,
+    B], L; f32 and bf16 (the Sinkhorn f32)."""
+    b, errs, failed = cfg.batch_size, {}, []
+    for i, (name, (hw, f, k)) in enumerate(convlstm_layers(cfg).items()):
+        t = cfg.total_time_steps if name.startswith("enc") else cfg.pred_time_steps
+        for dtype in (torch.float32, torch.bfloat16):
+            args = layer_inputs(hw, f, k, dtype, dev, seed=700 + i, t=t, b=b)
+            g = torch.Generator().manual_seed(800 + i)
+            y_p, cs_p, h_p, c_p = convlstm_fwd_reference(*args)
+            got_f = convlstm_fwd(*args, with_c_stack=True)
+            cot = (torch.randn(y_p.shape, generator=g).to(dev, dtype), torch.randn(h_p.shape, generator=g).to(dev),
+                   torch.randn(c_p.shape, generator=g).to(dev))
+            got = convlstm_bwd(*args, y_p, cs_p, *cot)
+            want = convlstm_bwd_reference(*args, y_p, cs_p, *cot)
+            torch.cuda.synchronize()
+            tag = f"{name} B={b} T={t} {str(dtype).removeprefix('torch.')}"
+            e_fwd = max_err(got_f, (y_p, cs_p, h_p, c_p))
+            e_bwd = max(rel_err([a], [w]) for a, w in zip(got, want))
+            errs[tag] = {"forward_max_abs_err": e_fwd, "grad_err_of_largest": e_bwd}
+            if not (e_fwd <= TOL[dtype] and e_bwd <= GRAD_TOL[dtype]):
+                failed.append(tag)
+    t = cfg.total_time_steps
+    for i, (name, (feat, u)) in enumerate(lstm_layers(cfg).items()):
+        act = "sigmoid" if name == "lstm3" else "tanh"
+        for dtype in (torch.float32, torch.bfloat16):
+            args = lstm_inputs(feat, u, dtype, dev, seed=900 + i, b=b, t=t)
+            g = torch.Generator().manual_seed(950 + i)
+            y_p, cs_p, h_p, c_p = lstm_scan_reference(*args, act)
+            got_f = lstm_fwd(*args, act, with_c_stack=True)
+            cot = (torch.randn(y_p.shape, generator=g).to(dev, dtype), torch.randn(h_p.shape, generator=g).to(dev),
+                   torch.randn(c_p.shape, generator=g).to(dev))
+            got = lstm_bwd(*args, y_p, cs_p, *cot, act)
+            want = lstm_bwd_reference(*args, y_p, cs_p, *cot, act)
+            torch.cuda.synchronize()
+            tag = f"{name} U={u} B={b} T={t} {str(dtype).removeprefix('torch.')}"
+            e_fwd = max_err(got_f, (y_p, cs_p, h_p, c_p))
+            e_bwd = max(rel_err([a], [w]) for a, w in zip(got, want))
+            errs[tag] = {"forward_max_abs_err": e_fwd, "grad_err_of_largest": e_bwd}
+            if not (e_fwd <= TOL[dtype] and e_bwd <= GRAD_TOL[dtype]):
+                failed.append(tag)
+    g = torch.Generator().manual_seed(b)
+    c = (torch.randn(SINK_K, b, b, generator=g).abs() * 3.0 + 0.1).to(dev)
+    cot = torch.randn(SINK_K, generator=g).to(dev)
+    cost_k, uh_k, vh_k = sinkhorn_fwd(c, SINK_EPS, cfg.sinkhorn_l)
+    cbar_k = sinkhorn_bwd(c, uh_k, vh_k, cot, SINK_EPS)
+    cp = c.clone().requires_grad_(True)
+    cost_p, uh_p, vh_p = sinkhorn_fwd_reference(cp, SINK_EPS, cfg.sinkhorn_l)
+    (cbar_p,) = torch.autograd.grad((cost_p * cot).sum(), cp)
+    cost_p, uh_p, vh_p = cost_p.detach(), uh_p.detach(), vh_p.detach()
+    torch.cuda.synchronize()
+    e_cost = float(((cost_k - cost_p).abs() / cost_p.abs()).max())
+    e_hist = max(float((uh_k - uh_p).abs().max()), float((vh_k - vh_p).abs().max()))
+    e_cbar = float((cbar_k - cbar_p).abs().max())
+    tag = f"sinkhorn [{SINK_K}, {b}, {b}] L={cfg.sinkhorn_l} float32"
+    errs[tag] = {"cost_rel_err": e_cost, "history_max_err": e_hist, "c_bar_max_err": e_cbar}
+    if not (e_cost <= SINK_TOL["cost_rtol"] and e_hist <= SINK_TOL["hist_atol"]
+            and bool(((cbar_k - cbar_p).abs() <= SINK_TOL["cbar_atol"] + SINK_TOL["cbar_rtol"] * cbar_p.abs()).all())
+            and e_cbar <= SINK_TOL["cbar_of_largest"] * float(cbar_p.abs().max())):
+        failed.append(tag)
+    print(json.dumps({"kernels_at_preset": {"preset": cfg.dname, "tol": {
+        "forward_abs": {str(d).removeprefix("torch."): v for d, v in TOL.items()},
+        "grad_of_largest": {str(d).removeprefix("torch."): v for d, v in GRAD_TOL.items()}, "sinkhorn": SINK_TOL},
+        "errors": errs}}), flush=True)
+    if failed:
+        raise RuntimeError(f"kernels disagree with their plain versions at {cfg.dname}: {failed}")
+
+
+def time_data_loop(tmp, cfg, host_batches):
+    """Phase 11e: ``Trainer.fit`` reading the fixture through
+    ``make_dataset`` (the reader, its shuffle buffer, the pinning thread
+    and the copy to the card; LOOP_STEPS steps, no checkpoint or sample),
+    ``Trainer.fit`` over the same batches read beforehand (the loop
+    without the reader, as phase 9c times it), and the bare step on those
+    batches staged on the card (host clock and a final synchronize), in
+    turns: reader, memory, bare, bare, memory, reader.  Each reader
+    window's prefetch wait a step (the step's side), and the reader's time
+    for the first batch (the shuffle buffer's fill) and for each later one
+    (in the pinning thread)."""
+    cfg = dataclasses.replace(cfg, kernel_impl="pallas", ckpt_freq=10**9, save_freq=10**9, out_dir=str(tmp),
+                              run_name="data_loop")
+    trainer = Trainer(cfg)
+    state0 = create_train_state(cfg)
+    staged = [torch.from_numpy(b).cuda() for b in host_batches]
+    frames = LOOP_STEPS * cfg.batch_size * cfg.total_time_steps
+    runs, waits = {"reader": [], "memory": [], "bare": []}, []
+    for kind in ("reader", "memory", "bare", "bare", "memory", "reader"):
+        torch.cuda.synchronize()
+        if kind == "bare":
+            t0 = time.perf_counter()
+            state = state0
+            for batch in staged:
+                state, _ = trainer.train_step(state, batch)
+            torch.cuda.synchronize()
+            runs["bare"].append(frames / (time.perf_counter() - t0))
+            continue
+        batches = make_dataset(cfg)[0] if kind == "reader" else iter(host_batches)
+        read_ms = []
+
+        def clocked():  # each batch's time in the reader (in the pinning thread)
+            while True:
+                t0 = time.perf_counter()
+                batch = next(batches, None)
+                read_ms.append((time.perf_counter() - t0) * 1e3)
+                if batch is None:
+                    return
+                yield batch
+
+        _, summary = trainer.fit(clocked(), state=state0, max_steps=LOOP_STEPS)
+        if summary["steps"] != LOOP_STEPS:
+            raise RuntimeError(f"data loop window ({kind}): {summary}")
+        runs[kind].append(summary["frames_per_sec"])
+        if kind == "reader":
+            wait = trainer.timings["prefetch_wait"]
+            waits.append({"prefetch_wait_mean_ms": wait["sum_ms"] / LOOP_STEPS, "prefetch_wait_max_ms": wait["max_ms"],
+                          "reader_first_batch_ms": read_ms[0],
+                          "reader_mean_ms_after_first": sum(read_ms[1:LOOP_STEPS]) / (LOOP_STEPS - 1)})
+    return {k: sum(v) / len(v) for k, v in runs.items()}, runs, waits
+
+
+def check_data_preset(card, name, root, tmp, dev, check_kernels):
+    """Phase 11c-e at the preset ``name`` on the fixtures under ``root``:
+    the CLI (TRAINER_STEPS 'pallas' steps, samples with PSNR/SSIM on the
+    test batch, every kernel's calls and launches those of the steps and
+    the samples, derived from the preset's T); 'pallas' against 'scan'
+    from one state, z and the first batch the reader yields, f32 and bf16,
+    counted; with ``check_kernels`` each kernel against its plain version
+    at this batch and T; the bf16 iteration timed against 'scan' in turns
+    and profiled; the loop through the reader against the bare step."""
+    seconds = {}
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_preset(name), data_path=str(root))
+    per_step = pallas_counts(cfg)
+    batches, test = make_dataset(cfg)
+    host_batches = list(itertools.islice(batches, LOOP_STEPS))
+    first = host_batches[0]
+    if test is None or test.shape != first.shape or first.shape[-1] != 3:
+        raise RuntimeError(f"{name}: batch {first.shape}, test batch {None if test is None else test.shape}")
+    summary, launched = check_trainer_cli(tmp / "runs", root, tag=f"{name}_cli", per_step=per_step, preset=name,
+                                          dname=name)
+    seconds["cli"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    state0, video, zs, steps, per_iter, _ = check_engines(cfg, dev, per_step=per_step, video=first, preset=name)
+    seconds["engines"] = time.perf_counter() - t0
+    if check_kernels:
+        t0 = time.perf_counter()
+        check_kernels_at(cfg, dev)
+        seconds["kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    step_ms, profiles, peak = time_training(
+        card, cfg, state0, video, zs, (("scan", steps["scan"]), ("pallas", steps["pallas"])), "lstm",
+        f"{name}_engine_timings", required=TC_KERNELS + LSTM_TC_KERNELS, preset=name)
+    seconds["timings"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fps, fps_runs, waits = time_data_loop(tmp / "loop", cfg, host_batches)
+    seconds["loop"] = time.perf_counter() - t0
+    frames = cfg.batch_size * cfg.total_time_steps
+    pallas = profiles["pallas"]
+    out = {
+        "card": card, "preset": name, "batch": list(first.shape), "kernel_impl": "pallas",
+        "compute_dtype": cfg.compute_dtype,
+        "cli_launches": {n: c for n, c in launched.items()}, "expected_per_iteration": per_step,
+        "per_iteration": per_iter[0],
+        "eager_ms": step_ms["pallas"], "scan_eager_ms": step_ms["scan"],
+        "busy_ms": pallas["profiled_busy_ms"], "idle_share": pallas["idle_share_eager"],
+        "device_events": pallas["device_events"], "peak_gib": peak["pallas"],
+        "training_frames_per_s": frames / (step_ms["pallas"] / 1e3),
+        "loop_frames_per_s": fps["reader"], "loop_from_memory_frames_per_s": fps["memory"],
+        "bare_step_frames_per_s": fps["bare"], "loop_over_bare": fps["reader"] / fps["bare"],
+        "memory_loop_over_bare": fps["memory"] / fps["bare"], "frames_per_s_runs": fps_runs, "loop_waits": waits,
+        "cli_summary": summary, "seconds": seconds,
+    }
+    print(json.dumps({f"{name}_dataset": out}), flush=True)
+
+
+def check_datasets(card, dev):
+    """Phase 11: the readers and the RGB presets on the card."""
+    have = {m: importlib.util.find_spec(m) is not None for m in ("PIL", "cv2")}
+    print(f"[datasets] on this host: PIL {'present' if have['PIL'] else 'absent'}, "
+          f"cv2 {'present' if have['cv2'] else 'absent'}", flush=True)
+    presets = DATA_PRESETS if have["PIL"] else DATA_PRESETS[:1]
+    if not have["PIL"]:
+        print("[datasets] mazes not run: its reader decodes JPEG frames with PIL, which this host lacks",
+              flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp) / "data"
+        t0 = time.perf_counter()
+        shards = write_data_fixtures(root, have["PIL"])
+        fixtures_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        readers = check_readers(root, shards)
+        if have["PIL"]:
+            mazes = get_preset("mazes")
+            reader = GqnReader("mazes", mazes.total_time_steps, str(root), custom_frame_size=mazes.model.x_height,
+                               seed=1)
+            t1 = time.perf_counter()
+            n = len(list(itertools.islice(reader.samples(), READER_VIDEOS)))
+            readers["gqn_decode_videos_per_s"] = n / (time.perf_counter() - t1)
+            readers["gqn_decode_workers"] = reader.decode_workers
+        readers_s = time.perf_counter() - t0
+        for i, name in enumerate(presets):
+            check_data_preset(card, name, root, Path(tmp) / name, dev, check_kernels=i == 0)
+    print(json.dumps({"datasets": {"card": card, "have": have, "readers": readers, "fixtures_s": fixtures_s,
+                                   "readers_s": readers_s,
+                                   "not_run": [] if have["PIL"] else ["mazes: no PIL on this host"]}}), flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -1568,11 +1986,23 @@ def main():
     t0 = time.perf_counter()
     lib = load_library()
     print(f"[build] kernels built and loaded in {time.perf_counter() - t0:.2f} s", flush=True)
+    phase_s, lap = {}, [t0]
+
+    def done(phase):  # seconds since the previous phase ended
+        now = time.perf_counter()
+        phase_s[phase] = now - lap[0]
+        lap[0] = now
+        print(f"[phase] {phase}: {phase_s[phase]:.1f} s", flush=True)
+
+    done("build")
     check_sass(lib)
     sinkhorn_registers()
 
+    done("sass_and_registers")
     errs, layer_times = check_layers(dev)
+    done("2_layers")
     sink_errs, sink_times = check_sinkhorn(dev)
+    done("sinkhorn")
 
     base = get_preset(PRESET)
     m = base.model
@@ -1614,32 +2044,44 @@ def main():
     # Phase 5: per path, where the rollout's device time goes.
     for path, fn in (("plain", rollout_p), ("kernel", rollout_k)):
         profile_rollout(path, lambda: fn(params, context, z=z), tc=base.compute_dtype == "bfloat16")
+    done("3-5_rollout")
 
     # Phase 6: the 'scan' training path, through the Sinkhorn kernels and plain.
     state0, video, zs, step_k, step_p, train_launches = check_training(base, dev)
     time_training(card, base, state0, video, zs, (("plain", step_p), ("kernel", step_k)),
                   "sinkhorn", "training_timings")
+    done("6_scan_training")
 
     # Phase 7: the recurrence kernels' backward and the LSTM kernels alone.
     bwd_errs, bwd_times = check_convlstm_bwd(dev)
     lstm_errs, lstm_times = check_lstm(dev)
     check_lstm_wide(dev)
+    done("7_backward_and_lstm")
 
     # Phase 8: the 'pallas' training path (every recurrence through its
     # kernels) against 'scan', counted per iteration, then timed.
     state0, video, zs, steps, per_iter, pallas_counts = check_engines(base, dev)
-    engine_ms, _ = time_training(
+    engine_ms, _, _ = time_training(
         card, base, state0, video, zs, (("scan", steps["scan"]), ("pallas", steps["pallas"])),
         "lstm", "engine_timings",
         required=TC_KERNELS + LSTM_TC_KERNELS if base.compute_dtype == "bfloat16" else ())
+    done("8_pallas_training")
 
     # Phase 9: the trainer's path (CLI, resume, loop against the bare step),
     # every kernel counted over the CLI's run.
     trainer_counts = check_trainer(card, base, engine_ms["pallas"])
+    done("9_trainer")
 
     # Phase 10: the training options (smoothing, sigma annealing, dropout),
     # each path counted from zero around its run.
     check_options(card, base, dev)
+    done("10_options")
+
+    # Phase 11: the readers and the RGB presets robot_push (and mazes, with
+    # PIL) through the CLI, each path counted from zero around its run.
+    check_datasets(card, dev)
+    done("11_datasets")
+    print(json.dumps({"phase_seconds": phase_s}), flush=True)
 
     # Bounds of the work timed: the 8 T=10 layer scans of phase 2, one
     # Sinkhorn launch at the training step's [3, B, B], L, the 8 layer

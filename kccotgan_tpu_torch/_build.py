@@ -1,11 +1,16 @@
-"""Build the CUDA sources under ``csrc/`` and load them with ctypes.
+"""Build the sources under ``csrc/`` and load them with ctypes.
 
-The sources have a plain C interface, so ``nvcc`` builds them in seconds
-without PyTorch's headers: one ``nvcc`` per ``.cu``, all started
-together, then one link.  The shared library goes to
-``build/kccotgan_tpu_torch/`` at the repository root, named by a hash of
-the sources (headers included) and flags: an edited source is rebuilt at
-first use, never served stale.  Nothing here runs at import time.
+The CUDA sources have a plain C interface, so ``nvcc`` builds them in
+seconds without PyTorch's headers: one ``nvcc`` per ``.cu``, all started
+together, then one link (``load_library``).  The TFRecord reader
+``kccot_io.cc`` is host code, built apart by the host C++ compiler
+(``load_io_library``) and never linked with the kernels.  Each shared
+library goes to ``build/kccotgan_tpu_torch/`` at the repository root,
+named by a hash of its sources (headers included) and flags, and is
+written under a temporary name and renamed into place, so that
+processes building it at once never load a half-written file and an
+edited source is rebuilt at first use, never served stale.  Nothing here runs at
+import time.
 """
 
 from __future__ import annotations
@@ -16,9 +21,10 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "load_library"]
+__all__ = ["BUILD_DIR", "IO_FLAGS", "cxx", "load_io_library", "load_library"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kccotgan_tpu_torch"
@@ -26,6 +32,41 @@ _FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
+
+
+# native/Makefile's flags for the host reader.
+IO_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-Wall", "-Wextra", "-fvisibility=hidden", "-shared"]
+
+
+@functools.cache
+def cxx() -> str | None:
+    """The host C++ compiler, ``$CXX`` or else ``g++``, as a path; None if
+    it is not on PATH."""
+    return shutil.which(os.environ.get("CXX") or "g++")
+
+
+@functools.cache
+def load_io_library() -> ctypes.CDLL:
+    """Build (if needed) and load the host TFRecord reader
+    ``csrc/kccot_io.cc``.  Raises with the compiler's output if the build
+    fails, and if there is no compiler."""
+    compiler = cxx()
+    if compiler is None:
+        raise RuntimeError(f"no C++ compiler: {os.environ.get('CXX') or 'g++'} is not on PATH")
+    src = _CSRC / "kccot_io.cc"
+    digest = hashlib.sha256(" ".join([compiler, *IO_FLAGS]).encode())
+    digest.update(src.read_bytes())
+    lib_path = BUILD_DIR / f"libkccot_io_{digest.hexdigest()[:16]}.so"
+    if not lib_path.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib_path.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+        cmd = [compiler, *IO_FLAGS, "-o", str(tmp), str(src)]
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"{compiler} failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}")
+        os.replace(tmp, lib_path)
+    return ctypes.CDLL(str(lib_path))
 
 
 def _nvcc() -> str:

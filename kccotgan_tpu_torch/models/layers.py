@@ -178,7 +178,10 @@ class ConvLSTM2D(nn.Module):
                 x_seq.reshape(b * t, h, w, c), self.kernel, self.strides, self.cdt, out_dtype=self.cdt
             )
         ho, wo = xconv.shape[1], xconv.shape[2]
-        xconv = xconv.reshape(b, t, ho, wo, 4 * f)
+        # The kernels take a C-contiguous stack.  An input in NCHW strides
+        # (a generated RGB frame fed back in the rollout) gives the conv
+        # an NCHW output, which the NHWC view leaves strided.
+        xconv = xconv.reshape(b, t, ho, wo, 4 * f).contiguous()
         rec_masks = None
         if rec_p > 0.0:
             keep = 1.0 - rec_p

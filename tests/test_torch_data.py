@@ -124,10 +124,14 @@ def test_make_dataset_mmnist_equal_jax(tmp_path, with_test):
     assert_same_items(got_it, want_it)
 
 
-@pytest.mark.parametrize("dname", ["mazes", "robot_push", "kth", "penn_action", "ucf"])
-def test_make_dataset_names_what_is_not_ported(dname):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 2"):
-        datasets.make_dataset(port_cfg(tiny_cfg(dname=dname)))
+def test_make_dataset_refuses_an_unknown_name():
+    """As JAX's: a ``ValueError`` naming the dataset (the readers of every
+    other name are held to JAX's in ``tests/test_torch_readers.py``)."""
+    cfg = tiny_cfg(dname="no_such_set")
+    with pytest.raises(ValueError, match="unknown dataset 'no_such_set'"):
+        jax_datasets.make_dataset(cfg)
+    with pytest.raises(ValueError, match="unknown dataset 'no_such_set'"):
+        datasets.make_dataset(port_cfg(cfg))
 
 
 def test_cpu_prefetch_yields_float32_tensors():
