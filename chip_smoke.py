@@ -69,7 +69,19 @@ ported paths at the ``mmnist_full`` preset (B=32, 64x64x1, 10 context +
   ``'pallas'`` against ``'scan'`` on the reader's first batch in f32 and
   bf16, each kernel against its plain version at B=8 and T=15/10, the
   bf16 iteration timed and profiled, and the loop reading the fixture
-  against the loop from memory and the bare step.
+  against the loop from memory and the bare step;
+* serving, from a checkpoint of the seeded ``mmnist_full`` state:
+  ``cli.sample`` (32 videos, best-of-4, the rollouts replayed from a CUDA
+  graph; without matplotlib its functions, all but the PNG) and
+  ``cli.export --check`` (the ``torch.export`` artifact equal to the live
+  rollout to the bit), counted; the sample's rollout and best-of-K through
+  the eager rollout, counted and equal to the graph's; the graph rollout
+  and the loaded artifact equal to the eager rollout to the bit, and the
+  artifact within the rollout's tolerance of the plain one, at B = 32 and
+  7; the ConvLSTM forward's tensor-core kernel in a trace of the
+  artifact's graph replay, once a step; eager, eager without the
+  registered operator, graph, artifact and the artifact's program run
+  eagerly, timed in turns, and best-of-K timed (the ``serving`` line).
 
 The bf16 engine runs the ConvLSTM's recurrent conv, dh and drk, and the
 dense LSTM's step, dh and dR, on the tensor cores: the built library's
@@ -107,7 +119,9 @@ import torch
 import torch.nn.functional as F
 
 from kccotgan_tpu_torch._build import _FLAGS, BUILD_DIR, _nvcc, load_library
-from kccotgan_tpu_torch.ckpt import latest_step
+from kccotgan_tpu_torch.ckpt import latest_step, save_checkpoint
+from kccotgan_tpu_torch.cli import export as export_cli
+from kccotgan_tpu_torch.cli import sample as sample_cli
 from kccotgan_tpu_torch.cli.main import main as train_main
 from kccotgan_tpu_torch.config import get_preset
 from kccotgan_tpu_torch.data import (
@@ -127,6 +141,9 @@ from kccotgan_tpu_torch.data import io as data_io
 from kccotgan_tpu_torch.data.bair import robot_push_samples
 from kccotgan_tpu_torch.data.generic import flat_feature_samples
 from kccotgan_tpu_torch.data.gqn import GQN_DATASETS, GqnReader, gqn_record_files
+from kccotgan_tpu_torch.eval import best_of_k
+from kccotgan_tpu_torch.export import load_rollout
+from kccotgan_tpu_torch.models import layers as model_layers
 from kccotgan_tpu_torch.models.cuda_convlstm import (
     _fwd_plain,
     convlstm_bwd,
@@ -161,6 +178,7 @@ from kccotgan_tpu_torch.roofline import (
 )
 from kccotgan_tpu_torch.smoothing import annealing_sigma, apply_smoothing
 from kccotgan_tpu_torch.train import Trainer, build_rollout, build_train_step, create_train_state
+from kccotgan_tpu_torch.train.rollout import graph_rollout
 from kccotgan_tpu_torch.weights import init_generator_params
 
 PRESET = "mmnist_full"
@@ -1968,6 +1986,218 @@ def check_datasets(card, dev):
                                    "not_run": [] if have["PIL"] else ["mazes: no PIL on this host"]}}), flush=True)
 
 
+# Phase 12, serving: cli.sample draws SERVING_NUM videos with best-of-K
+# over SERVING_K rollouts; the graph rollout, the loaded artifact and the
+# live rollout are timed at each of SERVING_BATCHES, in turns.
+SERVING_NUM, SERVING_K = 32, 4
+SERVING_BATCHES = (32, 7)
+
+
+def direct_scan(xconv, h0, c0, rec_kernel, bias, rec_masks=None):
+    """The inference recurrence as it ran before the registered operator:
+    ``convlstm_fwd`` called straight from the layer (its host time is what
+    the operator's dispatch is measured against)."""
+    y, _, h, c = convlstm_fwd(xconv, h0, c0, rec_kernel, bias, rec_masks=rec_masks)
+    return y, (h, c)
+
+
+@contextlib.contextmanager
+def recurrence(scan):
+    """``ConvLSTM2D`` runs ``scan`` in place of ``convlstm_scan`` inside."""
+    saved = model_layers.convlstm_scan
+    model_layers.convlstm_scan = scan
+    try:
+        yield
+    finally:
+        model_layers.convlstm_scan = saved
+
+
+def run_with(scan, rollout, params, context, z):
+    with recurrence(scan):
+        return rollout(params, context, z=z)
+
+
+def run_quiet(fn, *args, **kwargs):
+    """``(fn's result, its stdout lines)``."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        result = fn(*args, **kwargs)
+    return result, out.getvalue().splitlines()
+
+
+def sample_without_png(argv, dev):
+    """cli.sample's steps but its film-strip PNG (matplotlib): load,
+    rollout and best-of-K through the graph rollout, the metrics line, the
+    GIF (PIL)."""
+    args = sample_cli.build_parser().parse_args(argv)
+    cfg, state, params, test_batch = sample_cli.load(args, dev)
+    video, metrics = sample_cli.predict(graph_rollout(cfg, params, device=dev), params, test_batch, cfg,
+                                        seed=args.seed, metrics_k=args.metrics_k, device=dev)
+    print(sample_cli.metrics_line(metrics, args.metrics_k))
+    os.makedirs(args.out, exist_ok=True)
+    print(f"wrote {sample_cli.write_gif(video.cpu().numpy(), args.out, args.fps)} (step {state.step})")
+    return 0
+
+
+def check_serving(card, base, dev):
+    """Phase 12, the serving entry points at mmnist_full, B=32, bf16, from a
+    checkpoint of the seeded state: cli.sample (--num 32 --metrics_k 4,
+    the graph rollout) and cli.export --check (difference exactly 0),
+    counted from zero as the main path; the same sample's rollout and
+    best-of-K through the eager rollout, counted (5 x 120 launches) and
+    equal to the graph's; the graph rollout bit-equal to eager, the loaded
+    artifact bit-equal to the live rollout and within ROLLOUT_TOL of the
+    plain one, at B = 32 and 7; the ConvLSTM forward's tensor-core kernel
+    in a trace of the artifact's replay; then eager, eager without the
+    registered operator, graph, artifact and the artifact's program run
+    eagerly, timed in turns, and best-of-K timed.  Returns the main path's
+    counts."""
+    have_mpl = importlib.util.find_spec("matplotlib") is not None
+    print(f"[serving] matplotlib {'present' if have_mpl else 'absent: cli.sample driven through its functions, no PNG'}",
+          flush=True)
+    calls = 4 + 8 * base.pred_time_steps
+    launches = 4 * base.int_time_steps + 8 * base.pred_time_steps
+    seconds = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        write_fixture(tmp / "data")
+        state = create_train_state(base, device=dev)
+        save_checkpoint(str(tmp / "ckpt"), state)
+        seconds["fixture_and_checkpoint"] = time.perf_counter() - t0
+        sample_argv = ["--preset", PRESET, "--ckpt", str(tmp / "ckpt"), "--data_path", str(tmp / "data"),
+                       "--out", str(tmp / "samples"), "--num", str(SERVING_NUM), "--metrics_k", str(SERVING_K)]
+        export_argv = ["--preset", PRESET, "--ckpt", str(tmp / "ckpt"), "--out", str(tmp / "model.kccot"),
+                       "--check"]
+
+        # The main path, counted: the sampler (a graph's warm-up and capture
+        # at B = 32, then replays) and the exporter's check (the artifact's
+        # warm-up and capture at B = 2, and one live rollout).
+        reset_counts()
+        t0 = time.perf_counter()
+        if have_mpl:
+            rc, sample_lines = run_quiet(sample_cli.main, sample_argv, device=dev)
+        else:
+            rc, sample_lines = run_quiet(sample_without_png, sample_argv, dev)
+        torch.cuda.synchronize()
+        seconds["cli_sample"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rc_export, export_lines = run_quiet(export_cli.main, export_argv, device=dev)
+        torch.cuda.synchronize()
+        seconds["cli_export_check"] = time.perf_counter() - t0
+        main_counts = counts()
+        images = sorted(p.name for p in (tmp / "samples").iterdir())
+        want_images = ["rollout.gif", "rollout_strips.png"] if have_mpl else ["rollout.gif"]
+        best = json.loads(sample_lines[0])
+        check = [line for line in export_lines if line.startswith("check:")]
+        print(json.dumps({"serving_cli": {"sample_rc": rc, "sample_lines": sample_lines, "images": images,
+                                          "export_rc": rc_export, "export_lines": export_lines,
+                                          "launches": main_counts}}), flush=True)
+        if rc != 0 or images != want_images or best["best_of_k"] != SERVING_K:
+            raise RuntimeError(f"cli.sample: rc {rc}, images {images}, line {sample_lines[:1]}")
+        if not all(np.isfinite([best["psnr"], best["ssim"], *best["psnr_per_step"], *best["ssim_per_step"]])):
+            raise RuntimeError(f"cli.sample: best-of-K not finite: {best}")
+        if rc_export != 0 or len(check) != 1 or not check[0].startswith("check: max|artifact - live rollout| = 0.0 "):
+            raise RuntimeError(f"cli.export --check: rc {rc_export}, {export_lines}")
+        want = {n: [0, 0] for n in COUNTED}
+        want["convlstm_fwd"] = [5 * calls, 5 * launches]
+        if main_counts != want:
+            raise RuntimeError(f"serving main path: (calls, launches) {main_counts}, expected {want}")
+
+        # The sampler's rollout and best-of-K through the eager rollout:
+        # 1 + K rollouts, each counted, and the same line as the graph's.
+        args = sample_cli.build_parser().parse_args(sample_argv)
+        cfg, _, params, test_batch = sample_cli.load(args, dev)
+        eager = build_rollout(cfg, device=dev)
+        reset_counts()
+        _, metrics = sample_cli.predict(eager, params, test_batch, cfg, seed=args.seed, metrics_k=SERVING_K,
+                                        device=dev)
+        torch.cuda.synchronize()
+        eager_counts = counts()
+        want["convlstm_fwd"] = [(1 + SERVING_K) * calls, (1 + SERVING_K) * launches]
+        if eager_counts != want or sample_cli.metrics_line(metrics, SERVING_K) != sample_lines[0]:
+            raise RuntimeError(f"eager sample: {eager_counts} (expected {want}), "
+                               f"{sample_cli.metrics_line(metrics, SERVING_K)} against {sample_lines[0]}")
+
+        # The graph and the artifact against the live and the plain rollouts.
+        t0 = time.perf_counter()
+        serve = load_rollout(str(tmp / "model.kccot"))
+        seconds["load_artifact"] = time.perf_counter() - t0
+        artifact_mb = (tmp / "model.kccot").stat().st_size / 1e6
+        graphed = graph_rollout(cfg, params, device=dev)
+        plain = build_rollout(cfg, device=dev, plain=True)
+        m = cfg.model
+        diffs, timings, inputs = {}, {}, {}
+        for b in SERVING_BATCHES:
+            context = torch.rand(b, m.x_height, cfg.int_time_steps, m.x_width, m.n_channels,
+                                 generator=torch.Generator().manual_seed(b)).to(dev)
+            z = serve.noise(b, seed=b)
+            inputs[b] = context, z
+            live = eager(params, context, z=z)
+            with recurrence(direct_scan):
+                direct = eager(params, context, z=z)
+            via_graph = graphed(params, context, z=z)
+            via_artifact = serve(context, seed=b)
+            via_program = serve.run(context, z)
+            reference = plain(params, context, z=z)
+            torch.cuda.synchronize()
+            shape = (b, m.x_height, cfg.int_time_steps + cfg.pred_time_steps, m.x_width, m.n_channels)
+            diffs[b] = {
+                "graph_equals_eager": bool(torch.equal(via_graph, live)),
+                "direct_equals_eager": bool(torch.equal(direct, live)),
+                "artifact_equals_live": bool(torch.equal(via_artifact, live)),
+                "artifact_program_equals_live": bool(torch.equal(via_program, live)),
+                "artifact_vs_plain_max_abs": float((via_artifact - reference).abs().max()),
+            }
+            bad = [k for k, v in diffs[b].items() if v is False]
+            if bad or tuple(via_artifact.shape) != shape or not bool(torch.isfinite(via_artifact).all()):
+                raise RuntimeError(f"serving at B={b}: {diffs[b]}, shape {tuple(via_artifact.shape)}")
+            if not torch.equal(via_artifact[:, :, : cfg.int_time_steps], context):
+                raise RuntimeError(f"serving at B={b}: the artifact changed the context frames")
+            if not diffs[b]["artifact_vs_plain_max_abs"] <= ROLLOUT_TOL[torch.bfloat16]:
+                raise RuntimeError(f"serving at B={b}: artifact vs plain rollout {diffs[b]}")
+
+        # The artifact's replay in a trace: the forward kernel, once a step.
+        context, _ = inputs[SERVING_BATCHES[0]]
+        serve(context, seed=0)
+        _, _, n_events, by_name, n_by_name = profiled(
+            lambda: serve(context, seed=0), TC_KERNELS[:1], "artifact replay")
+        replay_launches = sum(n for name, n in n_by_name.items() if "convlstm" in name)
+        replay_kernel_ms = sum(t for name, t in by_name.items() if "convlstm" in name)
+
+        # Timings in turns, then reversed; best-of-K through the graph.
+        paths = {
+            "eager": lambda b: eager(params, inputs[b][0], z=inputs[b][1]),
+            "eager_without_operator": lambda b: run_with(direct_scan, eager, params, *inputs[b]),
+            "graph": lambda b: graphed(params, inputs[b][0], z=inputs[b][1]),
+            "artifact": lambda b: serve(inputs[b][0], seed=b),
+            "artifact_program_eager": lambda b: serve.run(*inputs[b]),
+        }
+        for b in SERVING_BATCHES:
+            runs = {name: [] for name in paths}
+            for name in [*paths, *reversed(paths)]:
+                runs[name].append(cuda_ms(lambda: paths[name](b), reps=3))
+            ms = {name: sum(v) / len(v) for name, v in runs.items()}
+            timings[b] = {"ms": ms, "ms_runs": runs,
+                          "frames_per_s": {n: b * cfg.pred_time_steps / (t / 1e3) for n, t in ms.items()}}
+        best_ms = cuda_ms(lambda: best_of_k(graphed, params, test_batch, cfg.int_time_steps,
+                                            torch.Generator(dev).manual_seed(1), k=SERVING_K), reps=2)
+    out = {
+        "card": card, "preset": PRESET, "compute_dtype": cfg.compute_dtype, "batches": list(SERVING_BATCHES),
+        "best_of_k_line": best, "main_path_launches": main_counts, "eager_sample_launches": eager_counts,
+        "per_rollout": {"calls": calls, "launches": launches}, "checks": diffs,
+        "artifact_replay_trace": {"convlstm_kernel_events": replay_launches, "convlstm_kernel_ms": replay_kernel_ms,
+                                  "device_events": n_events},
+        "timings": timings, "best_of_k_ms": best_ms, "best_of_k_k": SERVING_K,
+        "artifact_mb": artifact_mb,
+        "seconds": seconds,
+    }
+    print(json.dumps({"serving": out}), flush=True)
+    if replay_launches != launches:
+        raise RuntimeError(f"the artifact's replay traced {replay_launches} ConvLSTM kernels, expected {launches}")
+    return main_counts
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -2081,6 +2311,12 @@ def main():
     # PIL) through the CLI, each path counted from zero around its run.
     check_datasets(card, dev)
     done("11_datasets")
+
+    # Phase 12: the serving entry points (cli.sample with best-of-K, the
+    # graph rollout, cli.export and the loaded artifact), counted from zero
+    # around cli.sample and cli.export --check.
+    serving_counts = check_serving(card, base, dev)
+    done("12_serving")
     print(json.dumps({"phase_seconds": phase_s}), flush=True)
 
     # Bounds of the work timed: the 8 T=10 layer scans of phase 2, one
@@ -2107,11 +2343,14 @@ def main():
         return sum(r[key] for r in runs) if all(key in r for r in runs) else None
 
     n_samples = len([1] + list(range(TRAINER_EVERY, TRAINER_STEPS + 1, TRAINER_EVERY)))
-    launches_over = f"trainer_cli: {TRAINER_STEPS} 'pallas' iterations + {n_samples} sampling rollouts"
+    launches_over = (f"trainer_cli: {TRAINER_STEPS} 'pallas' iterations + {n_samples} sampling rollouts; "
+                     f"serving: cli.sample (--num {SERVING_NUM} --metrics_k {SERVING_K}, a CUDA graph's "
+                     "warm-up and capture) + cli.export --check (the artifact's warm-up and capture, "
+                     "one live rollout)")
 
     def entry(name, ms, plain_ms, bound, by, library_ms, max_abs_err):
-        return dict(KERNELS[name], launches=trainer_counts[name][1], launches_over=launches_over,
-                    max_abs_err=max_abs_err, ms=ms,
+        return dict(KERNELS[name], launches=trainer_counts[name][1] + serving_counts[name][1],
+                    launches_over=launches_over, max_abs_err=max_abs_err, ms=ms,
                     plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=library_ms)
 
     kernels = [

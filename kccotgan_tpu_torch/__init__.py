@@ -12,7 +12,13 @@ run as plain loops under autograd with ``kernel_impl='scan'``, or under
 ``'pallas'`` through the ConvLSTM forward and backward
 (``csrc/convlstm_bwd.cu``) and the dense LSTM forward and backward
 (``csrc/lstm_fwd.cu``, ``csrc/lstm_bwd.cu``) kernels.  Around the step:
-the trainer (``train.loop.Trainer``, ``cli.main``) over the synthetic and
-MMNIST data (``data``), with checkpoints for an exact resume (``ckpt``),
-PSNR/SSIM of its samples (``eval``) and its logs (``utils``).
+the trainer (``train.loop.Trainer``, ``cli.main``, with a
+``torch.profiler`` window) over every dataset of the JAX package
+(``data``), with checkpoints for an exact resume (``ckpt``), PSNR/SSIM of
+its samples (``eval``) and its logs (``utils``).  Serving: the sampler
+(``cli.sample``: best-of-K, GIF and film strips, the rollouts replayed
+from a CUDA graph, ``train.rollout.graph_rollout``) and a ``torch.export``
+artifact with the weights baked in (``export``, ``cli.export``), whose
+ConvLSTM recurrences run as the registered operator
+``torch.ops.kccot.convlstm_fwd`` over the same kernel.
 """

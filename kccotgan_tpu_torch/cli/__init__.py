@@ -1,1 +1,2 @@
-"""Command-line entry points of the port: the trainer (``cli.main``)."""
+"""Command-line entry points of the port: the trainer (``cli.main``), the
+sampler (``cli.sample``) and the serving export (``cli.export``)."""

@@ -5,15 +5,17 @@ and preset overlay (a flag typed on the command line wins over the
 preset; ``provided_dests`` tells typed flags from defaults, abbreviated
 and ``--flag=value`` forms included).  A flag whose option the port does
 not carry is refused with an argparse error naming why: the multi-device
-meshes and the trace window wait for ROADMAP Queue 1 items 8 and 5; the
-layout and compile flags exist only for the TPU ("Not to port").  The
-smoothing (``--kernel``, ``--init_sigma``, ``--decaying_sigma``) and
-dropout (``--dropout``, ``--rnn_dropout``) flags reach the trainer.
+meshes wait for ROADMAP Queue 1 item 8; the layout and compile flags
+exist only for the TPU ("Not to port").  The smoothing (``--kernel``,
+``--init_sigma``, ``--decaying_sigma``) and dropout (``--dropout``,
+``--rnn_dropout``) flags reach the trainer, and ``--profile_steps a,b``
+traces steps a to b into ``<run_dir>/profile/``.
 
 Usage (on the card unless ``main`` is given ``device="cpu"``):
   python -m kccotgan_tpu_torch.cli.main --preset mmnist_full --dname synthetic --kernel_impl pallas --max_steps 100
   python -m kccotgan_tpu_torch.cli.main --preset mmnist_full --dname synthetic --kernel_impl pallas --kernel 3d --decaying_sigma --dropout 0.1 --rnn_dropout 0.1
   python -m kccotgan_tpu_torch.cli.main --preset mmnist_full --data_path /data --checkpoint --ckpt_path trained/<run>/ckpt
+  python -m kccotgan_tpu_torch.cli.main --preset mmnist_full --dname synthetic --kernel_impl pallas --max_steps 12 --profile_steps 10,11
 """
 
 from __future__ import annotations
@@ -118,8 +120,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "or every ConvLSTM and LSTM recurrence through its CUDA kernels ('pallas')")
     p.add_argument("--time_major", action=_Refused, nargs=0, reason=_TPU_ONLY)
     p.add_argument("--no_time_major", action=_Refused, nargs=0, reason=_TPU_ONLY)
-    p.add_argument("--profile_steps", action=_Refused,
-                   reason="the trace window is not ported (ROADMAP Queue 1 item 5)")
+    p.add_argument("--profile_steps", type=str, default=None,
+                   help="'a,b': trace steps a to b (torch.profiler) into <run_dir>/profile/")
     # accepted for parity with the reference, validated, otherwise unused
     p.add_argument("-gss", "--g_state_size", type=int, default=8)
     p.add_argument("-epd", "--enc_period", type=str, default="1,1,1,1")
@@ -217,7 +219,13 @@ def main(argv: list[str] | None = None, *, device="cuda") -> int:
     cfg = config_from_args(args, provided_dests(parser, argv))
     trainer = Trainer(cfg, device=device)
     batches, test_batch = make_dataset(cfg)
-    _, summary = trainer.fit(batches, max_steps=args.max_steps, test_batch=test_batch)
+    profile_steps = None
+    if args.profile_steps:
+        a, b = args.profile_steps.split(",")
+        profile_steps = (int(a), int(b))
+    _, summary = trainer.fit(
+        batches, max_steps=args.max_steps, test_batch=test_batch, profile_steps=profile_steps
+    )
     print(json.dumps(summary))
     return 0 if summary["status"] == "completed" else 1
 

@@ -1,5 +1,5 @@
 """Quantitative video-prediction metrics."""
 
-from .metrics import psnr, ssim, video_metrics
+from .metrics import best_of_k, psnr, ssim, video_metrics
 
-__all__ = ["psnr", "ssim", "video_metrics"]
+__all__ = ["best_of_k", "psnr", "ssim", "video_metrics"]

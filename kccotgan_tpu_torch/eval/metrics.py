@@ -8,18 +8,20 @@ clipped to [-1, 1] (the JAX package's guard against the cancellation in
 E[x^2] - E[x]^2 on flat windows), then its mean.  The window is applied
 as two depthwise 1-D convolutions (``F.conv2d`` with one group a
 channel).  Videos are film-strips ``[B, H, T, W, C]`` in [0, max_val];
-results are float32 on the videos' device.  ``best_of_k`` waits for
-``cli/sample.py`` (ROADMAP Queue 1 item 4).
+results are float32 on the videos' device.  ``best_of_k`` scores K
+rollouts of one context and keeps each sample's best (the stochastic
+video-prediction protocol).
 """
 
 from __future__ import annotations
 
 import math
+from typing import Callable
 
 import torch
 import torch.nn.functional as F
 
-__all__ = ["psnr", "ssim", "video_metrics"]
+__all__ = ["best_of_k", "psnr", "ssim", "video_metrics"]
 
 
 def _frames(video: torch.Tensor) -> torch.Tensor:
@@ -86,4 +88,59 @@ def video_metrics(pred: torch.Tensor, target: torch.Tensor, *, max_val: float = 
         "ssim": torch.mean(ss),
         "psnr_per_step": torch.mean(ps, dim=0),
         "ssim_per_step": torch.mean(ss, dim=0),
+    }
+
+
+def best_of_k(
+    rollout: Callable[..., torch.Tensor],
+    params,
+    test_batch: torch.Tensor,
+    int_time_steps: int,
+    generator: torch.Generator | None,
+    *,
+    k: int = 1,
+    max_val: float = 1.0,
+) -> dict:
+    """Best-of-K stochastic-prediction evaluation.
+
+    Draws ``k`` rollouts ``rollout(params, context, generator)`` (the
+    ``train.rollout.build_rollout`` signature) one after the other, their
+    noise from the one ``generator`` in sequence (where the JAX package
+    splits a key into ``k``), scores each sample's predicted future
+    against the ground-truth future, and keeps the per-sample best.
+    ``test_batch`` is a full-length film-strip ``[B, H, Tc + Tp, W, C]``;
+    when the rollout generates fewer frames than it carries, the common
+    horizon is scored.  A later rollout replaces a sample's best only if
+    strictly better.
+
+    Returns the scalar means of the per-sample-best PSNR and SSIM, and
+    the per-step curves of the PSNR-best and of the SSIM-best rollouts,
+    each chosen by its own metric.
+    """
+    context = test_batch[:, :, :int_time_steps]
+    truth = test_batch[:, :, int_time_steps:]
+    t_pred = truth.shape[2]
+    best_ps = best_ss = best_ps_curve = best_ss_curve = None
+    for _ in range(k):
+        video = rollout(params, context, generator)
+        t_pred = min(t_pred, video.shape[2] - int_time_steps)
+        truth = truth[:, :, :t_pred]
+        pred = video[:, :, int_time_steps : int_time_steps + t_pred]
+        ps = psnr(pred, truth, max_val=max_val)  # [B, Tp]
+        ss = ssim(pred, truth, max_val=max_val)
+        ps_mean, ss_mean = torch.mean(ps, dim=1), torch.mean(ss, dim=1)
+        if best_ps is None:
+            best_ps, best_ss, best_ps_curve, best_ss_curve = ps_mean, ss_mean, ps, ss
+            continue
+        improve = ps_mean > best_ps
+        best_ps_curve = torch.where(improve[:, None], ps, best_ps_curve)
+        best_ps = torch.maximum(best_ps, ps_mean)
+        improve_s = ss_mean > best_ss
+        best_ss_curve = torch.where(improve_s[:, None], ss, best_ss_curve)
+        best_ss = torch.maximum(best_ss, ss_mean)
+    return {
+        "psnr": torch.mean(best_ps),
+        "ssim": torch.mean(best_ss),
+        "psnr_per_step": torch.mean(best_ps_curve, dim=0),
+        "ssim_per_step": torch.mean(best_ss_curve, dim=0),
     }

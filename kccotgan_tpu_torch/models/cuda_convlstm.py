@@ -41,6 +41,14 @@ gate GEMM over the four masked h's and the block-diagonal weight
 (``_block_diagonal``), dh with gate-quad columns (``_pack_dh_gates``);
 f32 reads ``_rk4`` gate by gate.  Each wrapper counts its calls in
 ``.calls`` and its kernel launches in ``.launches``.
+
+Inference (no gradient, no masks) goes through the registered operator
+``torch.ops.kccot.convlstm_fwd`` (``convlstm_fwd_op``): ``(xconv, h0,
+c0, rec_kernel, bias) -> (y, h_n, c_n)``, whose CPU implementation is
+the plain version and whose CUDA implementation launches the forward
+kernel once a step.  Its fake implementation gives the shapes from the
+inputs' shapes, so ``torch.export`` traces the rollout through it with a
+symbolic batch (``export.py``).  Importing this module registers it.
 """
 
 from __future__ import annotations
@@ -55,6 +63,7 @@ __all__ = [
     "convlstm_bwd",
     "convlstm_bwd_reference",
     "convlstm_fwd",
+    "convlstm_fwd_op",
     "convlstm_fwd_reference",
     "convlstm_scan",
     "convlstm_scan_reference",
@@ -500,6 +509,33 @@ for _fn in (convlstm_fwd, convlstm_bwd):
     _fn.calls = _fn.launches = 0
 
 
+@torch.library.custom_op(
+    "kccot::convlstm_fwd", mutates_args=(), device_types="cpu",
+    schema="(Tensor xconv, Tensor h0, Tensor c0, Tensor rec_kernel, Tensor bias) -> (Tensor, Tensor, Tensor)",
+)
+def convlstm_fwd_op(xconv, h0, c0, rec_kernel, bias):
+    """The recurrence's forward without the c stack, ``(y, h_n, c_n)``: on
+    the CPU the plain version."""
+    y, _, h, c, _ = _fwd_plain(xconv, h0, c0, rec_kernel, bias, None)
+    return y, h, c
+
+
+@convlstm_fwd_op.register_kernel("cuda")
+def _convlstm_fwd_cuda(xconv, h0, c0, rec_kernel, bias):
+    # An exported program reaches here with the strides its conv gave at
+    # run time, which tracing may not have foreseen; the kernel takes
+    # C-contiguous tensors.
+    args = [x.contiguous() for x in (xconv, h0, c0, rec_kernel, bias)]
+    y, _, h, c, _ = _launch_fwd(*args, False, None)
+    return y, h, c
+
+
+@convlstm_fwd_op.register_fake
+def _convlstm_fwd_fake(xconv, h0, c0, rec_kernel, bias):
+    b, t, ho, wo, f4 = xconv.shape
+    return xconv.new_empty(b, t, ho, wo, f4 // 4), h0.new_empty(h0.shape), c0.new_empty(c0.shape)
+
+
 class ConvLstmScan(torch.autograd.Function):
     """The recurrence under autograd: saves ``(xconv, h0, c0, rec_kernel,
     bias, y, c_stack)`` as ``_vjp_fwd`` does, and under recurrent dropout
@@ -529,12 +565,19 @@ class ConvLstmScan(torch.autograd.Function):
 def convlstm_scan(xconv, h0, c0, rec_kernel, bias, rec_masks=None):
     """The fused ConvLSTM recurrence (contract in the module docstring):
     ``ConvLstmScan`` when autograd needs a gradient, else the forward
-    alone.  CPU tensors take the plain versions, CUDA tensors the kernels;
+    alone (without masks, the registered operator ``convlstm_fwd_op``).
+    CPU tensors take the plain versions, CUDA tensors the kernels;
     anything the kernels do not take raises.  ``rec_masks [4, B, H', W',
     f]``: Keras recurrent dropout, one mask a gate."""
     args = (xconv, h0, c0, rec_kernel, bias)
     if torch.is_grad_enabled() and any(x.requires_grad for x in args):
         y, h, c = ConvLstmScan.apply(*args, rec_masks)
+        return y, (h, c)
+    if rec_masks is None:
+        devices = {x.device.type for x in args}
+        if devices not in ({"cpu"}, {"cuda"}):  # the dispatcher would pick one
+            raise ValueError(f"convlstm: inputs on devices {sorted(devices)}")
+        y, h, c = convlstm_fwd_op(*args)
         return y, (h, c)
     y, _, h, c, *_ = convlstm_fwd(*args, rec_masks=rec_masks)
     return y, (h, c)

@@ -23,6 +23,7 @@ import torch
 from ..ckpt import CheckpointWriter, restore_checkpoint
 from ..data import device_prefetch
 from ..eval import video_metrics
+from ..utils import profiling
 from ..utils.logging import MetricsLogger, Throughput, write_run_notes
 from .rollout import build_rollout
 from .state import TrainState, create_train_state, fold_in
@@ -94,13 +95,17 @@ class Trainer:
         max_steps: int | None = None,
         test_batch: np.ndarray | None = None,
         log_every: int = 1,
+        profile_steps: tuple[int, int] | None = None,
     ) -> tuple[TrainState, dict]:
         """Train on ``batches`` (film-strips ``[B, H, T, W, C]``; a batch
         of another size is skipped) until they run out or ``max_steps``.
         Returns the last state and the summary: ``status`` ("completed" or
         "failed"), ``steps``, ``wall_time_sec``, ``recoveries``, the
         smoothing ``kernel`` and the last step's ``sigma``, and the three
-        rates.  Each step's loss, pM and sigma are logged."""
+        rates.  Each step's loss, pM and sigma are logged.  ``profile_steps
+        (a, b)`` traces steps a to b into ``<run_dir>/profile/``
+        (``utils.profiling``), the trace stopped once step b's loss is
+        computed."""
         cfg = self.cfg
         if state is None:
             state = self.init_state()
@@ -123,6 +128,7 @@ class Trainer:
         retries_left = cfg.nan_recovery_retries
         recoveries = 0
         sigma = None
+        profiler = None
 
         def note(text: str) -> None:
             with open(notes, "a") as f:
@@ -149,9 +155,15 @@ class Trainer:
                         break
                     if batch.shape[0] != cfg.batch_size:
                         continue  # ragged tail
+                    if profiler is None and profile_steps is not None and step + 1 == profile_steps[0]:
+                        profiler = profiling.start_trace(os.path.join(self.run_dir, "profile"))
                     state, metrics = self.train_step(state, batch)
                     step += 1
                     thru.tick()
+                    if profiler is not None and step == profile_steps[1]:
+                        float(metrics["sinkhorn_loss"])  # wait for step b: its device work is in the window
+                        profiling.stop_trace(profiler)
+                        profiler = profile_steps = None
 
                     # The previous step's metrics, read now that this step is
                     # enqueued: the host does not wait for the card here.
@@ -212,6 +224,8 @@ class Trainer:
             for k, v in rates.items():
                 self.logger.scalar(f"throughput/{k}", v, step)
         finally:
+            if profiler is not None:  # the run ended inside the window
+                profiling.stop_trace(profiler)
             self.logger.close()
             ckpt_writer.close()
         return state, summary

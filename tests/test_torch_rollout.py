@@ -211,9 +211,10 @@ def test_port_never_imports_jax():
     """Neither the port nor ``chip_smoke.py`` imports JAX, flax or the JAX
     package, which the GPU machine lacks: every module of the port is
     imported, and a tiny rollout, a tiny training iteration under each
-    recurrence engine and two steps of the trainer's command line (with
-    '3d' smoothing, annealing and both dropouts) run, before
-    ``sys.modules`` is read."""
+    recurrence engine, two steps of the trainer's command line (with
+    '3d' smoothing, annealing and both dropouts) and the sampler's
+    command line on its checkpoint (rollout, best-of-K, both images) run,
+    before ``sys.modules`` is read."""
     code = (
         "import importlib, pkgutil, sys, torch\n"
         "import chip_smoke, kccotgan_tpu_torch\n"
@@ -243,7 +244,12 @@ def test_port_never_imports_jax():
         "                 '-xh', '16', '-xw', '16', '-gfs', '1', '-dfs', '1', '-dss', '2', '-nz', '2',\n"
         "                 '-ne', '1', '--max_steps', '2', '--ckpt_freq', '2', '--kernel_impl', 'pallas',\n"
         "                 '--kernel', '3d', '--decaying_sigma', '--dropout', '0.1', '--rnn_dropout', '0.1',\n"
-        "                 '--out_dir', d], device='cpu') == 0\n"
+        "                 '--out_dir', d, '--run_name', 'r'], device='cpu') == 0\n"
+        "    from kccotgan_tpu_torch import config\n"
+        "    from kccotgan_tpu_torch.cli import sample\n"
+        "    config.PRESETS['_tiny'] = dataclasses.replace(cfg, dname='synthetic')\n"
+        "    assert sample.main(['--preset', '_tiny', '--ckpt', d + '/r/ckpt', '--out', d + '/s', '--num', '2',\n"
+        "                        '--metrics_k', '2'], device='cpu') == 0\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'kccotgan_tpu'))\n"
         "assert not bad, bad\n"
     )
