@@ -81,7 +81,15 @@ ported paths at the ``mmnist_full`` preset (B=32, 64x64x1, 10 context +
   7; the ConvLSTM forward's tensor-core kernel in a trace of the
   artifact's graph replay, once a step; eager, eager without the
   registered operator, graph, artifact and the artifact's program run
-  eagerly, timed in turns, and best-of-K timed (the ``serving`` line).
+  eagerly, timed in turns, and best-of-K timed (the ``serving`` line);
+* the fused discriminators (``fused_discriminators=True``): the LSTM
+  kernels with an instance axis (4 instances, each its own weights, in
+  one launch) against their plain versions and, to the bit, against
+  one-instance calls on each slice, at lstm1-3 and at U = 128 and 256, f32
+  and bf16; one fused 'pallas' iteration against one sequential from the
+  same state in f32 and bf16, counted from zero around each (LSTM 6 + 6
+  calls against 24 + 18), then both timed in turns (the
+  ``fused_discriminators`` line).
 
 The bf16 engine runs the ConvLSTM's recurrent conv, dh and drk, and the
 dense LSTM's step, dh and dR, on the tensor cores: the built library's
@@ -2198,6 +2206,195 @@ def check_serving(card, base, dev):
     return main_counts
 
 
+# Phase 13, the fused discriminators (``fused_discriminators=True``).  The
+# LSTM kernels' instance axis first: FUSED_N instances (the four
+# discriminator passes), each its own R and b, at lstm1-3 (B=32, T=20)
+# and at the widths past 64 units, f32 and bf16; each instance must equal
+# the one-instance call on its slice to the bit (a block computes its
+# instance as that call does), and all within TOL / GRAD_TOL of the plain
+# versions.
+FUSED_N = 4
+
+
+def fused_counts(cfg):
+    """(calls, launches) of each kernel in one fused 'pallas' iteration:
+    ``pallas_counts``' but the LSTM's, whose 3 layers run once for the
+    four passes in each phase, forward and backward (6 and 6, one launch
+    each at U <= 64, against 24 and 18)."""
+    return {**pallas_counts(cfg), "lstm_fwd": (6, 6), "lstm_bwd": (6, 6)}
+
+
+FUSED_COUNTS = fused_counts(get_preset(PRESET))
+# Fused against sequential 'pallas' iterations, same state, video and z.
+# They differ only in summation order: the stacked convs run as one
+# grouped conv (other algorithms; conv1's four single-channel instances
+# make a depthwise conv), the input products as one batched product, and
+# the statistics chain is rebuilt as mu*first + second - mu*old instead
+# of chained.  f32 (TF32 off): ENGINE_TOL's float32 limits,
+# argued there for the same magnifier (the BatchNorms' backward), and the
+# new state's statistics at rtol 1e-4 / atol 1e-5, the tolerances of the
+# JAX package's own fused-against-sequential test.  bf16: the losses
+# within ENGINE_TOL's bf16 rtol, and pM at 1e-2: pM sums |the batch mean
+# of m's increments| / std_j over 19 x 8 (t, j), each mean a small
+# difference of bf16-rounded sigmoid outputs, so one output rounded one
+# ulp apart (2**-8 = 3.9e-3 in [0.5, 1)) moves two terms by 3.9e-3 / (32
+# std_j) each: 1.3e-3 of pM measured on the H100, so a few such
+# roundings are 1e-2.  The rest is reported.
+FUSED_TOL = {
+    "float32": {**ENGINE_TOL["float32"], "stats_rtol": 1e-4, "stats_atol": 1e-5},
+    "bfloat16": {"loss_rtol": ENGINE_TOL["bfloat16"]["loss_rtol"], "pm_rtol": 1e-2},
+}
+
+
+def replay_ms(fn, calls=20):
+    """Device ms of one ``fn()`` from a CUDA graph of ``calls`` calls,
+    replayed: the card's time without the host's launches, and without a
+    profiler session (CUPTI drops more events in each later one)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    ms = cuda_ms(graph.replay, reps=5) / calls
+    del graph
+    return ms
+
+
+def check_lstm_instanced(dev):
+    """The instanced LSTM kernels (FUSED_N instances in one call) against
+    their plain versions and against one-instance calls on each slice, to
+    the bit; launches a call (forward 1, backward 1 up to U = 64, else 2);
+    the instanced call against one and against FUSED_N one-instance
+    calls, timed by CUDA events (host time included), and at lstm1-3 in
+    bf16 the card's own time a call (``replay_ms``)."""
+    layers = [(n, u, "sigmoid" if n == "lstm3" else "tanh") for n, (_, u) in lstm_layers(get_preset(PRESET)).items()]
+    layers += [(f"wide{u}", u, "tanh") for u in LSTM_WIDE]
+    out, failed = {}, []
+    for name, u, act in layers:
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = f"{name} U={u} {act} {str(dtype).removeprefix('torch.')}"
+            args = [torch.stack(a).contiguous() for a in zip(*(
+                lstm_inputs(0, u, dtype, dev, seed=700 + u + i) for i in range(FUSED_N)))]
+            g = torch.Generator().manual_seed(800 + u)
+            y_p, cs_p, h_p, c_p = lstm_scan_reference(*args, act)
+            cot = (torch.randn(y_p.shape, generator=g).to(dev, dtype), torch.randn(h_p.shape, generator=g).to(dev),
+                   torch.randn(c_p.shape, generator=g).to(dev))
+            bwd_args = (*args, y_p, cs_p, *cot)
+            before = (lstm_fwd.launches, lstm_bwd.launches)
+            fwd_k = lstm_fwd(*args, act, with_c_stack=True)
+            bwd_k = lstm_bwd(*bwd_args, act)
+            launches = [lstm_fwd.launches - before[0], lstm_bwd.launches - before[1]]
+            want = lstm_bwd_reference(*bwd_args, act)
+            single_f = [lstm_fwd(*(a[i] for a in args), act, with_c_stack=True) for i in range(FUSED_N)]
+            single_b = [lstm_bwd(*(a[i] for a in bwd_args), act) for i in range(FUSED_N)]
+            torch.cuda.synchronize()
+            differ = [f"{part}[{i}].{j}" for part, got, single in (("fwd", fwd_k, single_f), ("bwd", bwd_k, single_b))
+                      for i in range(FUSED_N) for j, t in enumerate(got) if not torch.equal(t[i], single[i][j])]
+            e_fwd = max_err(fwd_k, (y_p, cs_p, h_p, c_p))
+            e_bwd = {n: rel_err([a], [b]) for n, a, b in zip(("dx", "dh0", "dc0", "dR", "db"), bwd_k, want)}
+            times = {
+                "instanced_fwd_ms": cuda_ms(lambda: lstm_fwd(*args, act, with_c_stack=True), reps=10),
+                "single_fwd_ms": cuda_ms(lambda: lstm_fwd(*(a[0] for a in args), act, with_c_stack=True), reps=10),
+                "singles_fwd_ms": cuda_ms(lambda: [lstm_fwd(*(a[i] for a in args), act, with_c_stack=True)
+                                                   for i in range(FUSED_N)], reps=10),
+                "instanced_bwd_ms": cuda_ms(lambda: lstm_bwd(*bwd_args, act), reps=10),
+                "single_bwd_ms": cuda_ms(lambda: lstm_bwd(*(a[0] for a in bwd_args), act), reps=10),
+                "singles_bwd_ms": cuda_ms(lambda: [lstm_bwd(*(a[i] for a in bwd_args), act)
+                                                   for i in range(FUSED_N)], reps=10),
+            }
+            if dtype == torch.bfloat16 and u <= 64:  # the flagship's: the card's own time a call
+                times["replay_ms_per_call"] = {
+                    "instanced_fwd": replay_ms(lambda: lstm_fwd(*args, act, with_c_stack=True)),
+                    "single_fwd": replay_ms(lambda: lstm_fwd(*(a[0] for a in args), act, with_c_stack=True)),
+                    "instanced_bwd": replay_ms(lambda: lstm_bwd(*bwd_args, act)),
+                    "single_bwd": replay_ms(lambda: lstm_bwd(*(a[0] for a in bwd_args), act)),
+                }
+            out[tag] = {"launches": launches, "fwd_max_abs_err": e_fwd, "grad_err_over_largest": e_bwd,
+                        "bitwise_equal_to_single": not differ, **times}
+            print(f"[lstm instanced] {tag}: " + json.dumps(out[tag]), flush=True)
+            if differ or launches != [1, 1 if u <= 64 else 2] or not (
+                    e_fwd <= TOL[dtype] and max(e_bwd.values()) <= GRAD_TOL[dtype]):
+                failed.append(f"{tag}: launches {launches}, not bitwise {differ[:6]}")
+    if failed:
+        raise RuntimeError(f"instanced LSTM kernels: {failed}")
+    return out
+
+
+def check_fused(card, base, dev):
+    """Phase 13: the instanced LSTM kernels, then one fused 'pallas'
+    iteration against one sequential from the same state, video and z in
+    f32 and bf16 (losses, pM, every group's Adam first moment, i.e. half
+    the gradient, and both statistics chains), each counted from zero
+    around its run; then both timed in turns in the preset's bf16 (eager
+    ms, busy ms and device events of one profiled iteration, peak
+    memory).  Prints the ``fused_discriminators`` line."""
+    instanced = check_lstm_instanced(dev)
+    checks, counted = {}, {}
+    for cdt in ("float32", base.compute_dtype):
+        cfg = dataclasses.replace(base, compute_dtype=cdt, kernel_impl="pallas")
+        state0, video, zs = training_inputs(cfg, dev)
+        steps = {name: build_train_step(dataclasses.replace(cfg, fused_discriminators=name == "fused"), device=dev)
+                 for name in ("sequential", "fused")}
+        runs = {}
+        for name, step in steps.items():
+            reset_counts()
+            st, met = step(state0, video, z=zs[0])
+            torch.cuda.synchronize()
+            counted[name] = counts()
+            if not _all_finite(st, met):
+                raise RuntimeError(f"{cdt} {name}: non-finite loss, pM, parameter or statistic")
+            runs[name] = (met, st)
+        for name, per in (("fused", FUSED_COUNTS), ("sequential", PALLAS_COUNTS)):
+            if counted[name] != {n: list(c) for n, c in per.items()}:
+                raise RuntimeError(f"{cdt} {name} iteration: (calls, launches) {counted[name]}, expected {per}")
+        cmp, engines_ok = compare_engines(runs["fused"], runs["sequential"], ENGINE_TOL[cdt])
+        tol = FUSED_TOL[cdt]
+        stats_ok, cmp["max_abs_dstats"] = True, {}
+        for key in ("h_stats", "m_stats"):
+            a, b = getattr(runs["fused"][1], key), getattr(runs["sequential"][1], key)
+            cmp["max_abs_dstats"][key] = max(float((a[k] - b[k]).abs().max()) for k in b)
+            if "stats_rtol" in tol:
+                stats_ok &= all(bool(((a[k] - b[k]).abs() <= tol["stats_atol"] + tol["stats_rtol"] * b[k].abs()).all())
+                                for k in b)
+        (lf, ls), (pf, ps) = cmp["sinkhorn_loss"], cmp["pm"]
+        ok = abs(lf - ls) <= tol["loss_rtol"] * abs(ls) and abs(pf - ps) <= tol["pm_rtol"] * abs(ps)
+        if cdt == "float32":
+            ok = ok and engines_ok and stats_ok
+        checks[cdt] = {"tol": tol, **cmp}
+        print(json.dumps({"fused_check": {"compute_dtype": cdt, **checks[cdt]}}), flush=True)
+        if not ok:
+            raise RuntimeError(f"{cdt}: fused and sequential iterations disagree: {cmp}")
+
+    # Timing, the preset's bf16 (the last loop's steps), in turns.
+    ms = {"sequential": [], "fused": []}
+    for name in ("sequential", "fused", "fused", "sequential"):
+        ms[name].append(cuda_ms(lambda: steps[name](state0, video, z=zs[0]), reps=2))
+    timing = {"eager_ms": {n: sum(v) / len(v) for n, v in ms.items()}, "eager_ms_runs": ms}
+    for name, step in steps.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step(state0, video, z=zs[0])
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        busy, span, n_events, by_name, _ = profiled(
+            lambda: step(state0, video, z=zs[0]), LSTM_TC_KERNELS if base.compute_dtype == "bfloat16" else (),
+            f"fused_discriminators, {name}")
+        timing[name] = {"busy_ms": busy, "span_ms": span, "device_events": n_events, "peak_memory_gib": peak,
+                        "idle_share_eager": 1.0 - busy / timing["eager_ms"][name],
+                        "lstm_kernel_ms": sum(t for n, t in by_name.items() if re.search(r"\blstm_(fwd|bwd|wgrad)", n)),
+                        "top_ms": [[n[:80], t] for n, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]]}
+    lstm_counts = {name: {k: counted[name][k] for k in ("lstm_fwd", "lstm_bwd")} for name in counted}
+    print(json.dumps({"fused_discriminators": {
+        "card": card, "preset": PRESET, "compute_dtype": base.compute_dtype, "instances": FUSED_N,
+        "lstm_calls_launches": lstm_counts, "counts": counted, "checks": checks,
+        "instanced_lstm": instanced, "timing": timing,
+    }}), flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -2317,6 +2514,12 @@ def main():
     # around cli.sample and cli.export --check.
     serving_counts = check_serving(card, base, dev)
     done("12_serving")
+
+    # Phase 13: the fused discriminators (the LSTM kernels' instance axis,
+    # then the fused iteration against the sequential one, each counted
+    # from zero around its run, and both timed).
+    check_fused(card, base, dev)
+    done("13_fused_discriminators")
     print(json.dumps({"phase_seconds": phase_s}), flush=True)
 
     # Bounds of the work timed: the 8 T=10 layer scans of phase 2, one

@@ -129,13 +129,13 @@ def load_library() -> ctypes.CDLL:
         "kccot_convlstm_bwd_rows": [i, i, i, i, i],
         "kccot_recurrent_wgrad_tiles": [i, i, i, i],
         "kccot_recurrent_wgrad": [i, p, p, p, p, i, ll, p, i, p, p, i, i, i, i, i, i, i, i, p],
-        "kccot_lstm_fwd": [i, i, *[p] * 9, i, i, i, p],
-        "kccot_lstm_bwd": [i, i, *[p] * 16, i, i, i, p],
+        "kccot_lstm_fwd": [i, i, *[p] * 9, i, i, i, i, p],
+        "kccot_lstm_bwd": [i, i, *[p] * 16, i, i, i, i, p],
     }
     for name, types in argtypes.items():
         getattr(lib, name).argtypes = types
         getattr(lib, name).restype = i
-    lib.kccot_lstm_bwd_scratch.argtypes = [i, i, i]
+    lib.kccot_lstm_bwd_scratch.argtypes = [i, i, i, i]
     lib.kccot_lstm_bwd_scratch.restype = ll
     lib.kccot_lstm_max_units.argtypes = []
     lib.kccot_lstm_max_units.restype = i

@@ -115,13 +115,9 @@ class TrainConfig:
 
 
 def check_trainable(cfg: TrainConfig) -> None:
-    """Raise ``NotImplementedError`` for a training option the port does
-    not carry yet, naming the ROADMAP item that will."""
-    if cfg.fused_discriminators:
-        raise NotImplementedError(
-            "fused_discriminators=True is not ported (ROADMAP Queue 1 item 3: one batched pass "
-            "of the four discriminator calls needs a batching rule for the LSTM kernels)"
-        )
+    """Raise ``ValueError`` for an unknown Sinkhorn solver or recurrence
+    engine.  Every training option of the JAX package is ported,
+    ``fused_discriminators`` included (``train/steps.py``)."""
     if cfg.sinkhorn_solver not in ("auto", "pallas", "scan"):
         raise ValueError(f"unknown sinkhorn_solver: {cfg.sinkhorn_solver!r}")
     if cfg.kernel_impl not in ("auto", "pallas", "scan"):

@@ -61,6 +61,12 @@
 //   step t; dx is written row-contiguous; R is read as stored (f32) and
 //   rounded while staging, h0 rounded in the kernel: the wrapper launches
 //   nothing else.
+// * N instances, each with its own R, b, dR and db, run in the launches
+//   of a one-instance call: the instance is the grid's y (z in
+//   lstm_wgrad_l2_kernel), a cluster never spans two instances, and each
+//   instance's dR and db are summed from its own blocks alone in the
+//   fixed order above, so an instance equals a one-instance call to the
+//   bit (at_instance, lstm_tile.cuh).
 
 #include "lstm_tile.cuh"
 
@@ -114,6 +120,28 @@ __global__ void __launch_bounds__(Tc<KT>::kThreads)
   float* part = dhp + 4 * C::Kp * 8;                              // [4U*U + 4U]
   const int r0 = blockIdx.x * kTcRows, U4 = 4 * U;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  constexpr bool kWide = KT > 4;
+  {  // instance blockIdx.y's arrays
+    const int n = blockIdx.y;
+    const long long bt = (long long)B * T_;
+    x = at_instance(x, bt * U4, n);
+    y = at_instance(y, bt * U, n);
+    cs = at_instance(cs, bt * U, n);
+    h0 = at_instance(h0, (long long)B * U, n);
+    c0 = at_instance(c0, (long long)B * U, n);
+    R = at_instance(R, (long long)U * U4, n);
+    bias = at_instance(bias, U4, n);
+    dy = at_instance(dy, bt * U, n);
+    dhn = at_instance(dhn, (long long)B * U, n);
+    dcn = at_instance(dcn, (long long)B * U, n);
+    dx = at_instance(dx, bt * U4, n);
+    dh0 = at_instance(dh0, (long long)B * U, n);
+    dc0 = at_instance(dc0, (long long)B * U, n);
+    dR = at_instance(dR, (long long)U * U4, n);
+    db = at_instance(db, U4, n);
+    // the blocks' partials: [blocks][4U] (kWide) or [blocks][4U*U + 4U]
+    part_global = at_instance(part_global, (long long)gridDim.x * (kWide ? U4 : U4 * U + U4), n);
+  }
   const int rl = tc_row(), j = tc_unit(), row = r0 + rl;
   const bool ok = row < B && j < U, live = 4 * warp < U;  // live: warp-uniform
   // The coalesced dx store: column scol of rows srow, srow + sstep, ...
@@ -154,7 +182,6 @@ __global__ void __launch_bounds__(Tc<KT>::kThreads)
   // shared memory each step instead of held, and dR is left to a second
   // launch (lstm_wgrad_l2_kernel, from dx and y): its 64 accumulators a
   // thread would not fit either.
-  constexpr bool kWide = KT > 4;
   unsigned bfr[kWide ? 1 : KT][2][2];
   if constexpr (!kWide) {
     if (live) load_gate_b<KT>(bfr, Rs);
@@ -314,6 +341,26 @@ __global__ void __launch_bounds__(kFmaThreads)
                     int T_, int U_, int act, int nclust) {
   const int U = kU ? kU : U_;
   const int U1 = U + 1, U4 = 4 * U;
+  {  // instance blockIdx.y's arrays
+    const int n = blockIdx.y;
+    const long long bt = (long long)B * T_;
+    x = at_instance(x, bt * U4, n);
+    y = at_instance(y, bt * U, n);
+    cs = at_instance(cs, bt * U, n);
+    h0 = at_instance(h0, (long long)B * U, n);
+    c0 = at_instance(c0, (long long)B * U, n);
+    R = at_instance(R, (long long)U * U4, n);
+    bias = at_instance(bias, U4, n);
+    dy = at_instance(dy, bt * U, n);
+    dhn = at_instance(dhn, (long long)B * U, n);
+    dcn = at_instance(dcn, (long long)B * U, n);
+    dx = at_instance(dx, bt * U4, n);
+    dh0 = at_instance(dh0, (long long)B * U, n);
+    dc0 = at_instance(dc0, (long long)B * U, n);
+    dR = at_instance(dR, (long long)U * U4, n);
+    db = at_instance(db, U4, n);
+    part_global = at_instance(part_global, (long long)gridDim.x * (U4 * U + U4), n);
+  }
   const int j = threadIdx.x, rl = threadIdx.y;
   const int rows = kU ? kFmaThreads / kU : blockDim.y;  // fma_rows(U)
   const int tid = rl * U + j, nthreads = rows * U;
@@ -442,12 +489,16 @@ __global__ void __launch_bounds__(kFmaThreads)
 }
 
 // part [blocks][4U*U + 4U] (each block's partials, interleaved as in
-// finish_wgrad) summed in block order into dR [U][4U] and db [4U].
+// finish_wgrad) summed in block order into dR [U][4U] and db [4U]; the
+// instance is blockIdx.y.
 __global__ void lstm_wgrad_sum_kernel(const float* __restrict__ part, int blocks, int U,
                                       float* __restrict__ dR, float* __restrict__ db) {
   const int n = 4 * U * U + 4 * U;
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= n) return;
+  part = at_instance(part, (long long)blocks * n, blockIdx.y);  // instance blockIdx.y
+  dR = at_instance(dR, 4LL * U * U, blockIdx.y);
+  db = at_instance(db, 4 * U, blockIdx.y);
   float s = 0.0f;
   for (int q = 0; q < blocks; ++q) s += part[(long long)q * n + e];
   const int m = e % (4 * U);
@@ -476,6 +527,24 @@ __global__ void __launch_bounds__(kL2Threads)
                        float* __restrict__ part, int B, int T_, int U, int act, int rows) {
   extern __shared__ __align__(16) float smem[];
   const int U4 = 4 * U, r0 = blockIdx.x * rows;
+  {  // instance blockIdx.y's arrays
+    const int n = blockIdx.y;
+    const long long bt = (long long)B * T_;
+    x = at_instance(x, bt * U4, n);
+    y = at_instance(y, bt * U, n);
+    cs = at_instance(cs, bt * U, n);
+    h0 = at_instance(h0, (long long)B * U, n);
+    c0 = at_instance(c0, (long long)B * U, n);
+    R = at_instance(R, (long long)U * U4, n);
+    bias = at_instance(bias, U4, n);
+    dy = at_instance(dy, bt * U, n);
+    dhn = at_instance(dhn, (long long)B * U, n);
+    dcn = at_instance(dcn, (long long)B * U, n);
+    dx = at_instance(dx, bt * U4, n);
+    dh0 = at_instance(dh0, (long long)B * U, n);
+    dc0 = at_instance(dc0, (long long)B * U, n);
+    part = at_instance(part, (long long)gridDim.x * U4, n);
+  }
   float* hs = smem;               // [rows][U]: cdt(h_{t-1})
   float* dhc = hs + rows * U;     // [rows][U]: the dh carry
   float* dcc = dhc + rows * U;    // [rows][U]: the dc carry
@@ -576,7 +645,8 @@ __global__ void __launch_bounds__(kL2Threads)
 
 // dR[k][m] = sum over rows b, then steps t, of cdt(h_{t-1})[b][k] dx[b][t][m]
 // (h_{-1} = h0), a thread an entry, in that fixed order; the row k = U
-// sums db[m] over the nparts blocks' partials in block order.
+// sums db[m] over the nparts blocks' partials in block order.  The
+// instance is blockIdx.z.
 template <typename X>
 __global__ void lstm_wgrad_l2_kernel(const X* __restrict__ y, const float* __restrict__ h0,
                                      const X* __restrict__ dx, const float* __restrict__ part,
@@ -585,6 +655,15 @@ __global__ void lstm_wgrad_l2_kernel(const X* __restrict__ y, const float* __res
   const int U4 = 4 * U;
   const int m = blockIdx.x * blockDim.x + threadIdx.x, k = blockIdx.y * blockDim.y + threadIdx.y;
   if (m >= U4 || k > U) return;
+  {  // instance blockIdx.z's arrays
+    const int n = blockIdx.z;
+    y = at_instance(y, (long long)B * T_ * U, n);
+    h0 = at_instance(h0, (long long)B * U, n);
+    dx = at_instance(dx, (long long)B * T_ * U4, n);
+    part = at_instance(part, (long long)nparts * U4, n);
+    dR = at_instance(dR, (long long)U * U4, n);
+    db = at_instance(db, U4, n);
+  }
   float s = 0.0f;
   if (k == U) {
     for (int q = 0; q < nparts; ++q) s += part[(long long)q * U4 + m];
@@ -615,7 +694,7 @@ int bwd_blocks(int dtype, int B, int U) {
 struct Args {
   const void *x, *y, *cs, *h0, *c0, *R, *bias, *dy, *dhn, *dcn;
   void *dx, *dh0, *dc0, *dR, *db, *part;
-  int B, T, U, act;
+  int N, B, T, U, act;
 };
 
 // One launch of kernel over `blocks` blocks, as one cluster when they
@@ -631,7 +710,7 @@ cudaError_t launch(K kernel, dim3 block, size_t smem, const Args& a, cudaStream_
   if (err != cudaSuccess) return err;
   const int nclust = two_pass ? 1 : blocks;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(blocks);
+  cfg.gridDim = dim3(blocks, a.N);  // clusters along x: each within one instance
   cfg.blockDim = block;
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -655,7 +734,7 @@ cudaError_t launch(K kernel, dim3 block, size_t smem, const Args& a, cudaStream_
   err = cudaGetLastError();
   if (err != cudaSuccess || !two_pass) return err;
   const int n = 4 * a.U * a.U + 4 * a.U;
-  lstm_wgrad_sum_kernel<<<(n + 255) / 256, 256, 0, stream>>>(
+  lstm_wgrad_sum_kernel<<<dim3((n + 255) / 256, a.N), 256, 0, stream>>>(
       static_cast<const float*>(a.part), blocks, a.U, static_cast<float*>(a.dR),
       static_cast<float*>(a.db));
   return cudaGetLastError();
@@ -665,7 +744,7 @@ cudaError_t launch(K kernel, dim3 block, size_t smem, const Args& a, cudaStream_
 // partials (part [blocks][4U]): lstm_wgrad_l2_kernel.
 template <typename X>
 cudaError_t launch_wgrad_l2(const Args& a, int blocks, cudaStream_t stream) {
-  const dim3 block(32, 8), grid((4 * a.U + 31) / 32, (a.U + 1 + 7) / 8);
+  const dim3 block(32, 8), grid((4 * a.U + 31) / 32, (a.U + 1 + 7) / 8, a.N);
   lstm_wgrad_l2_kernel<X><<<grid, block, 0, stream>>>(
       static_cast<const X*>(a.y), static_cast<const float*>(a.h0), static_cast<const X*>(a.dx),
       static_cast<const float*>(a.part), blocks, static_cast<float*>(a.dR),
@@ -683,7 +762,7 @@ cudaError_t launch_tc_wide(const Args& a, cudaStream_t stream) {
                       (size_t)4 * C::Kp * 8 * 4;
   cudaError_t err = allow_smem((const void*)lstm_bwd_tc_kernel<8>, smem);
   if (err != cudaSuccess) return err;
-  lstm_bwd_tc_kernel<8><<<blocks, C::kThreads, smem, stream>>>(
+  lstm_bwd_tc_kernel<8><<<dim3(blocks, a.N), C::kThreads, smem, stream>>>(
       static_cast<const bf16*>(a.x), static_cast<const bf16*>(a.y), static_cast<const float*>(a.cs),
       static_cast<const float*>(a.h0), static_cast<const float*>(a.c0),
       static_cast<const float*>(a.R), static_cast<const float*>(a.bias),
@@ -703,7 +782,7 @@ cudaError_t launch_l2(const Args& a, cudaStream_t stream) {
   const size_t smem = l2_smem(true, rows, a.U);
   cudaError_t err = allow_smem((const void*)lstm_bwd_l2_kernel<X>, smem);
   if (err != cudaSuccess) return err;
-  lstm_bwd_l2_kernel<X><<<blocks, kL2Threads, smem, stream>>>(
+  lstm_bwd_l2_kernel<X><<<dim3(blocks, a.N), kL2Threads, smem, stream>>>(
       static_cast<const X*>(a.x), static_cast<const X*>(a.y), static_cast<const float*>(a.cs),
       static_cast<const float*>(a.h0), static_cast<const float*>(a.c0),
       static_cast<const float*>(a.R), static_cast<const float*>(a.bias),
@@ -732,15 +811,16 @@ cudaError_t launch_fma(const Args& a, cudaStream_t stream) {
 
 }  // namespace
 
-// Float32 elements of the scratch `part` one backward call needs: 0 when
-// its blocks fit one cluster (one launch, `part` null), else [blocks,
-// 4U*U + 4U] (two launches); past kMaxU (bf16 KT = 8 or the L2 kernels,
-// two launches) the blocks' db partials, [blocks, 4U].
-extern "C" long long kccot_lstm_bwd_scratch(int dtype, int B, int U) {
-  if (B <= 0 || U <= 0 || bwd_rows(dtype, U) == 0) return 0;
+// Float32 elements of the scratch `part` one backward call of N
+// instances needs: 0 when an instance's blocks fit one cluster (one
+// launch, `part` null), else [N, blocks, 4U*U + 4U] (two launches); past
+// kMaxU (bf16 KT = 8 or the L2 kernels, two launches) the blocks' db
+// partials, [N, blocks, 4U].
+extern "C" long long kccot_lstm_bwd_scratch(int dtype, int N, int B, int U) {
+  if (N <= 0 || B <= 0 || U <= 0 || bwd_rows(dtype, U) == 0) return 0;
   const int blocks = bwd_blocks(dtype, B, U);
-  if (U > kMaxU) return (long long)blocks * 4 * U;
-  return blocks > kMaxCluster ? (long long)blocks * (4 * U * U + 4 * U) : 0;
+  if (U > kMaxU) return (long long)N * blocks * 4 * U;
+  return blocks > kMaxCluster ? (long long)N * blocks * (4 * U * U + 4 * U) : 0;
 }
 
 // The largest U the forward and backward kernels take: the L2 backward's
@@ -753,23 +833,25 @@ extern "C" int kccot_lstm_max_units() {
 
 // dtype 0 = float32, 1 = bfloat16 (of x, y, dy and dx; 1 runs the
 // tensor-core kernel, 0 the CUDA-core one); act 0 = tanh, 1 = sigmoid.
-// x, dx [B, T, 4U]; y, dy [B, T, U]; cs the f32 c stack [B, T, U]; h0,
-// c0, dhn, dcn, dh0, dc0 [B, U] float32; R [U, 4U] the recurrent kernel,
-// float32 (the kernel rounds it to the compute dtype);
-// bias [4U]; dR [U, 4U] and db [4U] float32; part as
-// kccot_lstm_bwd_scratch says.  dy, dhn, dcn may be null (zero
-// cotangents).  Any U up to kccot_lstm_max_units() (U > 64: the L2
-// kernels, either dtype).  All contiguous.  Returns the launches'
-// cudaError_t.
+// N instances (1 to kMaxInstances), each its own problem with its own dR
+// and db, in the launches of a one-instance call: x, dx [N, B, T, 4U];
+// y, dy [N, B, T, U]; cs the f32 c stacks [N, B, T, U]; h0, c0, dhn,
+// dcn, dh0, dc0 [N, B, U] float32; R [N, U, 4U] the recurrent kernels,
+// float32 (the kernel rounds them to the compute dtype); bias [N, 4U];
+// dR [N, U, 4U] and db [N, 4U] float32; part as kccot_lstm_bwd_scratch
+// says.  dy, dhn, dcn may be null (zero cotangents).  Any U up to
+// kccot_lstm_max_units() (U > 64: the L2 kernels, either dtype).  All
+// contiguous.  Returns the launches' cudaError_t.
 extern "C" int kccot_lstm_bwd(int dtype, int act, const void* x, const void* y,
                               const void* cs, const void* h0, const void* c0, const void* R,
                               const void* bias, const void* dy, const void* dhn, const void* dcn,
                               void* dx, void* dh0, void* dc0, void* dR, void* db, void* part,
-                              int B, int T, int U, void* stream) {
-  if (B <= 0 || T <= 0 || U <= 0 || (act != 0 && act != 1) || (dtype != 0 && dtype != 1))
+                              int N, int B, int T, int U, void* stream) {
+  if (N <= 0 || N > kMaxInstances || B <= 0 || T <= 0 || U <= 0 || (act != 0 && act != 1) ||
+      (dtype != 0 && dtype != 1))
     return cudaErrorInvalidValue;
   const Args a{x, y, cs, h0, c0, R, bias, dy, dhn, dcn, dx, dh0, dc0, dR, db, part,
-               B, T, U, act};
+               N, B, T, U, act};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1 && U <= kMaxUTc) {
     if (U <= 16) return launch_tc<1>(a, s);

@@ -42,6 +42,11 @@
 // * Past that (f32 past 64, bf16 past 128): an L2 kernel on the CUDA
 //   cores that reads cdt(R) at every step instead of staging it
 //   (lstm_fwd_l2_kernel).  It is meant to be right for any U, not fast.
+// * N instances (the discriminators' four passes under the fused
+//   discriminators, each with its own R and b) run in the one launch of
+//   any of these paths: the instance is the grid's y, and each block
+//   computes its instance's rows as a one-instance call would, to the bit
+//   (at_instance, lstm_tile.cuh).
 
 #include "lstm_tile.cuh"
 
@@ -64,6 +69,18 @@ __global__ void __launch_bounds__(Tc<KT>::kThreads)
   float* cb = reinterpret_cast<float*>(hb + 2 * 16 * C::LDH);  // [2][kTcRows][Kp]
   const int r0 = blockIdx.x * kTcRows, U4 = 4 * U;
   const int rl = tc_row(), j = tc_unit(), row = r0 + rl;
+  {  // instance blockIdx.y's arrays
+    const int n = blockIdx.y;
+    x = at_instance(x, (long long)B * T_ * U4, n);
+    h0 = at_instance(h0, (long long)B * U, n);
+    c0 = at_instance(c0, (long long)B * U, n);
+    R = at_instance(R, (long long)U * U4, n);
+    bias = at_instance(bias, U4, n);
+    y = at_instance(y, (long long)B * T_ * U, n);
+    cs = at_instance(cs, (long long)B * T_ * U, n);
+    hn = at_instance(hn, (long long)B * U, n);
+    cn = at_instance(cn, (long long)B * U, n);
+  }
   const bool ok = row < B && j < U, live = 4 * (threadIdx.x / 32) < U;  // live: warp-uniform
   // The coalesced y / c store: thread (srow, scol), one element a step.
   const int scol = threadIdx.x % U, srow = threadIdx.x / U;
@@ -151,6 +168,18 @@ __global__ void __launch_bounds__(kFmaThreads)
                     int B, int T_, int U_, int act) {
   const int U = kU ? kU : U_;
   const int U4 = 4 * U, U1 = U + 1;
+  {  // instance blockIdx.y's arrays
+    const int n = blockIdx.y;
+    x = at_instance(x, (long long)B * T_ * U4, n);
+    h0 = at_instance(h0, (long long)B * U, n);
+    c0 = at_instance(c0, (long long)B * U, n);
+    R = at_instance(R, (long long)U * U4, n);
+    bias = at_instance(bias, U4, n);
+    y = at_instance(y, (long long)B * T_ * U, n);
+    cs = at_instance(cs, (long long)B * T_ * U, n);
+    hn = at_instance(hn, (long long)B * U, n);
+    cn = at_instance(cn, (long long)B * U, n);
+  }
   extern __shared__ __align__(16) float smem[];
   float4* R4 = reinterpret_cast<float4*>(smem);  // [U][U+1]: gates of R[k, g*U+j]
   float* hs = smem + 4 * U * U1;                   // [2][rows][U]
@@ -230,6 +259,18 @@ __global__ void __launch_bounds__(kL2Threads)
   float* hs = smem;               // [2][rows][U]: cdt(h) of step t's input at t & 1
   float* cst = hs + 2 * rows * U; // [rows][U]: c
   const int r0 = blockIdx.x * rows, U4 = 4 * U;
+  {  // instance blockIdx.y's arrays
+    const int n = blockIdx.y;
+    x = at_instance(x, (long long)B * T_ * U4, n);
+    h0 = at_instance(h0, (long long)B * U, n);
+    c0 = at_instance(c0, (long long)B * U, n);
+    R = at_instance(R, (long long)U * U4, n);
+    bias = at_instance(bias, U4, n);
+    y = at_instance(y, (long long)B * T_ * U, n);
+    cs = at_instance(cs, (long long)B * T_ * U, n);
+    hn = at_instance(hn, (long long)B * U, n);
+    cn = at_instance(cn, (long long)B * U, n);
+  }
   for (int e = threadIdx.x; e < rows * U; e += blockDim.x) {
     const int row = r0 + e / U, j = e % U;
     hs[e] = row < B ? round_to<X>(h0[row * U + j]) : 0.0f;
@@ -281,14 +322,14 @@ __global__ void __launch_bounds__(kL2Threads)
 
 template <typename X>
 cudaError_t launch_l2(const void* x, const void* h0, const void* c0, const void* R,
-                      const void* bias, void* y, void* cs, void* hn, void* cn, int B, int T_,
+                      const void* bias, void* y, void* cs, void* hn, void* cn, int N, int B, int T_,
                       int U, int act, cudaStream_t stream) {
   const int rows = l2_rows(false, U);
   if (rows == 0) return cudaErrorInvalidValue;
   const size_t smem = l2_smem(false, rows, U);
   const cudaError_t err = allow_smem((const void*)lstm_fwd_l2_kernel<X>, smem);
   if (err != cudaSuccess) return err;
-  lstm_fwd_l2_kernel<X><<<(B + rows - 1) / rows, kL2Threads, smem, stream>>>(
+  lstm_fwd_l2_kernel<X><<<dim3((B + rows - 1) / rows, N), kL2Threads, smem, stream>>>(
       static_cast<const X*>(x), static_cast<const float*>(h0), static_cast<const float*>(c0),
       static_cast<const float*>(R), static_cast<const float*>(bias), static_cast<X*>(y),
       static_cast<float*>(cs), static_cast<float*>(hn), static_cast<float*>(cn), B, T_, U, act,
@@ -298,14 +339,14 @@ cudaError_t launch_l2(const void* x, const void* h0, const void* c0, const void*
 
 template <int KT>
 cudaError_t launch_tc(const void* x, const void* h0, const void* c0, const void* R,
-                      const void* bias, void* y, void* cs, void* hn, void* cn, int B, int T_,
+                      const void* bias, void* y, void* cs, void* hn, void* cn, int N, int B, int T_,
                       int U, int act, cudaStream_t stream) {
   using C = Tc<KT>;
   const size_t smem = (size_t)(C::Kp * C::LDR + 2 * 16 * C::LDH) * 2 +
                       (size_t)2 * kTcRows * C::Kp * 4;
   const cudaError_t err = allow_smem((const void*)lstm_fwd_tc_kernel<KT>, smem);
   if (err != cudaSuccess) return err;
-  lstm_fwd_tc_kernel<KT><<<(B + kTcRows - 1) / kTcRows, C::kThreads, smem, stream>>>(
+  lstm_fwd_tc_kernel<KT><<<dim3((B + kTcRows - 1) / kTcRows, N), C::kThreads, smem, stream>>>(
       static_cast<const bf16*>(x), static_cast<const float*>(h0), static_cast<const float*>(c0),
       static_cast<const float*>(R), static_cast<const float*>(bias), static_cast<bf16*>(y),
       static_cast<float*>(cs), static_cast<float*>(hn), static_cast<float*>(cn), B, T_, U, act);
@@ -314,13 +355,13 @@ cudaError_t launch_tc(const void* x, const void* h0, const void* c0, const void*
 
 template <int kU>
 cudaError_t launch_fma(const void* x, const void* h0, const void* c0, const void* R,
-                       const void* bias, void* y, void* cs, void* hn, void* cn, int B, int T_,
+                       const void* bias, void* y, void* cs, void* hn, void* cn, int N, int B, int T_,
                        int U, int act, cudaStream_t stream) {
   const int rows = fma_rows(U);
   const size_t smem = ((size_t)4 * U * (U + 1) + (size_t)2 * rows * U) * sizeof(float);
   const cudaError_t err = allow_smem((const void*)lstm_fwd_kernel<kU>, smem);
   if (err != cudaSuccess) return err;
-  lstm_fwd_kernel<kU><<<(B + rows - 1) / rows, dim3(U, rows), smem, stream>>>(
+  lstm_fwd_kernel<kU><<<dim3((B + rows - 1) / rows, N), dim3(U, rows), smem, stream>>>(
       static_cast<const float*>(x), static_cast<const float*>(h0), static_cast<const float*>(c0),
       static_cast<const float*>(R), static_cast<const float*>(bias), static_cast<float*>(y),
       static_cast<float*>(cs), static_cast<float*>(hn), static_cast<float*>(cn), B, T_, U, act);
@@ -330,33 +371,35 @@ cudaError_t launch_fma(const void* x, const void* h0, const void* c0, const void
 }  // namespace
 
 // dtype 0 = float32, 1 = bfloat16 (of x and y; 1 runs the tensor-core
-// kernel, 0 the CUDA-core one); act 0 = tanh, 1 = sigmoid.  x [B, T, 4U];
-// h0, c0, hn, cn [B, U] float32; R [U, 4U] the recurrent kernel, float32
-// (the kernel rounds it to the compute dtype); bias [4U] float32; y
-// [B, T, U]; cs, if not null, the c stack [B, T, U] float32.  Any U up
-// to kccot_lstm_max_units() (bf16 up to 128 on the tensor cores; past
-// that, and f32 past 64, the L2 kernel).  All contiguous.  Returns the
-// launch's cudaError_t.
+// kernel, 0 the CUDA-core one); act 0 = tanh, 1 = sigmoid.  N instances
+// (1 to kMaxInstances), each its own problem, in one launch on every
+// path: x [N, B, T, 4U]; h0, c0, hn, cn [N, B, U] float32; R [N, U, 4U]
+// the recurrent kernels, float32 (the kernel rounds them to the compute
+// dtype); bias [N, 4U] float32; y [N, B, T, U]; cs, if not null, the c
+// stacks [N, B, T, U] float32.  Any U up to kccot_lstm_max_units() (bf16
+// up to 128 on the tensor cores; past that, and f32 past 64, the L2
+// kernel).  All contiguous.  Returns the launch's cudaError_t.
 extern "C" int kccot_lstm_fwd(int dtype, int act, const void* x, const void* h0, const void* c0,
                               const void* R, const void* bias, void* y, void* cs, void* hn,
-                              void* cn, int B, int T, int U, void* stream) {
-  if (B <= 0 || T <= 0 || U <= 0 || (act != 0 && act != 1) || (dtype != 0 && dtype != 1))
+                              void* cn, int N, int B, int T, int U, void* stream) {
+  if (N <= 0 || N > kccot::lstm::kMaxInstances || B <= 0 || T <= 0 || U <= 0 ||
+      (act != 0 && act != 1) || (dtype != 0 && dtype != 1))
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1 && U <= kccot::lstm::kMaxUTc) {
-    if (U <= 16) return launch_tc<1>(x, h0, c0, R, bias, y, cs, hn, cn, B, T, U, act, s);
-    if (U <= 32) return launch_tc<2>(x, h0, c0, R, bias, y, cs, hn, cn, B, T, U, act, s);
-    if (U <= 64) return launch_tc<4>(x, h0, c0, R, bias, y, cs, hn, cn, B, T, U, act, s);
-    return launch_tc<8>(x, h0, c0, R, bias, y, cs, hn, cn, B, T, U, act, s);
+    if (U <= 16) return launch_tc<1>(x, h0, c0, R, bias, y, cs, hn, cn, N, B, T, U, act, s);
+    if (U <= 32) return launch_tc<2>(x, h0, c0, R, bias, y, cs, hn, cn, N, B, T, U, act, s);
+    if (U <= 64) return launch_tc<4>(x, h0, c0, R, bias, y, cs, hn, cn, N, B, T, U, act, s);
+    return launch_tc<8>(x, h0, c0, R, bias, y, cs, hn, cn, N, B, T, U, act, s);
   }
   if (U > kccot::lstm::kMaxU) {
-    return dtype == 1 ? launch_l2<bf16>(x, h0, c0, R, bias, y, cs, hn, cn, B, T, U, act, s)
-                      : launch_l2<float>(x, h0, c0, R, bias, y, cs, hn, cn, B, T, U, act, s);
+    return dtype == 1 ? launch_l2<bf16>(x, h0, c0, R, bias, y, cs, hn, cn, N, B, T, U, act, s)
+                      : launch_l2<float>(x, h0, c0, R, bias, y, cs, hn, cn, N, B, T, U, act, s);
   }
   switch (U) {
-    case 8: return launch_fma<8>(x, h0, c0, R, bias, y, cs, hn, cn, B, T, U, act, s);
-    case 32: return launch_fma<32>(x, h0, c0, R, bias, y, cs, hn, cn, B, T, U, act, s);
-    case 64: return launch_fma<64>(x, h0, c0, R, bias, y, cs, hn, cn, B, T, U, act, s);
-    default: return launch_fma<0>(x, h0, c0, R, bias, y, cs, hn, cn, B, T, U, act, s);
+    case 8: return launch_fma<8>(x, h0, c0, R, bias, y, cs, hn, cn, N, B, T, U, act, s);
+    case 32: return launch_fma<32>(x, h0, c0, R, bias, y, cs, hn, cn, N, B, T, U, act, s);
+    case 64: return launch_fma<64>(x, h0, c0, R, bias, y, cs, hn, cn, N, B, T, U, act, s);
+    default: return launch_fma<0>(x, h0, c0, R, bias, y, cs, hn, cn, N, B, T, U, act, s);
   }
 }

@@ -53,6 +53,21 @@ __device__ __forceinline__ float dactivation(float a, int act) {
   return act == 0 ? 1.0f - a * a : a * (1.0f - a);
 }
 
+// The instance axis (the counterpart of pallas_call's batching rule under
+// jax.vmap): a call runs N independent problems, each with its own x, h0,
+// c0, R, b and outputs, stored one instance after another, and a block
+// takes instance blockIdx.y (blockIdx.z in lstm_wgrad_l2_kernel).  It
+// shifts its pointers to that instance's arrays and then computes what a
+// one-instance call computes: the same blocks, the same sums in the same
+// order, the same bits.
+template <typename P>
+__device__ __forceinline__ P* at_instance(P* p, long long per_instance, int n) {
+  return p == nullptr ? p : p + per_instance * n;
+}
+
+// Instances a call takes (grid dimension y).
+constexpr int kMaxInstances = 65535;
+
 __host__ __device__ __forceinline__ int gcol(int g, int j) {
   return 16 * (j / 4) + 8 * (g / 2) + 2 * (j % 4) + g % 2;
 }

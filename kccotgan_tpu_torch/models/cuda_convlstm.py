@@ -577,6 +577,12 @@ def convlstm_scan(xconv, h0, c0, rec_kernel, bias, rec_masks=None):
         devices = {x.device.type for x in args}
         if devices not in ({"cpu"}, {"cuda"}):  # the dispatcher would pick one
             raise ValueError(f"convlstm: inputs on devices {sorted(devices)}")
+        if devices == {"cuda"} and not torch.compiler.is_exporting():
+            # a live call takes what the kernel takes; the operator makes
+            # only an exported program's run-time strides contiguous
+            for name, x in zip(("xconv", "h0", "c0", "rec_kernel", "bias"), args):
+                if not x.is_contiguous():
+                    raise ValueError(f"convlstm: {name} must be contiguous")
         y, h, c = convlstm_fwd_op(*args)
         return y, (h, c)
     y, _, h, c, *_ = convlstm_fwd(*args, rec_masks=rec_masks)

@@ -29,6 +29,17 @@ kernels take the f32 recurrent kernel as stored, rounding it
 themselves: a call launches nothing but its kernels.  Each wrapper
 counts its calls in ``.calls`` and its kernel launches in
 ``.launches``.
+
+Instance axis: every function here also takes N independent problems
+stacked on a leading axis (``xproj [N, B, T, 4U]``, ``h0``, ``c0 [N, B,
+U]``, ``rec_kernel [N, U, 4U]``, ``bias [N, 4U]``; outputs, ``dR`` and
+``db`` likewise), the counterpart of ``pallas_call``'s batching rule
+under ``jax.vmap``.  The kernels run all N in the launches of one
+problem, each instance equal to its own call to the bit; the plain
+versions loop over the instances.  ``LstmScan``'s ``vmap`` rule stacks
+a ``torch.func.vmap`` dimension into that axis, so the fused
+discriminators (``train/steps.py``) launch each kernel once for their
+four passes.
 """
 
 from __future__ import annotations
@@ -51,10 +62,20 @@ def _dact(name, a):
     return 1.0 - a * a if name == "tanh" else a * (1.0 - a)
 
 
+def _per_instance(fn, *args):
+    """``fn`` over the leading instance axis of ``args`` (None passes
+    through), its outputs stacked."""
+    outs = [fn(*(None if a is None else a[i] for a in args)) for i in range(args[0].shape[0])]
+    return tuple(torch.stack(o) for o in zip(*outs))
+
+
 def lstm_scan_reference(xproj, h0, c0, rec_kernel, bias, activation="tanh"):
     """Plain PyTorch recurrence: ``(y, c_stack, h_n, c_n)``, the kernel's
     oracle and the CPU path; autograd differentiates it under
     ``kernel_impl='scan'``."""
+    if xproj.dim() == 4:
+        return _per_instance(functools.partial(lstm_scan_reference, activation=activation),
+                             xproj, h0, c0, rec_kernel, bias)
     cdt = xproj.dtype
     u = h0.shape[-1]
     act = _ACT[activation]
@@ -76,6 +97,9 @@ def lstm_bwd_reference(xproj, h0, c0, rec_kernel, bias, y, c_stack, dy, dh_n, dc
                        activation="tanh"):
     """Line-by-line plain port of ``_bwd_kernel``: ``(dx, dh0, dc0, dR,
     db)``.  ``dy`` is in the compute dtype."""
+    if xproj.dim() == 4:
+        return _per_instance(functools.partial(lstm_bwd_reference, activation=activation),
+                             xproj, h0, c0, rec_kernel, bias, y, c_stack, dy, dh_n, dc_n)
     cdt = xproj.dtype
     u = h0.shape[-1]
     act = _ACT[activation]
@@ -118,20 +142,25 @@ def _geometry(xproj, h0, c0, rec_kernel, bias, activation):
         raise TypeError(f"lstm: unsupported compute dtype {xproj.dtype}")
     if activation not in _ACT_CODES:
         raise ValueError(f"lstm: unsupported activation {activation!r}")
-    if xproj.dim() != 3 or xproj.shape[-1] % 4:
-        raise ValueError(f"lstm: xproj must be [B, T, 4U], got {tuple(xproj.shape)}")
-    b, t, u4 = xproj.shape
+    if xproj.dim() not in (3, 4) or xproj.shape[-1] % 4:
+        raise ValueError(f"lstm: xproj must be [B, T, 4U] or [N, B, T, 4U], got {tuple(xproj.shape)}")
+    lead = tuple(xproj.shape[:-3])  # (N,) with an instance axis
+    b, t, u4 = xproj.shape[-3:]
     u, dev = u4 // 4, xproj.device
-    _check("xproj", xproj, (b, t, u4), xproj.dtype, dev)
-    _check("h0", h0, (b, u), torch.float32, dev)
-    _check("c0", c0, (b, u), torch.float32, dev)
-    _check("rec_kernel", rec_kernel, (u, u4), torch.float32, dev)
-    _check("bias", bias, (u4,), torch.float32, dev)
-    return b, t, u
+    _check("xproj", xproj, (*lead, b, t, u4), xproj.dtype, dev)
+    _check("h0", h0, (*lead, b, u), torch.float32, dev)
+    _check("c0", c0, (*lead, b, u), torch.float32, dev)
+    _check("rec_kernel", rec_kernel, (*lead, u, u4), torch.float32, dev)
+    _check("bias", bias, (*lead, u4), torch.float32, dev)
+    return lead, b, t, u
 
 
 def _ptr(x):
     return x.data_ptr() if x is not None else None
+
+
+def _instances(lead):
+    return lead[0] if lead else 1
 
 
 def _library(u):
@@ -144,17 +173,17 @@ def _library(u):
 
 
 def _launch_fwd(xproj, h0, c0, rec_kernel, bias, activation, with_c_stack):
-    b, t, u = _geometry(xproj, h0, c0, rec_kernel, bias, activation)
+    lead, b, t, u = _geometry(xproj, h0, c0, rec_kernel, bias, activation)
     cdt, dev = xproj.dtype, xproj.device
     lib = _library(u)
-    y = torch.empty(b, t, u, dtype=cdt, device=dev)
-    cs = torch.empty(b, t, u, dtype=torch.float32, device=dev) if with_c_stack else None
+    y = torch.empty(*lead, b, t, u, dtype=cdt, device=dev)
+    cs = torch.empty(*lead, b, t, u, dtype=torch.float32, device=dev) if with_c_stack else None
     hn, cn = torch.empty_like(h0), torch.empty_like(c0)
     lstm_fwd.calls += 1
     err = lib.kccot_lstm_fwd(
         _DTYPE_CODES[cdt], _ACT_CODES[activation], xproj.data_ptr(), h0.data_ptr(),
         c0.data_ptr(), rec_kernel.data_ptr(), bias.data_ptr(), y.data_ptr(), _ptr(cs),
-        hn.data_ptr(), cn.data_ptr(), b, t, u,
+        hn.data_ptr(), cn.data_ptr(), _instances(lead), b, t, u,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(lib, err, "lstm_fwd")
@@ -175,12 +204,13 @@ def lstm_fwd(xproj, h0, c0, rec_kernel, bias, activation="tanh", with_c_stack=Fa
 
 
 def _launch_bwd(xproj, h0, c0, rec_kernel, bias, y, c_stack, dy, dh_n, dc_n, activation):
-    b, t, u = _geometry(xproj, h0, c0, rec_kernel, bias, activation)
+    lead, b, t, u = _geometry(xproj, h0, c0, rec_kernel, bias, activation)
     cdt, dev = xproj.dtype, xproj.device
-    _check("y", y, (b, t, u), cdt, dev)
-    _check("c_stack", c_stack, (b, t, u), torch.float32, dev)
-    for name, x, shape, dtype in (("dy", dy, (b, t, u), cdt), ("dh_n", dh_n, (b, u), torch.float32),
-                                  ("dc_n", dc_n, (b, u), torch.float32)):
+    _check("y", y, (*lead, b, t, u), cdt, dev)
+    _check("c_stack", c_stack, (*lead, b, t, u), torch.float32, dev)
+    for name, x, shape, dtype in (("dy", dy, (*lead, b, t, u), cdt),
+                                  ("dh_n", dh_n, (*lead, b, u), torch.float32),
+                                  ("dc_n", dc_n, (*lead, b, u), torch.float32)):
         if x is not None:  # None: a zero cotangent
             _check(name, x, shape, dtype, dev)
     lib = _library(u)
@@ -188,17 +218,18 @@ def _launch_bwd(xproj, h0, c0, rec_kernel, bias, y, c_stack, dy, dh_n, dc_n, act
     # more blocks than one cluster, or U > 64: their dR and db partials
     # (db alone past U = 64) go through this scratch and a second,
     # fixed-order launch
-    scratch = lib.kccot_lstm_bwd_scratch(code, b, u)
+    n = _instances(lead)
+    scratch = lib.kccot_lstm_bwd_scratch(code, n, b, u)
     part = torch.empty(scratch, dtype=torch.float32, device=dev) if scratch else None
     dx = torch.empty_like(xproj)
     dh0, dc0 = torch.empty_like(h0), torch.empty_like(c0)
-    drk = torch.empty(u, 4 * u, dtype=torch.float32, device=dev)
-    db = torch.empty(4 * u, dtype=torch.float32, device=dev)
+    drk = torch.empty(*lead, u, 4 * u, dtype=torch.float32, device=dev)
+    db = torch.empty(*lead, 4 * u, dtype=torch.float32, device=dev)
     lstm_bwd.calls += 1
     err = lib.kccot_lstm_bwd(
         code, _ACT_CODES[activation], xproj.data_ptr(), y.data_ptr(), c_stack.data_ptr(),
         h0.data_ptr(), c0.data_ptr(), rec_kernel.data_ptr(), bias.data_ptr(), _ptr(dy), _ptr(dh_n), _ptr(dc_n), dx.data_ptr(), dh0.data_ptr(),
-        dc0.data_ptr(), drk.data_ptr(), db.data_ptr(), _ptr(part), b, t, u,
+        dc0.data_ptr(), drk.data_ptr(), db.data_ptr(), _ptr(part), n, b, t, u,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(lib, err, "lstm_bwd")
@@ -226,22 +257,46 @@ for _fn in (lstm_fwd, lstm_bwd):
 
 
 class LstmScan(torch.autograd.Function):
-    """The recurrence under autograd: saves ``(xproj, h0, c0, rec_kernel,
-    bias, y, c_stack)`` as ``_vjp_fwd`` does; unused ``(h_n, c_n)`` count
-    as zero cotangents."""
+    """The recurrence under autograd: ``apply`` returns ``(y, h_n, c_n)``
+    and saves ``(xproj, h0, c0, rec_kernel, bias, y, c_stack)`` as
+    ``_vjp_fwd`` does; unused ``(h_n, c_n)`` count as zero cotangents.
+    Under ``torch.func.vmap`` the ``vmap`` rule moves the vmapped
+    dimension to the front, as the instance axis, and applies the
+    Function once to all instances."""
+
+    @classmethod
+    def apply(cls, xproj, h0, c0, rec_kernel, bias, activation):
+        """``(y, h_n, c_n)``: the c stack is an output only for
+        ``setup_context`` to save."""
+        return super().apply(xproj, h0, c0, rec_kernel, bias, activation)[:3]
 
     @staticmethod
-    def forward(ctx, xproj, h0, c0, rec_kernel, bias, activation):
+    def forward(xproj, h0, c0, rec_kernel, bias, activation):
         y, cs, h, c = lstm_fwd(xproj, h0, c0, rec_kernel, bias, activation, with_c_stack=True)
+        return y, h, c, cs
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        *tensors, activation = inputs
+        y, _, _, cs = output
         ctx.activation = activation
-        ctx.save_for_backward(xproj, h0, c0, rec_kernel, bias, y, cs)
+        ctx.save_for_backward(*tensors, y, cs)
+        ctx.mark_non_differentiable(cs)
         # unused outputs' cotangents arrive as None, not as zero tensors
         # filled on the device: the kernel reads None as zero
         ctx.set_materialize_grads(False)
-        return y, h, c
 
     @staticmethod
-    def backward(ctx, dy, dh_n, dc_n):
+    def vmap(info, in_dims, xproj, h0, c0, rec_kernel, bias, activation):
+        args = [x.movedim(d, 0) if d is not None else x.expand(info.batch_size, *x.shape)
+                for x, d in zip((xproj, h0, c0, rec_kernel, bias), in_dims[:5])]
+        if args[0].dim() != 4:
+            raise ValueError("lstm: one instance axis at most (nested vmap)")
+        outs = super(LstmScan, LstmScan).apply(*(x.contiguous() for x in args), activation)
+        return outs, (0, 0, 0, 0)
+
+    @staticmethod
+    def backward(ctx, dy, dh_n, dc_n, _):
         xproj, h0, c0, rec_kernel, bias, y, cs = ctx.saved_tensors
         dx, dh0, dc0, drk, db = lstm_bwd(
             xproj, h0, c0, rec_kernel, bias, y, cs,
@@ -254,9 +309,12 @@ class LstmScan(torch.autograd.Function):
 
 def lstm_scan(xproj, h0, c0, rec_kernel, bias, activation="tanh"):
     """The fused LSTM recurrence (contract in the module docstring):
-    ``LstmScan`` when autograd needs a gradient, else the forward alone."""
+    ``LstmScan`` when autograd needs a gradient or under
+    ``torch.func.vmap`` (whose tensors do not tell), else the forward
+    alone."""
     args = (xproj, h0, c0, rec_kernel, bias)
-    if torch.is_grad_enabled() and any(x.requires_grad for x in args):
+    vmapped = any(torch._C._functorch.is_batchedtensor(x) for x in args)
+    if vmapped or (torch.is_grad_enabled() and any(x.requires_grad for x in args)):
         y, h, c = LstmScan.apply(*args, activation)
         return y, (h, c)
     y, _, h, c = lstm_fwd(*args, activation)

@@ -281,16 +281,19 @@ class Conv2D(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """flax ``BatchNorm`` in training mode with the discriminator's momentum
-    0.99 and eps 1e-3, written out (``torch.nn``'s differs in layout,
-    momentum convention and running variance).
+    """flax ``BatchNorm`` with the discriminator's momentum 0.99 and eps
+    1e-3, written out (``torch.nn``'s differs in layout, momentum
+    convention and running variance).
 
     ``forward(x, mean, var)`` normalizes over every axis but the last
     (``[N, H, W, C]`` and ``[B, T, U]`` alike) with the batch's statistics,
     the fast variance ``max(E[x^2] - E[x]^2, 0)`` in f32, and returns
     ``(y, (mean', var'))`` with the running statistics
     ``momentum * old + (1 - momentum) * batch`` (biased variance), which
-    carry no gradient.
+    carry no gradient.  With ``training=False`` (flax's
+    ``use_running_average=True``) it normalizes by ``mean`` and ``var``
+    and returns them unchanged.  Under ``torch.func.vmap`` each instance
+    is normalized by its own batch, as vmapped flax does.
     """
 
     momentum = 0.99
@@ -306,7 +309,9 @@ class BatchNorm(nn.Module):
         nn.init.ones_(self.scale)
         nn.init.zeros_(self.bias)
 
-    def forward(self, x, mean, var):
+    def forward(self, x, mean, var, training=True):
+        if not training:
+            return (x - mean) * (torch.rsqrt(var + self.eps) * self.scale) + self.bias, (mean, var)
         dims = tuple(range(x.dim() - 1))
         mu = x.mean(dims)
         batch_var = ((x * x).mean(dims) - mu * mu).clamp_min(0.0)

@@ -227,7 +227,9 @@ class VideoDiscriminator(nn.Module):
     ``forward(video, stats)`` runs in training mode: every BatchNorm
     normalizes by its batch and ``stats`` (``{"bn1.mean": ..., "bn1.var":
     ..., "rnn_bn2.var": ...}``, the flax ``batch_stats`` paths joined by
-    dots) comes back updated as ``(out, new_stats)``.  Each frame's conv
+    dots) comes back updated as ``(out, new_stats)``.  With
+    ``training=False`` every BatchNorm normalizes by the running
+    ``stats``, which come back unchanged.  Each frame's conv
     output is flattened in NHWC order, as in the JAX package, so lstm1's
     kernel rows line up.
     """
@@ -271,13 +273,13 @@ class VideoDiscriminator(nn.Module):
                 stats[f"{name}.var"] = torch.ones_like(module.scale)
         return stats
 
-    def forward(self, video, stats):
+    def forward(self, video, stats, training=True):
         new_stats = {}
 
         def norm(x, name):
             if not self.use_batch_norm:
                 return x
-            x, (mean, var) = getattr(self, name)(x, stats[f"{name}.mean"], stats[f"{name}.var"])
+            x, (mean, var) = getattr(self, name)(x, stats[f"{name}.mean"], stats[f"{name}.var"], training)
             new_stats[f"{name}.mean"], new_stats[f"{name}.var"] = mean, var
             return x
 

@@ -1,8 +1,7 @@
 """GAN training step of the PyTorch port: discriminator phase, then
 generator phase.
 
-Counterpart of ``kccotgan_tpu/train/steps.py`` with sequential
-discriminators:
+Counterpart of ``kccotgan_tpu/train/steps.py``:
 
 * the context is encoded once (``share_context_encoding``, off with
   dropout): the discriminator phase reads the pyramid detached, and the
@@ -17,7 +16,12 @@ discriminators:
   discriminator passes h(fake), h(real), m(real), m(fake) with the
   BatchNorm statistics chained in that order, the mixed Sinkhorn
   divergence of the smoothed videos and pM on ``m_real``; ``-loss + pM``
-  is minimized over h and m by two Keras-exact Adams;
+  is minimized over h and m by two Keras-exact Adams.  Under
+  ``cfg.fused_discriminators`` the four passes are one
+  (``fused_discriminators``): ``torch.func.vmap`` of one discriminator
+  over parameters stacked ``[h, h, m, m]`` and videos ``[fake, real,
+  real, fake]``, the statistics chain rebuilt from the four instances'
+  updates as JAX rebuilds it;
 * generator phase: new noise z2 against the updated discriminators,
   starting from the statistics the discriminator phase left; ``loss`` is
   minimized over the encoder and the decoder.
@@ -52,13 +56,13 @@ import torch
 from torch.func import functional_call
 
 from ..config import check_trainable
-from ..models.layers import bernoulli_source
+from ..models.layers import BatchNorm, bernoulli_source
 from ..models.video import discriminator_modules, generator_modules
 from ..ot import compute_sinkhorn_loss, martingale_regularization
 from ..smoothing import annealing_sigma, apply_smoothing
 from .state import TrainState, dropout_keys, make_optimizers, split_key
 
-__all__ = ["build_train_step", "gan_forward"]
+__all__ = ["build_train_step", "fused_discriminators", "gan_forward"]
 
 
 class GanModules:
@@ -77,6 +81,32 @@ def _smooth(cfg, video, sigma):
         video, sigma, cfg.kernel,
         temporal_kernel=cfg.temporal_kernel_size, spatial_kernel=cfg.spatial_kernel_size,
     )
+
+
+def fused_discriminators(mods, h_params, m_params, h_stats, m_stats, fake_s, real_s):
+    """The four discriminator passes as one, JAX's ``jax.vmap(one)``:
+    ``((h_fake, h_real, m_real, m_fake), h_stats, m_stats)``.
+
+    Each instance normalizes by its own batch, as a separate call does;
+    each starts from its discriminator's old statistics, so the chain of
+    the sequential order is rebuilt as ``mu * first + second - mu * old``
+    (each update is ``mu * old + (1 - mu) * batch``).  Under 'pallas'
+    each LSTM layer launches its kernels once for the four instances
+    (``LstmScan.vmap``); the convs and products become grouped and
+    batched library calls."""
+    def stack(h, m):
+        return {k: torch.stack([h[k], h[k], m[k], m[k]]) for k in h}
+
+    def one(params, stats, video):
+        return functional_call(mods.disc_h, params, (video, stats))
+
+    outs, new = torch.func.vmap(one)(
+        stack(h_params, m_params), stack(h_stats, m_stats), torch.stack([fake_s, real_s, real_s, fake_s])
+    )
+    mu = BatchNorm.momentum
+    h_stats = {k: mu * new[k][0] + new[k][1] - mu * old for k, old in h_stats.items()}
+    m_stats = {k: mu * new[k][2] + new[k][3] - mu * old for k, old in m_stats.items()}
+    return outs.unbind(0), h_stats, m_stats
 
 
 def gan_forward(mods, cfg, enc_params, dec_params, h_params, m_params, h_stats, m_stats, real_data, z,
@@ -98,10 +128,14 @@ def gan_forward(mods, cfg, enc_params, dec_params, h_params, m_params, h_stats, 
     fake = torch.cat([real_data[:, :, : cfg.int_time_steps], fake_pred], dim=2)
     real_s = real_smoothed if real_smoothed is not None else _smooth(cfg, real_data, sigma)
     fake_s = _smooth(cfg, fake, sigma)
-    h_fake, h_stats = functional_call(mods.disc_h, h_params, (fake_s, h_stats))
-    h_real, h_stats = functional_call(mods.disc_h, h_params, (real_s, h_stats))
-    m_real, m_stats = functional_call(mods.disc_m, m_params, (real_s, m_stats))
-    m_fake, m_stats = functional_call(mods.disc_m, m_params, (fake_s, m_stats))
+    if cfg.fused_discriminators:
+        (h_fake, h_real, m_real, m_fake), h_stats, m_stats = fused_discriminators(
+            mods, h_params, m_params, h_stats, m_stats, fake_s, real_s)
+    else:
+        h_fake, h_stats = functional_call(mods.disc_h, h_params, (fake_s, h_stats))
+        h_real, h_stats = functional_call(mods.disc_h, h_params, (real_s, h_stats))
+        m_real, m_stats = functional_call(mods.disc_m, m_params, (real_s, m_stats))
+        m_fake, m_stats = functional_call(mods.disc_m, m_params, (fake_s, m_stats))
     scaling = cfg.effective_scaling
     loss = compute_sinkhorn_loss(
         real_s, fake_s, scaling, h_fake, m_real, h_real, m_fake,

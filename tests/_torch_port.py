@@ -2,6 +2,7 @@
 
 import dataclasses
 
+import jax
 import numpy as np
 import torch
 
@@ -9,6 +10,16 @@ from kccotgan_tpu.config import ModelConfig, TrainConfig
 from kccotgan_tpu_torch import config as port_config
 
 GROUPS = ("enc", "dec", "h", "m")
+
+
+def compile_o0(fn, *args):
+    """``jax.jit(fn)`` (``fn`` itself if already jitted) compiled for
+    ``args`` without LLVM's optimizations (``xla_backend_optimization_level``
+    0): a half to two thirds of the optimized build's compile time on the
+    tiny geometry, the arithmetic ulps from it, far inside every tolerance
+    of the port's tests."""
+    jitted = fn if hasattr(fn, "lower") else jax.jit(fn)
+    return jitted.lower(*args).compile({"xla_backend_optimization_level": 0})
 
 
 def port_cfg(cfg):

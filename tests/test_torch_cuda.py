@@ -24,7 +24,11 @@ batch beyond one thread-block cluster (the backward's second launch),
 the bitwise determinism of dR and db, and None cotangents; past U = 64
 (bf16 up to 128 on the tensor cores, else R read through L2; dR and db
 in a second launch) U = 96, 128 and 256 in both dtypes, and dR and db
-bitwise at U = 128.  The Sinkhorn sizes cover each path and its edges: the
+bitwise at U = 128.  The instance axis (N problems, each its own
+weights, in the launches of one): U = 8 and 64 at B=32, B = 130 (the
+second launch per instance) and U = 128, each instance equal to its
+one-instance call to the bit, and ``lstm_scan`` under ``torch.func.vmap``
+launching once.  The Sinkhorn sizes cover each path and its edges: the
 register path, a problem in one block's registers at 16 lanes a row (B =
 1, 2, 6, 31 and 32 in the 32-row kernel; 33, the first of the 64-row
 kernel), and the band path past B = 64, a thread-block cluster a problem
@@ -409,6 +413,68 @@ def test_lstm_scan_gradient_matches_autograd(cuda):
     torch.testing.assert_close(y, y_p, rtol=0, atol=TOL[torch.float32])
     _assert_grads_close([x.grad for x in leaves], [x.grad for x in ref], torch.float32,
                         ("dx", "dh0", "dc0", "dR", "db"))
+
+
+def _instanced(n, b, t, u, dtype, dev, seed=0):
+    """``n`` problems, each its own inputs and weights, stacked on a
+    leading instance axis."""
+    return [torch.stack(a).contiguous() for a in zip(*(_lstm_inputs(b, t, u, dtype, dev, seed + i)
+                                                       for i in range(n)))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,b,u,act,launches", [(4, 32, 8, "sigmoid", 1), (4, 32, 64, "tanh", 1),
+                                                (3, 130, 32, "tanh", 2), (4, 32, 128, "tanh", 2)])
+def test_instanced_lstm_kernels(cuda, n, b, u, act, launches, dtype):
+    """N instances in the launches of one call: within the plain versions'
+    tolerances, and each equal to the one-instance call on its slice to
+    the bit.  U = 8 and 64 at the flagship's B=32, T=20 (one cluster an
+    instance); B = 130 at U = 32, 17 blocks an instance in either dtype
+    (the scratch's second launch, summed per instance); U = 128, past the
+    staged kernels (bf16 on the tensor cores at KT = 8, f32 through L2;
+    dR and db in a second launch)."""
+    args = _instanced(n, b, 20 if b <= 32 else 5, u, dtype, cuda, seed=u + n)
+    with torch.no_grad():
+        (y, cs), fwd_p, cot = _bwd_args(lambda *a: lstm_scan_reference(*a, act), args, cuda, seed=b)
+        before = (lstm_fwd.launches, lstm_bwd.launches)
+        got_fwd = lstm_fwd(*args, act, with_c_stack=True)
+        got = lstm_bwd(*args, y, cs, *cot, act)
+        launched = (lstm_fwd.launches - before[0], lstm_bwd.launches - before[1])
+        want = lstm_bwd_reference(*args, y, cs, *cot, act)
+        single_fwd = [lstm_fwd(*(a[i] for a in args), act, with_c_stack=True) for i in range(n)]
+        single = [lstm_bwd(*(a[i] for a in (*args, y, cs, *cot)), act) for i in range(n)]
+    torch.cuda.synchronize()
+    assert launched == (1, launches)
+    for g, r in zip(got_fwd, fwd_p):
+        torch.testing.assert_close(g.float(), r.float(), rtol=0, atol=TOL[dtype])
+    _assert_grads_close(got, want, dtype, ("dx", "dh0", "dc0", "dR", "db"))
+    for i in range(n):
+        for name, a, one in zip(("y", "c_stack", "h_n", "c_n"), got_fwd, single_fwd[i]):
+            assert torch.equal(a[i], one), (i, name)
+        for name, a, one in zip(("dx", "dh0", "dc0", "dR", "db"), got, single[i]):
+            assert torch.equal(a[i], one), (i, name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lstm_scan_under_vmap_launches_once(cuda, dtype):
+    """``torch.func.vmap`` over ``lstm_scan`` (the fused discriminators'
+    route): one forward and one backward launch for the four instances,
+    outputs and every gradient equal to per-instance calls to the bit."""
+    args = _instanced(4, 32, 20, 32, dtype, cuda, seed=40)
+    w = torch.randn(args[0].shape[:-1] + (32,), generator=torch.Generator().manual_seed(6)).to(cuda, dtype)
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    before = (lstm_fwd.launches, lstm_bwd.launches)
+    y, (h, c) = torch.func.vmap(lstm_scan)(*leaves)
+    torch.autograd.backward((y, h), (w, torch.ones_like(h)))
+    torch.cuda.synchronize()
+    assert (lstm_fwd.launches - before[0], lstm_bwd.launches - before[1]) == (1, 1)
+    ref = [a.clone().requires_grad_(True) for a in args]
+    outs = [lstm_scan(*(a[i] for a in ref)) for i in range(4)]
+    y_1, h_1 = torch.stack([o[0] for o in outs]), torch.stack([o[1][0] for o in outs])
+    torch.autograd.backward((y_1, h_1), (w, torch.ones_like(h_1)))
+    assert torch.equal(y, y_1) and torch.equal(h, h_1)
+    for name, a, b in zip(("dx", "dh0", "dc0", "dR", "db"), leaves, ref):
+        assert torch.equal(a.grad, b.grad), name
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):

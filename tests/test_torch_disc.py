@@ -2,8 +2,9 @@
 path vs the JAX package, at the tiny geometry of ``tests/test_train.py``
 (B=2, 16x16x1 frames, T=5 with 3 context, d_filter_size=2, state 3).
 
-The JAX side runs under jit, compiled once per module fixture; weights
-come from its init and reach the port through ``train_state_from_jax``.
+The JAX side runs under jit, compiled once per module fixture without
+LLVM's optimizations (``_torch_port.compile_o0``); weights come from its
+init and reach the port through ``train_state_from_jax``.
 Tolerances: f32 at 1e-5 abs for the discriminator's output and running
 statistics (conv and matmul summation order; the output is a sigmoid in
 [0, 1]) and for the decoder's frames; bf16 at 2e-2 abs: both sides round
@@ -35,7 +36,7 @@ from kccotgan_tpu_torch.weights import (
     generator_params_from_jax,
     init_discriminator_params,
 )
-from tests._torch_port import port_cfg, tiny_train_cfg
+from tests._torch_port import compile_o0, port_cfg, tiny_train_cfg
 
 torch.set_num_threads(1)
 
@@ -53,9 +54,9 @@ def disc():
     out = {"fake": fake, "real": real}
     for cdt in ("float32", "bfloat16"):
         mod = GanModules(tiny_train_cfg(cdt)).disc_h
-        variables = jax.jit(lambda k: mod.init(k, fake, training=False))(jax.random.PRNGKey(3))
+        key = jax.random.PRNGKey(3)
+        variables = compile_o0(lambda k: mod.init(k, fake, training=False), key)(key)
 
-        @jax.jit
         def chain(v):
             o1, u1 = mod.apply(v, fake, training=True, mutable=["batch_stats"])
             o2, u2 = mod.apply(
@@ -63,7 +64,7 @@ def disc():
             )
             return o1, u1["batch_stats"], o2, u2["batch_stats"]
 
-        out[cdt] = (_np(variables), *_np(chain(variables)))
+        out[cdt] = (_np(variables), *_np(compile_o0(chain, variables)(variables)))
     return out
 
 
@@ -172,14 +173,14 @@ def test_decoder_training_path_matches_jax():
     video = rng.uniform(size=(2, 16, 5, 16, 1)).astype(np.float32)
     z = rng.normal(size=mods.z_shape(2, cfg.pred_time_steps)).astype(np.float32)
 
-    @jax.jit
     def run(k1, k2):
         ev = enc.init(k1, video, training=False)
         pyr = enc.apply(ev, video, training=True)
         dv = dec.init(k2, pyr, z, training=True)
         return ev["params"], dv["params"], pyr, dec.apply(dv, pyr, z, training=True)
 
-    enc_p, dec_p, pyr, want = _np(run(jax.random.PRNGKey(5), jax.random.PRNGKey(6)))
+    keys = (jax.random.PRNGKey(5), jax.random.PRNGKey(6))
+    enc_p, dec_p, pyr, want = _np(compile_o0(run, *keys)(*keys))
     encoder, decoder = generator_modules(port_cfg(cfg))
     params = generator_params_from_jax(enc_p, dec_p)
     encoder.load_state_dict(params["encoder"])

@@ -33,7 +33,7 @@ from kccotgan_tpu.train.state import GanModules
 from kccotgan_tpu_torch.models import generator_modules
 from kccotgan_tpu_torch.train import build_rollout
 from kccotgan_tpu_torch.weights import generator_params_from_jax, init_generator_params
-from tests._torch_port import port_cfg
+from tests._torch_port import compile_o0, port_cfg
 
 torch.set_num_threads(1)
 
@@ -61,7 +61,8 @@ def tiny_cfg(compute_dtype="float32"):
 def setup():
     """JAX modules, their params (numpy) and the context's pyramid and
     carry.  Everything runs under jit, which compiles once instead of
-    dispatching every op."""
+    dispatching every op, without LLVM's optimizations
+    (``_torch_port.compile_o0``)."""
     cfg = tiny_cfg()
     mods = GanModules(cfg)
     enc, dec = mods.generator_modules(time_major=False)
@@ -69,12 +70,13 @@ def setup():
     context = np.random.default_rng(7).uniform(
         size=(cfg.batch_size, m.x_height, cfg.int_time_steps, m.x_width, m.n_channels)
     ).astype(np.float32)
-    enc_p = jax.jit(lambda k: enc.init(k, context, training=False))(jax.random.PRNGKey(0))["params"]
-    pyramid, carry = jax.jit(
-        lambda p: enc.apply({"params": p}, context, training=False, return_carry=True)
+    keys = jax.random.PRNGKey(0), jax.random.PRNGKey(1)
+    enc_p = compile_o0(lambda k: enc.init(k, context, training=False), keys[0])(keys[0])["params"]
+    pyramid, carry = compile_o0(
+        lambda p: enc.apply({"params": p}, context, training=False, return_carry=True), enc_p
     )(enc_p)
     z = jnp.zeros(mods.z_shape(cfg.batch_size, 1))
-    dec_p = jax.jit(lambda k: dec.init(k, pyramid, z, training=False))(jax.random.PRNGKey(1))["params"]
+    dec_p = compile_o0(lambda k: dec.init(k, pyramid, z, training=False), keys[1])(keys[1])["params"]
     enc_p, dec_p = jax.tree_util.tree_map(np.asarray, (enc_p, dec_p))
     return types.SimpleNamespace(
         cfg=cfg, mods=mods, dec=dec, enc_p=enc_p, dec_p=dec_p,

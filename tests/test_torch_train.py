@@ -4,7 +4,8 @@
 
 The JAX side is built with ``conv_packing='off'`` and ``time_major=False``
 (the port ports neither layout), its state created and its step compiled
-once per module fixture.  The state reaches the port through
+once per module fixture, without LLVM's optimizations
+(``_torch_port.compile_o0``).  The state reaches the port through
 ``train_state_from_jax``; each phase's z is the JAX step's own draw from
 its key, handed to the port.  Two iterations, because at the first the
 warmup gives the offset-0 groups (encoder, h) a zero learning rate.
@@ -55,7 +56,7 @@ from kccotgan_tpu_torch.train import (
     warmup_staircase_exponential_decay,
 )
 from kccotgan_tpu_torch.weights import train_state_from_jax
-from tests._torch_port import GROUPS, assert_iterations_match, port_cfg, tiny_train_cfg
+from tests._torch_port import GROUPS, assert_iterations_match, compile_o0, port_cfg, tiny_train_cfg
 
 torch.set_num_threads(1)
 
@@ -69,14 +70,16 @@ def jax_run():
     """The JAX state, two iterations of its step in f32 and in bf16 from
     it, the z each phase drew, and the video."""
     cfg = tiny_train_cfg()
-    state = jax.jit(lambda k: jax_create_train_state(cfg, k))(jax.random.PRNGKey(0))
+    key = jax.random.PRNGKey(0)
+    state = compile_o0(lambda k: jax_create_train_state(cfg, k), key)(key)
     video = np.random.default_rng(3).uniform(size=(2, 16, 5, 16, 1)).astype(np.float32)
     m = cfg.model
     z_shape = (2, cfg.pred_time_steps, m.z_height, m.z_width, m.z_channels)
     out = {"state": _np(state), "video": video}
     for cdt in ("float32", "bfloat16"):
         c = dataclasses.replace(cfg, compute_dtype=cdt)
-        step = jax_build_train_step(c, GanModules(c), jit=True, donate=False)
+        step = compile_o0(jax_build_train_step(c, GanModules(c), jit=True, donate=False), state,
+                          jnp.asarray(video))
         s, runs = state, []
         for _ in range(2):
             _, k_disc, k_gen = jax.random.split(s.rng, 3)
@@ -215,13 +218,6 @@ def test_make_optimizers_offsets():
     # warmup: the offset-0 groups see lr 0 at their first update
     assert float(opts["enc"].learning_rate(opts["enc"].keras_iter(0))) == 0.0
     assert float(opts["dec"].learning_rate(opts["dec"].keras_iter(0))) > 0.0
-
-
-@pytest.mark.parametrize("field,value", [("fused_discriminators", True)])
-def test_unported_options_raise(field, value):
-    cfg = dataclasses.replace(port_cfg(tiny_train_cfg()), **{field: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_train_step(cfg, device="cpu")
 
 
 @pytest.mark.parametrize("kernel", ["1d", "2d", "3d"])

@@ -5,9 +5,10 @@ package's ``build_train_step`` under ``'pallas'``, at the tiny geometry of
 JAX is built in the layout whose ``'pallas'`` the port mirrors:
 ``time_major=False, conv_packing='off'`` (under its defaults the
 generator's ConvLSTMs would fall back to the scan).  Its step is compiled
-once, with ``convlstm_scan_pallas`` and ``lstm_scan_pallas`` wrapped to
-count the layers that trace them and the fallback notices recorded, so
-the tests can show that JAX took its Pallas kernels (interpret mode on
+once, without LLVM's optimizations (``_torch_port.compile_o0``), with
+``convlstm_scan_pallas`` and ``lstm_scan_pallas`` wrapped to count the
+layers that trace them and the fallback notices recorded, so the tests
+can show that JAX took its Pallas kernels (interpret mode on
 the CPU) at every recurrence.  The port runs ``ConvLstmScan`` and
 ``LstmScan``, whose forward and backward on CPU tensors are the kernels'
 plain versions.  Tolerances as ``tests/test_torch_train.py`` argues them
@@ -31,7 +32,7 @@ from kccotgan_tpu.train import create_train_state as jax_create_train_state
 from kccotgan_tpu_torch.models import cuda_convlstm, cuda_lstm
 from kccotgan_tpu_torch.train import build_train_step
 from kccotgan_tpu_torch.weights import train_state_from_jax
-from tests._torch_port import assert_iterations_match, port_cfg, tiny_train_cfg
+from tests._torch_port import assert_iterations_match, compile_o0, port_cfg, tiny_train_cfg
 
 torch.set_num_threads(1)
 
@@ -66,7 +67,8 @@ def jax_pallas():
         return wrapped
 
     # the parameter trees do not depend on the engine: init under 'scan'
-    state = jax.jit(lambda k: jax_create_train_state(tiny_train_cfg(), k))(jax.random.PRNGKey(0))
+    key = jax.random.PRNGKey(0)
+    state = compile_o0(lambda k: jax_create_train_state(tiny_train_cfg(), k), key)(key)
     video = np.random.default_rng(3).uniform(size=(2, 16, 5, 16, 1)).astype(np.float32)
     m = cfg.model
     z_shape = (2, cfg.pred_time_steps, m.z_height, m.z_width, m.z_channels)
@@ -78,7 +80,8 @@ def jax_pallas():
         mp.setattr(pallas_lstm, "lstm_scan_pallas", counting("lstm", pallas_lstm.lstm_scan_pallas))
         logger.addHandler(records)
         try:
-            step = jax_build_train_step(cfg, GanModules(cfg), jit=True, donate=False)
+            step = compile_o0(jax_build_train_step(cfg, GanModules(cfg), jit=True, donate=False), state,
+                              jnp.asarray(video))
             s = state
             for _ in range(2):
                 _, k_disc, k_gen = jax.random.split(s.rng, 3)
