@@ -90,6 +90,21 @@ ported paths at the ``mmnist_full`` preset (B=32, 64x64x1, 10 context +
   same state in f32 and bf16, counted from zero around each (LSTM 6 + 6
   calls against 24 + 18), then both timed in turns (the
   ``fused_discriminators`` line).
+* the meshes (``kccotgan_tpu_torch/parallel``): the exact mode on a
+  1-rank NCCL mesh equal to the one-device step to the bit (NCCL across
+  several cards is not run: one card); 2 ranks sharing the card over
+  gloo (NCCL refuses two ranks on one device; each rank's compute on the
+  card, only the transport through the host): the exact mode in f32
+  (within ``ENGINE_TOL``) and bf16 (losses within 1e-3) against the
+  one-device step, the per-shard mode, the seq mode at S = 2 (f32
+  against the one-device step), every rank's kernels counted from zero
+  (``PALLAS_COUNTS`` at B = 16 a rank; ``seq_counts`` under seq), the
+  ranks' states equal to the bit, each mode timed against the
+  one-device step in turns with each rank's peak memory and its
+  collectives' bytes and host time, and ``Trainer`` 2 + checkpoint +
+  restore + 2 against 4 straight on the mesh, to the bit; 4 ranks on
+  the data 2 x seq 2 mesh, checked and timed alike; ``cli.main
+  --num_devices 2`` for 4 steps (the ``parallel`` line).
 
 The bf16 engine runs the ConvLSTM's recurrent conv, dh and drk, and the
 dense LSTM's step, dh and dR, on the tensor cores: the built library's
@@ -124,6 +139,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from kccotgan_tpu_torch._build import _FLAGS, BUILD_DIR, _nvcc, load_library
@@ -185,6 +201,11 @@ from kccotgan_tpu_torch.roofline import (
     sinkhorn_work,
 )
 from kccotgan_tpu_torch.smoothing import annealing_sigma, apply_smoothing
+from kccotgan_tpu_torch.parallel import comm, data_seq_mesh, make_mesh, seq_mesh
+from kccotgan_tpu_torch.parallel.launch import run_ranks
+from kccotgan_tpu_torch.parallel.mesh import init_distributed
+from kccotgan_tpu_torch.parallel.seqtrain import build_seq_train_step
+from kccotgan_tpu_torch.parallel.sharding import build_sharded_train_step, replicate_state
 from kccotgan_tpu_torch.train import Trainer, build_rollout, build_train_step, create_train_state
 from kccotgan_tpu_torch.train.rollout import graph_rollout
 from kccotgan_tpu_torch.weights import init_generator_params
@@ -2395,6 +2416,287 @@ def check_fused(card, base, dev):
     }}), flush=True)
 
 
+# Phase 14: the meshes.  Ranks share the one card, so they talk over gloo
+# (NCCL refuses two ranks on one device); NCCL runs at world 1.
+PAR_WORLDS = (2, 4)
+# bf16 against the one-device step: the losses only, at ENGINE_TOL's bf16
+# rtol (the ranks' convs and products at half the batch may take other
+# algorithms, rounding a bf16 value one ulp apart).
+PAR_BF16_LOSS_RTOL = 1e-3
+PAR_STEPS = 4  # the trainer's resume on the mesh: 2 + checkpoint + 2 against 4
+
+
+def seq_counts(cfg, s):
+    """(calls, launches) of each kernel on one rank of a seq mesh of ``s``
+    ranks: ``pallas_counts`` with each ConvLSTM over T / s of its steps
+    (the encoder 10 of 20, the decoder 5 of 10 at mmnist_full); the
+    discriminators and the Sinkhorn solves run whole on every rank."""
+    t, tp = cfg.total_time_steps // s, cfg.pred_time_steps // s
+    return pallas_counts(dataclasses.replace(cfg, total_time_steps=t, int_time_steps=t - tp))
+
+
+def state_checksum(state):
+    """CRC of every tensor and integer of a train state (equal states,
+    equal sums; compared across ranks)."""
+    import zlib
+
+    crc = zlib.crc32(np.asarray([state.step, state.rng], np.int64).tobytes())
+    trees = [getattr(state, n) for n in ("enc_params", "dec_params", "h_params", "m_params", "h_stats", "m_stats")]
+    trees += [getattr(getattr(state, f"{g}_opt"), m) for g in ("enc", "dec", "h", "m") for m in ("mu", "nu")]
+    for tree in trees:
+        for v in tree.values():
+            crc = zlib.crc32(v.detach().cpu().numpy().tobytes(), crc)
+    return crc
+
+
+def comm_counts():
+    return {op: dict(c) for op, c in comm.COUNTERS.items() if c["calls"]}
+
+
+def rows_of(video, mesh):
+    n = video.shape[0] // mesh.data
+    return video[mesh.data_rank * n : (mesh.data_rank + 1) * n]
+
+
+def mesh_mode(rank, dev, inputs, cfg, build, mesh, want_counts, inject_z=True):
+    """One iteration of a mesh mode on this rank from ``inputs``, the
+    seeded state, video and z of phase 8, counted from zero; on rank 0 the
+    one-device step's iteration too, and their comparison (f32:
+    ENGINE_TOL; bf16: the losses at PAR_BF16_LOSS_RTOL).  Returns the
+    record and what the timing needs."""
+    state0, video, zs = inputs
+    step = build(cfg, mesh)
+    state = replicate_state(state0, mesh)
+    rows = rows_of(video, mesh)
+    z = zs[0] if inject_z else None
+    reset_counts()
+    comm.reset_counters()
+    st, met = step(state, rows, z=z)
+    torch.cuda.synchronize()
+    rec = {"counts": counts(), "comm_one_iteration": comm_counts(), "loss": float(met["sinkhorn_loss"]),
+           "pm": float(met["pm"]), "finite": _all_finite(st, met), "checksum": state_checksum(st)}
+    rec["counts_ok"] = want_counts is None or rec["counts"] == {n: list(c) for n, c in want_counts.items()}
+    one = build_train_step(cfg, device=dev)
+    if rank == 0 and inject_z:
+        st1, met1 = one(state0, video, z=zs[0])
+        torch.cuda.synchronize()
+        cmp, ok = compare_engines((met, st), (met1, st1), ENGINE_TOL[cfg.compute_dtype])
+        if cfg.compute_dtype != "float32":
+            (lm, l1), (pm, p1) = cmp["sinkhorn_loss"], cmp["pm"]
+            ok = abs(lm - l1) <= PAR_BF16_LOSS_RTOL * abs(l1)
+        rec["vs_one_device"] = {**cmp, "ok": ok}
+        del st1, met1
+    del st, met
+    return rec, (step, state, rows, z, one, state0, video, zs[0])
+
+
+def time_mode(rank, name, run):
+    """The mode's iteration against the one-device step in turns (one
+    device on rank 0 alone, the mode on every rank: one, mode, mode, one),
+    by CUDA events on each rank; peak memory of an iteration on each rank;
+    each collective's calls, bytes and host seconds in one iteration."""
+    step, state, rows, z, one, state0, video, z0 = run
+    ms = {"one_device": [], name: []}
+    for which in ("one_device", name, name, "one_device"):
+        if which == name:
+            ms[name].append(cuda_ms(lambda: step(state, rows, z=z), reps=2))
+        elif rank == 0:
+            ms[which].append(cuda_ms(lambda: one(state0, video, z=z0), reps=2))
+    peak = {}
+    for which in (name, "one_device"):
+        if which == "one_device" and rank != 0:
+            continue
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        if which == name:
+            comm.reset_counters()
+            step(state, rows, z=z)
+        else:
+            one(state0, video, z=z0)
+        torch.cuda.synchronize()
+        peak[which] = torch.cuda.max_memory_allocated() / 2**30
+        if which == name:
+            per_iter = comm_counts()
+    return {"ms": {k: sum(v) / len(v) for k, v in ms.items() if v}, "ms_runs": ms, "peak_memory_gib": peak,
+            "comm_one_iteration": per_iter}
+
+
+def parallel_ranks(rank, dev, tmp):
+    """Phase 14, one rank of a job whose ranks share the card over gloo:
+    at 2 ranks the exact mode (f32, checked; bf16, checked and timed),
+    the per-shard mode (bf16, timed), the seq mode at S = 2 (f32, checked;
+    bf16, timed) and the trainer's resume on the data mesh; at 4 ranks the
+    data 2 x seq 2 mesh (f32, checked; bf16, timed)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    world = dist.get_world_size()
+    base = dataclasses.replace(get_preset(PRESET), kernel_impl="pallas")
+    f32 = dataclasses.replace(base, compute_dtype="float32")
+    out = {"rank": rank, "device": str(dev), "backend": dist.get_backend(), "modes": {}, "timing": {}}
+    if world == 2:
+        data, seq = make_mesh(2, device=dev), seq_mesh(2, device=dev)
+        plans = [
+            ("exact_f32", f32, build_sharded_train_step, data, PALLAS_COUNTS, True, False),
+            ("exact_bf16", base, build_sharded_train_step, data, PALLAS_COUNTS, True, True),
+            ("local_bf16", dataclasses.replace(base, global_batch_sinkhorn=False), build_sharded_train_step, data,
+             PALLAS_COUNTS, False, True),
+            ("seq_f32", f32, build_seq_train_step, seq, seq_counts(base, 2), True, False),
+            ("seq_bf16", base, build_seq_train_step, seq, seq_counts(base, 2), True, True),
+        ]
+    else:
+        mesh = data_seq_mesh(2, 2, device=dev)
+        plans = [
+            ("data2_seq2_f32", f32, build_seq_train_step, mesh, seq_counts(base, 2), True, False),
+            ("data2_seq2_bf16", base, build_seq_train_step, mesh, seq_counts(base, 2), True, True),
+        ]
+    inputs = training_inputs(base, dev)  # the state's parameters are f32 under either compute dtype
+    for name, cfg, build, mesh, want, inject_z, timed in plans:
+        t0 = time.perf_counter()
+        rec, run = mesh_mode(rank, dev, inputs, cfg, build, mesh, want, inject_z)
+        out["modes"][name] = rec
+        if timed:
+            out["timing"][name] = time_mode(rank, name, run)
+        rec["seconds"] = time.perf_counter() - t0
+        del run
+        torch.cuda.empty_cache()
+    if world == 2:
+        t0 = time.perf_counter()
+        out["trainer_resume"] = mesh_resume(rank, dev, tmp, base, inputs[0])
+        out["trainer_resume"]["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def mesh_resume(rank, dev, tmp, base, state0):
+    """``Trainer`` on the 2-rank data mesh: 2 steps, rank 0's checkpoint,
+    a new trainer restored on every rank, 2 more, against 4 straight on the
+    same batches, cuDNN deterministic: this rank's state's checksum for
+    each, and the steps' losses (rank 0 logs them)."""
+    mesh = make_mesh(2, device=dev)
+    data = bouncing_blobs(base.batch_size * PAR_STEPS, base.total_time_steps, seed=5)
+    batches = [data[i * base.batch_size : (i + 1) * base.batch_size] for i in range(PAR_STEPS)]
+    half = PAR_STEPS // 2
+    cfg = dataclasses.replace(base, out_dir=str(tmp), ckpt_freq=half, save_freq=10**9)
+    torch.backends.cudnn.deterministic = True
+    try:
+        state0 = replicate_state(state0, mesh)
+        straight, s_sum = Trainer(dataclasses.replace(cfg, run_name="straight"), mesh=mesh).fit(
+            iter(batches), state=state0, max_steps=PAR_STEPS)
+        Trainer(dataclasses.replace(cfg, run_name="first"), mesh=mesh).fit(
+            iter(batches[:half]), state=state0, max_steps=half)
+        dist.barrier()  # rank 0's checkpoint is on disk
+        resumed, r_sum = Trainer(dataclasses.replace(
+            cfg, run_name="resumed", checkpoint=True, ckpt_path=str(Path(tmp) / "first" / "ckpt")), mesh=mesh).fit(
+            iter(batches[half:]), max_steps=PAR_STEPS)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    out = {"straight": state_checksum(straight), "resumed": state_checksum(resumed),
+           "steps": [s_sum["steps"], r_sum["steps"]], "status": [s_sum["status"], r_sum["status"]]}
+    if rank == 0:
+        out["losses"] = [read_metrics(Path(tmp) / n)["Sinkhorn Loss"] for n in ("straight", "resumed")]
+    return out
+
+
+def check_nccl_world1(dev):
+    """The NCCL code path at world 1 (the one card): the exact mode's
+    step in bf16 'pallas' on a 1-rank NCCL mesh (its gradient all-reduce
+    and the state's broadcast and checksum gather through NCCL) equal to
+    the one-device step to the bit."""
+    cfg = dataclasses.replace(get_preset(PRESET), kernel_impl="pallas")
+    with tempfile.TemporaryDirectory() as tmp:
+        init_distributed(0, 1, f"file://{tmp}/store", local_world_size=1, device="cuda")
+        try:
+            backend = dist.get_backend()
+            mesh = make_mesh(1, device=dev)
+            state0, video, zs = training_inputs(cfg, dev)
+            comm.reset_counters()
+            st, met = build_sharded_train_step(cfg, mesh)(replicate_state(state0, mesh), video, z=zs[0])
+            torch.cuda.synchronize()
+            used = comm_counts()
+        finally:
+            dist.destroy_process_group()
+    st1, met1 = build_train_step(cfg, device=dev)(state0, video, z=zs[0])
+    same = state_checksum(st) == state_checksum(st1) and float(met["sinkhorn_loss"]) == float(met1["sinkhorn_loss"])
+    out = {"backend": backend, "equal_to_the_bit": same, "collectives": used}
+    if backend != "nccl" or not same or "all_reduce" not in used:
+        raise RuntimeError(f"mesh at world 1: {out}")
+    return out
+
+
+def check_cli_mesh(tmp):
+    """``cli.main --num_devices 2`` on the card: 2 spawned ranks (gloo),
+    4 'pallas' steps, checkpoints at 2 and 4 by rank 0, one loss logged a
+    step; the summary names the mesh."""
+    argv = ["--preset", PRESET, "--dname", "synthetic", "--kernel_impl", "pallas", "--num_devices", "2",
+            "--max_steps", str(PAR_STEPS), "--ckpt_freq", str(PAR_STEPS // 2), "--save_freq", str(10**9),
+            "--out_dir", str(tmp), "--run_name", "cli_mesh"]
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = train_main(argv, device="cuda")
+    seconds = time.perf_counter() - t0
+    summary = json.loads(out.getvalue().strip().splitlines()[-1])
+    run_dir = Path(tmp) / "cli_mesh"
+    losses = read_metrics(run_dir).get("Sinkhorn Loss", {})
+    ckpts = sorted(int(p.stem.split("_")[1]) for p in (run_dir / "ckpt").glob("step_*.pt"))
+    rec = {"argv": argv, "rc": rc, "summary": summary, "losses": losses, "checkpoints": ckpts, "seconds": seconds}
+    if (rc != 0 or summary["status"] != "completed" or summary["steps"] != PAR_STEPS
+            or summary["dist_backend"] != "gloo" or sorted(losses) != list(range(1, PAR_STEPS + 1))
+            or not all(np.isfinite(list(losses.values()))) or ckpts != [PAR_STEPS // 2, PAR_STEPS]):
+        raise RuntimeError(f"cli.main --num_devices 2: {rec}")
+    return rec
+
+
+def check_parallel(card, dev):
+    """Phase 14: NCCL at world 1, the 2- and 4-rank gloo jobs on the card
+    (``parallel_ranks``), the CLI on a 2-rank mesh.  Fails if any rank or
+    check fails.  Prints the ``parallel`` line."""
+    torch.cuda.empty_cache()
+    nccl = check_nccl_world1(dev)
+    jobs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for world in PAR_WORLDS:
+            t0 = time.perf_counter()
+            ranks = run_ranks(parallel_ranks, world, (str(Path(tmp) / f"w{world}"),), device="cuda", timeout=600)
+            jobs[world] = {"seconds": time.perf_counter() - t0, "ranks": ranks}
+        cli = check_cli_mesh(Path(tmp) / "cli")
+    failed = []
+    for world, job in jobs.items():
+        ranks = job["ranks"]
+        for name in ranks[0]["modes"]:
+            recs = [r["modes"][name] for r in ranks]
+            if not all(r["finite"] and r["counts_ok"] for r in recs):
+                failed.append(f"{world} ranks {name}: finite / counts {[(r['finite'], r['counts']) for r in recs]}")
+            if len({r["checksum"] for r in recs}) != 1:
+                failed.append(f"{world} ranks {name}: the ranks' states differ")
+            check = recs[0].get("vs_one_device")
+            if check is not None and not check["ok"]:
+                failed.append(f"{world} ranks {name}: against the one-device step {check}")
+        if "trainer_resume" in ranks[0]:
+            res = [r["trainer_resume"] for r in ranks]
+            losses = res[0]["losses"]
+            if not all(r["straight"] == r["resumed"] and r["steps"] == [PAR_STEPS, PAR_STEPS] for r in res) or (
+                    [losses[0][s] for s in range(PAR_STEPS // 2 + 1, PAR_STEPS + 1)]
+                    != [losses[1].get(s) for s in range(PAR_STEPS // 2 + 1, PAR_STEPS + 1)]):
+                failed.append(f"trainer resume on the mesh: {res}")
+    line = {"note": "N ranks share one H100: gloo through the host, each rank's compute on the card; "
+                    "NCCL at world 1 only, NCCL across several cards is not run",
+            "card": card, "preset": PRESET, "nccl_world1": nccl, "cli": cli}
+    for world, job in jobs.items():
+        ranks = job["ranks"]
+        line[f"{world}_ranks"] = {
+            "seconds": job["seconds"], "backend": ranks[0]["backend"],
+            "checks": {n: {"counts": rec["counts"], "loss": rec["loss"], "pm": rec["pm"],
+                           "vs_one_device": rec.get("vs_one_device"),
+                           "ranks_equal": len({r["modes"][n]["checksum"] for r in ranks}) == 1}
+                       for n, rec in ranks[0]["modes"].items()},
+            "timing": {n: [r["timing"][n] for r in ranks] for n in ranks[0]["timing"]},
+            "trainer_resume": ranks[0].get("trainer_resume"),
+        }
+    print(json.dumps({"parallel": line}), flush=True)
+    if failed:
+        raise RuntimeError(f"phase 14: {failed}")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -2520,6 +2822,11 @@ def main():
     # from zero around its run, and both timed).
     check_fused(card, base, dev)
     done("13_fused_discriminators")
+
+    # Phase 14: the meshes (NCCL at world 1, 2 and 4 gloo ranks sharing the
+    # card, the CLI on a 2-rank mesh), every rank counted from zero.
+    check_parallel(card, dev)
+    done("14_parallel")
     print(json.dumps({"phase_seconds": phase_s}), flush=True)
 
     # Bounds of the work timed: the 8 T=10 layer scans of phase 2, one

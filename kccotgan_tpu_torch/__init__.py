@@ -20,5 +20,8 @@ its samples (``eval``) and its logs (``utils``).  Serving: the sampler
 from a CUDA graph, ``train.rollout.graph_rollout``) and a ``torch.export``
 artifact with the weights baked in (``export``, ``cli.export``), whose
 ConvLSTM recurrences run as the registered operator
-``torch.ops.kccot.convlstm_fwd`` over the same kernel.
+``torch.ops.kccot.convlstm_fwd`` over the same kernel.  Multi-device
+training (``parallel``): data parallelism, exact over the global batch or
+per shard, and ring-relay sequence parallelism of the generator, on
+``torch.distributed`` process groups, each rank on the same kernels.
 """

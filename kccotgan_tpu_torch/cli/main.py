@@ -3,15 +3,22 @@
 Counterpart of ``kccotgan_tpu/cli/main.py``: the same flags, defaults
 and preset overlay (a flag typed on the command line wins over the
 preset; ``provided_dests`` tells typed flags from defaults, abbreviated
-and ``--flag=value`` forms included).  A flag whose option the port does
-not carry is refused with an argparse error naming why: the multi-device
-meshes wait for ROADMAP Queue 1 item 8; the layout and compile flags
-exist only for the TPU ("Not to port").  The smoothing (``--kernel``,
+and ``--flag=value`` forms included).  The layout and compile flags
+exist only for the TPU ("Not to port") and are refused with an argparse
+error naming why.  ``--num_devices N`` and ``--seq_devices S`` train on
+a mesh of ``N x S`` ranks (``parallel/``): under torchrun the process
+joins the job as its rank; otherwise ``main`` spawns the ranks on this
+host, each on its device (``parallel/launch.py``), and prints rank 0's
+summary.  ``--local_sinkhorn`` takes the per-shard Sinkhorn instead of
+the exact global-batch one.  The summary names the mesh and the
+backend.  The smoothing (``--kernel``,
 ``--init_sigma``, ``--decaying_sigma``) and dropout (``--dropout``,
 ``--rnn_dropout``) flags reach the trainer, and ``--profile_steps a,b``
 traces steps a to b into ``<run_dir>/profile/``.
 
 Usage (on the card unless ``main`` is given ``device="cpu"``):
+  python -m kccotgan_tpu_torch.cli.main --preset mmnist_full --dname synthetic --kernel_impl pallas --num_devices 2 --seq_devices 2
+  torchrun --nproc_per_node 4 -m kccotgan_tpu_torch.cli.main --preset mmnist_full --dname synthetic --num_devices 4
   python -m kccotgan_tpu_torch.cli.main --preset mmnist_full --dname synthetic --kernel_impl pallas --max_steps 100
   python -m kccotgan_tpu_torch.cli.main --preset mmnist_full --dname synthetic --kernel_impl pallas --kernel 3d --decaying_sigma --dropout 0.1 --rnn_dropout 0.1
   python -m kccotgan_tpu_torch.cli.main --preset mmnist_full --data_path /data --checkpoint --ckpt_path trained/<run>/ckpt
@@ -23,6 +30,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import sys
 
 from ..config import PRESETS, ModelConfig, TrainConfig, get_preset
@@ -39,20 +47,6 @@ class _Refused(argparse.Action):
 
     def __call__(self, parser, namespace, values, option_string=None):
         raise argparse.ArgumentError(self, self.reason)
-
-
-def _one_device(flag: str):
-    """argparse type of ``--num_devices`` / ``--seq_devices``: 1 only."""
-
-    def parse(text: str) -> int:
-        n = int(text)
-        if n != 1:
-            raise argparse.ArgumentTypeError(
-                f"{flag} {n}: the port trains on one card; meshes wait for ROADMAP Queue 1 item 8"
-            )
-        return n
-
-    return parse
 
 
 _TPU_ONLY = "a TPU-only option (ROADMAP 'Not to port'): the port runs the batch-major, unpacked layout"
@@ -103,10 +97,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--out_dir", type=str, default="trained")
     p.add_argument("--run_name", type=str, default="")
     p.add_argument("--max_steps", type=int, default=None)
-    p.add_argument("--num_devices", type=_one_device("--num_devices"), default=1)
-    p.add_argument("--seq_devices", type=_one_device("--seq_devices"), default=1)
-    p.add_argument("--local_sinkhorn", action=_Refused, nargs=0,
-                   reason="per-device Sinkhorn needs a mesh (ROADMAP Queue 1 item 8)")
+    p.add_argument("--num_devices", type=int, default=1, help="data-parallel ranks (the batch's rows)")
+    p.add_argument("--seq_devices", type=int, default=1,
+                   help="sequence-parallel ranks (the generator's frames, ring-relay ConvLSTMs); "
+                        "total_time_steps and the predicted steps must divide by it")
+    p.add_argument("--local_sinkhorn", action="store_true",
+                   help="each rank's Sinkhorn on its shard, averaged, instead of the exact global batch's")
     p.add_argument("--cost_method", type=str, default="gram", choices=["gram", "exact"])
     p.add_argument("--solver", type=str, default="auto", choices=["auto", "scan", "pallas"])
     p.add_argument("--compile_cache", action=_Refused, reason="JAX's compilation cache: " + _TPU_ONLY)
@@ -146,7 +142,7 @@ _TRAIN_DESTS = {
     "solver": "sinkhorn_solver", "compute_dtype": "compute_dtype",
     "kernel": "kernel", "kernel_impl": "kernel_impl",
     "init_sigma": "init_sigma", "decaying_sigma": "decaying_sigma",
-    "lr": "lr", "warmup": "warmup_steps",
+    "lr": "lr", "warmup": "warmup_steps", "num_devices": "num_devices", "seq_devices": "seq_devices",
     "seed": "seed", "save_freq": "save_freq", "ckpt_freq": "ckpt_freq",
     "nan_recovery_retries": "nan_recovery_retries",
     "out_dir": "out_dir", "run_name": "run_name", "checkpoint": "checkpoint",
@@ -186,6 +182,8 @@ def config_from_args(args: argparse.Namespace, provided: set[str] | None = None)
         if "width" in sel:
             model_over["z_width"] = max(args.width // 16, 1)
         train_over = {f: getattr(args, d) for d, f in _TRAIN_DESTS.items() if d in sel}
+        if "local_sinkhorn" in sel:
+            train_over["global_batch_sinkhorn"] = not args.local_sinkhorn
         model = dataclasses.replace(base.model, **model_over) if model_over else base.model
         return dataclasses.replace(base, model=model, **train_over)
     if [int(x) for x in args.dec_period.split(",")][-1] != 1:
@@ -205,19 +203,47 @@ def config_from_args(args: argparse.Namespace, provided: set[str] | None = None)
         dropout=args.dropout,
         rnn_dropout=args.rnn_dropout,
     )
-    return TrainConfig(model=model, **{f: getattr(args, d) for d, f in _TRAIN_DESTS.items()})
+    return TrainConfig(model=model, global_batch_sinkhorn=not args.local_sinkhorn,
+                       **{f: getattr(args, d) for d, f in _TRAIN_DESTS.items()})
 
 
-def main(argv: list[str] | None = None, *, device="cuda") -> int:
-    """Train as the flags say on ``device``, print the summary as one JSON
-    line, and return 0 if the run completed, else 1."""
+def _check_mesh(parser, cfg, joined: int) -> None:
+    """An argparse error unless the mesh flags fit the config and the
+    host: at least one rank an axis, times and batch divisible, and (when
+    this process spawns them) no more ranks than CPU cores."""
+    from ..parallel.seqtrain import check_seq_config
+
+    n, s = cfg.num_devices, cfg.seq_devices
+    if n < 1 or s < 1:
+        parser.error(f"--num_devices {n} --seq_devices {s}: each needs at least one rank")
+    cores = os.cpu_count() or 1
+    if joined == 1 and n * s > cores:
+        parser.error(f"--num_devices {n} x --seq_devices {s} = {n * s} ranks: this host runs at most {cores}, "
+                     "one process a CPU core")
+    if joined > 1 and joined != n * s:
+        parser.error(f"--num_devices {n} x --seq_devices {s} = {n * s} ranks, the job has {joined}")
+    if s > 1 and not cfg.global_batch_sinkhorn:
+        parser.error("--local_sinkhorn is a data-parallel mode; the sequence-parallel step solves the global batch")
+    try:
+        check_seq_config(cfg, s, n)
+    except ValueError as e:
+        parser.error(str(e))
+
+
+def _train(cfg, args, device) -> dict:
+    """Train this process's part of the run: on ``device`` alone, or as
+    this rank of the job's mesh.  Returns the summary (rank 0's names
+    the mesh)."""
     from ..data import make_dataset
+    from ..parallel.mesh import data_seq_mesh, make_mesh
     from ..train import Trainer
 
-    parser = build_parser()
-    args = parser.parse_args(argv)
-    cfg = config_from_args(args, provided_dests(parser, argv))
-    trainer = Trainer(cfg, device=device)
+    mesh = seq = None
+    if cfg.seq_devices > 1:
+        seq = data_seq_mesh(cfg.num_devices, cfg.seq_devices, device=device)
+    elif cfg.num_devices > 1:
+        mesh = make_mesh(cfg.num_devices, device=device)
+    trainer = Trainer(cfg, device=device, mesh=mesh, seq_mesh=seq)
     batches, test_batch = make_dataset(cfg)
     profile_steps = None
     if args.profile_steps:
@@ -226,6 +252,48 @@ def main(argv: list[str] | None = None, *, device="cuda") -> int:
     _, summary = trainer.fit(
         batches, max_steps=args.max_steps, test_batch=test_batch, profile_steps=profile_steps
     )
+    on = mesh or seq
+    summary.update(num_devices=cfg.num_devices, seq_devices=cfg.seq_devices,
+                   global_batch_sinkhorn=cfg.global_batch_sinkhorn, dist_backend=on.backend if on else None)
+    return summary
+
+
+def _train_rank(rank: int, device, argv) -> dict | None:
+    """One spawned rank of ``main``: its part of the run; rank 0's summary."""
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    summary = _train(config_from_args(args, provided_dests(parser, argv)), args, device)
+    return summary if rank == 0 else None
+
+
+def main(argv: list[str] | None = None, *, device="cuda") -> int:
+    """Train as the flags say on ``device`` (each rank on its own under a
+    mesh), print the summary as one JSON line (rank 0's), and return 0 if
+    the run completed, else 1."""
+    from ..parallel.launch import run_ranks
+    from ..parallel.mesh import initialize_multihost
+
+    parser = build_parser()
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args = parser.parse_args(argv)
+    cfg = config_from_args(args, provided_dests(parser, argv))
+    joined = initialize_multihost(device)
+    _check_mesh(parser, cfg, joined)
+    ranks = cfg.num_devices * cfg.seq_devices
+    if joined > 1:  # started by torchrun: this process is one rank
+        import torch
+
+        dev = torch.device("cpu") if torch.device(device).type == "cpu" else torch.device(
+            "cuda", torch.cuda.current_device())
+        summary = _train(cfg, args, dev)
+        if torch.distributed.get_rank() != 0:
+            return 0 if summary["status"] == "completed" else 1
+    elif ranks > 1:
+        cpu = str(device) == "cpu"
+        summary = run_ranks(_train_rank, ranks, (argv,), device=device, threads=1 if cpu else None,
+                            timeout=24 * 3600)[0]
+    else:
+        summary = _train(cfg, args, device)
     print(json.dumps(summary))
     return 0 if summary["status"] == "completed" else 1
 

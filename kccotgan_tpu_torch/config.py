@@ -93,6 +93,15 @@ class TrainConfig:
     # up to this many times a run; 0 stops (train/loop.py)
     nan_recovery_retries: int = 0
 
+    # meshes (parallel/): ranks over the batch (num_devices) and over the
+    # generator's time axis (seq_devices; total_time_steps and
+    # pred_time_steps must divide by it), together a 2-D data x seq mesh;
+    # global_batch_sinkhorn: the exact mixed Sinkhorn on the gathered
+    # global batch, else each rank's own on its shard, averaged
+    num_devices: int = 1
+    seq_devices: int = 1
+    global_batch_sinkhorn: bool = True
+
     # bookkeeping
     seed: int = 1
     save_freq: int = 10  # sample and score a rollout every this many steps

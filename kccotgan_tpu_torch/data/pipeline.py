@@ -197,8 +197,11 @@ class GeneratorDataset:
                     buf = []
 
 
-def device_prefetch(it: Iterator[np.ndarray], *, device, size: int = 2) -> Iterator[torch.Tensor]:
-    """Yield the host batches of ``it`` as float32 tensors on ``device``.
+def device_prefetch(it: Iterator[np.ndarray], *, device, size: int = 2, sharding=None) -> Iterator[torch.Tensor]:
+    """Yield the host batches of ``it`` as float32 tensors on ``device``;
+    with ``sharding`` (a function of a host batch, e.g.
+    ``parallel.sharding.shard_batch`` bound to a mesh) each batch's part
+    that it returns, taken on the host before the copy.
 
     On ``cuda``: a background thread pulls ``it`` and copies each batch
     into pinned host memory, at most ``size`` ahead; the copy to the card
@@ -210,6 +213,8 @@ def device_prefetch(it: Iterator[np.ndarray], *, device, size: int = 2) -> Itera
     raised in the consumer.
     """
     device = torch.device(device)
+    if sharding is not None:
+        it = (sharding(np.asarray(batch)) for batch in it)
     if device.type == "cpu":
         for batch in it:
             yield torch.as_tensor(np.asarray(batch, dtype=np.float32))

@@ -15,9 +15,12 @@ plain loop under autograd (the ``'scan'`` engine, and the kernels'
 reference).  Keras dropout (``ConvLSTM2D``'s ``dropout`` and
 ``recurrent_dropout``, masks only in training) stays on the chosen
 engine: the input masks change only the hoisted input conv, and the
-recurrence takes the recurrent masks (the kernels' masked mode).  The
-other layers are plain PyTorch.  Sequence parallelism raises instead
-of being ignored.
+recurrence takes the recurrent masks (the kernels' masked mode).  With
+``seq_axis`` (a process group) the input is a chunk of a sequence split
+over the group's ranks and the recurrence runs as a ring relay
+(``parallel/seqpar.py::time_sharded_scan``) on the same engine.
+``BatchNorm`` with a ``group`` takes its batch statistics over the
+group's ranks.  The other layers are plain PyTorch.
 """
 
 from __future__ import annotations
@@ -28,6 +31,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.comm import all_reduce_sum
+from ..parallel.seqpar import time_sharded_scan
 from .conv import same_conv
 from .cuda_convlstm import convlstm_scan, convlstm_scan_reference
 from .cuda_lstm import lstm_scan, lstm_scan_reference
@@ -107,6 +112,12 @@ class ConvLSTM2D(nn.Module):
     input convs form the recurrence's ``xconv``, and the recurrent masks
     go to ``convlstm_scan``, whose kernels take them (where the JAX layer
     under ``'pallas'`` runs ``lax.scan`` instead).
+
+    ``seq_axis``: a process group over whose ranks the sequence is split;
+    ``x_seq`` is then this rank's chunk of frames, the recurrence a ring
+    relay from the previous rank's carry, and the returned state the
+    carry after the sequence's last frame, on every rank.  The masks are
+    drawn per rank and must be the same on every rank of the group.
     """
 
     def __init__(
@@ -125,8 +136,7 @@ class ConvLSTM2D(nn.Module):
     ):
         super().__init__()
         self.plain = plain
-        if seq_axis is not None:
-            raise NotImplementedError("ConvLSTM2D: seq_axis is not ported")
+        self.seq_axis = seq_axis
         kh, kw = kernel_size
         self.filters = filters
         self.strides = tuple(strides)
@@ -194,8 +204,13 @@ class ConvLSTM2D(nn.Module):
         bias = self.bias if self.bias is not None else xconv.new_zeros(
             4 * f, dtype=torch.float32
         )
-        scan = convlstm_scan_reference if self.plain else convlstm_scan
-        y, state = scan(xconv, h0, c0, self.recurrent_kernel, bias, rec_masks)
+        engine = convlstm_scan_reference if self.plain else convlstm_scan
+
+        def scan(xs, h, c, rk, b):
+            return engine(xs, h, c, rk, b, rec_masks)
+
+        y, state = time_sharded_scan(scan, xconv, h0, c0, self.recurrent_kernel, bias,
+                                     group=self.seq_axis, name=self.name or "convlstm")
         return y.float(), state
 
 
@@ -294,13 +309,20 @@ class BatchNorm(nn.Module):
     ``use_running_average=True``) it normalizes by ``mean`` and ``var``
     and returns them unchanged.  Under ``torch.func.vmap`` each instance
     is normalized by its own batch, as vmapped flax does.
+
+    ``group``: the batch is split over the group's ranks, and ``E[x]``
+    and ``E[x^2]`` are those of the whole: this rank's sums and row count
+    summed over the group (``all_reduce_sum``, one call, whose backward
+    sums the gradients too), so every rank normalizes by the global
+    batch's statistics and keeps the same running ones.
     """
 
     momentum = 0.99
     eps = 1e-3
 
-    def __init__(self, features: int):
+    def __init__(self, features: int, group=None):
         super().__init__()
+        self.group = group
         self.scale = nn.Parameter(torch.empty(features))
         self.bias = nn.Parameter(torch.empty(features))
 
@@ -313,8 +335,15 @@ class BatchNorm(nn.Module):
         if not training:
             return (x - mean) * (torch.rsqrt(var + self.eps) * self.scale) + self.bias, (mean, var)
         dims = tuple(range(x.dim() - 1))
-        mu = x.mean(dims)
-        batch_var = ((x * x).mean(dims) - mu * mu).clamp_min(0.0)
+        if self.group is None:
+            mu = x.mean(dims)
+            ex2 = (x * x).mean(dims)
+        else:
+            rows = x.new_full((1,), float(x.numel() // x.shape[-1]))
+            sums = all_reduce_sum(torch.cat([x.sum(dims), (x * x).sum(dims), rows]), self.group)
+            c = x.shape[-1]
+            mu, ex2 = sums[:c] / sums[-1], sums[c : 2 * c] / sums[-1]
+        batch_var = (ex2 - mu * mu).clamp_min(0.0)
         y = (x - mu) * (torch.rsqrt(batch_var + self.eps) * self.scale) + self.bias
         m = self.momentum
         new_mean = m * mean + (1.0 - m) * mu.detach()
@@ -331,7 +360,8 @@ class LSTM(nn.Module):
     Keras gates [i, f, c, o] and rounds its output to the compute dtype.
     The recurrence is ``lstm_scan`` (the Hopper kernels for CUDA tensors,
     their plain versions on the CPU), or with ``plain=True`` the plain
-    loop under autograd (the JAX package's ``lax.scan``).
+    loop under autograd (the JAX package's ``lax.scan``).  ``seq_axis``:
+    as ``ConvLSTM2D``'s, a ring relay over the group's ranks.
     """
 
     def __init__(
@@ -341,10 +371,14 @@ class LSTM(nn.Module):
         activation: str = "tanh",
         compute_dtype: str = "float32",
         plain: bool = False,
+        seq_axis=None,
+        name: str = "lstm",
     ):
         super().__init__()
         if activation not in _ACTIVATIONS:
             raise ValueError(f"LSTM: unsupported activation {activation!r}")
+        self.seq_axis = seq_axis
+        self.name = name
         self.units = units
         self.activation = activation
         self.plain = plain
@@ -370,8 +404,15 @@ class LSTM(nn.Module):
         h0 = x_seq.new_zeros(b, u, dtype=torch.float32)
         c0 = torch.zeros_like(h0)
         args = (xproj, h0, c0, self.recurrent_kernel, self.bias, self.activation)
-        if self.plain:
-            y = lstm_scan_reference(*args)[0]
-        else:
-            y, _ = lstm_scan(*args)
+        if self.seq_axis is None:
+            y = lstm_scan_reference(*args)[0] if self.plain else lstm_scan(*args)[0]
+            return y.float()
+
+        def scan(xs, h, c, rk, b):
+            if self.plain:
+                ys, _, hn, cn = lstm_scan_reference(xs, h, c, rk, b, self.activation)
+                return ys, (hn, cn)
+            return lstm_scan(xs, h, c, rk, b, self.activation)
+
+        y, _ = time_sharded_scan(scan, *args[:5], group=self.seq_axis, name=self.name)
         return y.float()

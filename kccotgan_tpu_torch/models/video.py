@@ -11,7 +11,12 @@ joining the path with dots.  Videos are film-strips ``[B, H, T, W, C]`` at
 the boundaries; pyramid levels are ``[B, T, h, w, c]``.  ``plain=True``
 sends every ConvLSTM / LSTM recurrence to its plain loop instead of the
 fused recurrence (``layers.py``); ``generator_modules`` and
-``discriminator_modules`` set it from ``cfg.kernel_impl``.
+``discriminator_modules`` set it from ``cfg.kernel_impl``.  For the
+meshes: ``seq_axis`` (a process group) makes every generator ConvLSTM a
+ring relay over the group's ranks, each holding a chunk of the frames
+(``parallel/seqmodel.py``), and ``bn_group`` takes every discriminator
+BatchNorm's statistics over the group's ranks, each holding some of the
+batch's rows.
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ class VideoEncoder(nn.Module):
         rnn_dropout: float = 0.0,
         compute_dtype: str = "float32",
         plain: bool = False,
+        seq_axis=None,
     ):
         super().__init__()
         self.int_time_steps = int_time_steps
@@ -56,7 +62,7 @@ class VideoEncoder(nn.Module):
             self.add_module(f"encoder{i + 1}", ConvLSTM2D(
                 c_in, filters, (k, k), strides=(2, 2), use_bias=False,
                 compute_dtype=compute_dtype, dropout=dropout,
-                recurrent_dropout=rnn_dropout, plain=plain, name=f"encoder{i + 1}",
+                recurrent_dropout=rnn_dropout, plain=plain, seq_axis=seq_axis, name=f"encoder{i + 1}",
             ))
             if use_norm:
                 self.add_module(f"norm{i + 1}", LayerNorm(filters, _LN_EPS))
@@ -102,13 +108,15 @@ def _decoder_geometry(x_height: int, x_width: int):
 class VideoDecoder(nn.Module):
     """U-Net ConvLSTM decoder.
 
-    ``forward(pyramid, z, training=False, masks=None)`` takes the encoder's
-    5-level pyramid and noise ``z [B, T_z, h4, w4, z_channels]`` and
-    returns frames ``[B, H, T_z, W, C]``.  Training (teacher forcing)
-    consumes the skip frames ``[:, :-1]``, so ``T_z`` is the pyramid's
-    time minus one, and turns the ConvLSTMs' dropout on, drawn from the
-    mask source ``masks``; inference consumes the last frame's features
-    only, with ``T_z = 1``.
+    ``forward(pyramid, z, training=False, masks=None, pre_sliced=False)``
+    takes the encoder's 5-level pyramid and noise ``z [B, T_z, h4, w4,
+    z_channels]`` and returns frames ``[B, H, T_z, W, C]``.  Training
+    (teacher forcing) consumes the skip frames ``[:, :-1]``, so ``T_z`` is
+    the pyramid's time minus one, and turns the ConvLSTMs' dropout on,
+    drawn from the mask source ``masks``; inference consumes the last
+    frame's features only, with ``T_z = 1``.  ``pre_sliced``: the pyramid
+    holds the skip frames already (the time-sharded decode slices in
+    global time, ``parallel/seqmodel.py``).
     """
 
     def __init__(
@@ -124,6 +132,7 @@ class VideoDecoder(nn.Module):
         output_activation: str = "sigmoid",
         compute_dtype: str = "float32",
         plain: bool = False,
+        seq_axis=None,
     ):
         super().__init__()
         f = filter_size
@@ -134,7 +143,7 @@ class VideoDecoder(nn.Module):
         def convlstm(c_in, filters, k, bias, name):
             return ConvLSTM2D(
                 c_in, filters, k, use_bias=bias, compute_dtype=compute_dtype,
-                dropout=dropout, recurrent_dropout=rnn_dropout, plain=plain, name=name,
+                dropout=dropout, recurrent_dropout=rnn_dropout, plain=plain, seq_axis=seq_axis, name=name,
             )
 
         def conv_t(c_in, filters, k, s, act="tanh"):
@@ -168,10 +177,12 @@ class VideoDecoder(nn.Module):
     def _norm(self, h, name):
         return getattr(self, name)(h) if self.use_norm else h
 
-    def forward(self, pyramid, z, training=False, masks=None):
+    def forward(self, pyramid, z, training=False, masks=None, pre_sliced=False):
         b, t = z.shape[0], z.shape[1]
 
         def skip(level):
+            if pre_sliced:
+                return pyramid[level]
             return pyramid[level][:, :-1] if training else pyramid[level][:, -1:]
 
         def fold(seq):  # [B, T, h, w, c] -> [B*T, h, w, c]
@@ -202,13 +213,14 @@ def _plain(cfg) -> bool:
     return cfg.kernel_impl != "pallas"
 
 
-def generator_modules(cfg):
+def generator_modules(cfg, seq_axis=None):
     """The ``(VideoEncoder, VideoDecoder)`` pair a ``TrainConfig``
-    describes, created on the current default device."""
+    describes, created on the current default device; ``seq_axis`` as in
+    the module docstring."""
     m = cfg.model
     common = dict(
         filter_size=m.g_filter_size, use_norm=m.use_norm, dropout=m.dropout,
-        rnn_dropout=m.rnn_dropout, compute_dtype=cfg.compute_dtype, plain=_plain(cfg),
+        rnn_dropout=m.rnn_dropout, compute_dtype=cfg.compute_dtype, plain=_plain(cfg), seq_axis=seq_axis,
     )
     encoder = VideoEncoder(cfg.int_time_steps, m.n_channels, **common)
     decoder = VideoDecoder(
@@ -244,25 +256,27 @@ class VideoDiscriminator(nn.Module):
         use_batch_norm: bool = False,
         compute_dtype: str = "float32",
         plain: bool = False,
+        bn_group=None,
     ):
         super().__init__()
         f = filter_size
         self.use_batch_norm = use_batch_norm
+        self.bn_group = bn_group
         c_in, h, w = n_channels, x_height, x_width
         for i, filters in enumerate((f * 4, f * 8, f * 16)):
             self.add_module(f"conv{i + 1}", Conv2D(
                 c_in, filters, (5, 5), strides=(2, 2), compute_dtype=compute_dtype
             ))
             if use_batch_norm:
-                self.add_module(f"bn{i + 1}", BatchNorm(filters))
+                self.add_module(f"bn{i + 1}", BatchNorm(filters, bn_group))
             c_in, h, w = filters, -(-h // 2), -(-w // 2)
         common = dict(compute_dtype=compute_dtype, plain=plain)
         self.lstm1 = LSTM(h * w * c_in, f * 8, **common)
         self.lstm2 = LSTM(f * 8, f * 4, **common)
         self.lstm3 = LSTM(f * 4, state_size, activation="sigmoid", **common)
         if use_batch_norm:
-            self.rnn_bn1 = BatchNorm(f * 8)
-            self.rnn_bn2 = BatchNorm(f * 4)
+            self.rnn_bn1 = BatchNorm(f * 8, bn_group)
+            self.rnn_bn2 = BatchNorm(f * 4, bn_group)
 
     def init_stats(self) -> dict:
         """Fresh running statistics: means 0, variances 1 (as flax)."""
@@ -293,15 +307,16 @@ class VideoDiscriminator(nn.Module):
         return self.lstm3(x), new_stats
 
 
-def discriminator_modules(cfg):
+def discriminator_modules(cfg, bn_group=None):
     """The two identical discriminators ``(h, m)`` a ``TrainConfig``
-    describes, created on the current default device."""
+    describes, created on the current default device; ``bn_group`` as in
+    the module docstring."""
     m = cfg.model
     return tuple(
         VideoDiscriminator(
             m.x_height, m.x_width, m.n_channels, state_size=m.d_state_size,
             filter_size=m.d_filter_size, use_batch_norm=m.use_norm,
-            compute_dtype=cfg.compute_dtype, plain=_plain(cfg),
+            compute_dtype=cfg.compute_dtype, plain=_plain(cfg), bn_group=bn_group,
         )
         for _ in range(2)
     )

@@ -16,7 +16,9 @@ and semantics:
   radius; a Gaussian is separable, so this equals the dense k^3 kernel;
 * every mode divides by the smoothed batch's global maximum, which
   couples the samples of a batch (its gradient splits evenly among
-  ties, as ``amax``'s does);
+  ties, as ``amax``'s does); with ``group`` the batch's rows are split
+  over the group's ranks and the maximum is the whole batch's
+  (``parallel.comm.global_amax``);
 * ``annealing_sigma``: ``sigma * 0.975 ** (step / 500)``, in float32 on
   the host.
 
@@ -34,6 +36,8 @@ import functools
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..parallel.comm import global_amax
 
 __all__ = [
     "gaussian_kernel1d",
@@ -105,10 +109,13 @@ def _temporal_band(video: torch.Tensor, radius: int, sigma: float) -> torch.Tens
     return torch.einsum("bhtwc,st->bhswc", video.float(), band)
 
 
-def smooth_temporal(video, sigma, *, kernel_size: int = DEFAULT_TEMPORAL_KERNEL):
+def _normalized(out, group):
+    return out / (out.amax() if group is None else global_amax(out, group))
+
+
+def smooth_temporal(video, sigma, *, kernel_size: int = DEFAULT_TEMPORAL_KERNEL, group=None):
     """1-D temporal Gaussian smoothing, REFLECT padded, max-normalized."""
-    out = _temporal_band(video, kernel_size // 2, sigma)
-    return out / out.amax()
+    return _normalized(_temporal_band(video, kernel_size // 2, sigma), group)
 
 
 def _conv_sep_spatial(frames: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
@@ -147,16 +154,15 @@ def spatial_output_size(size: int, kernel_size: int = DEFAULT_SPATIAL_KERNEL) ->
     return size - 2 * (kernel_size // 2)
 
 
-def smooth_spatial(video, sigma, *, kernel_size: int = DEFAULT_SPATIAL_KERNEL):
+def smooth_spatial(video, sigma, *, kernel_size: int = DEFAULT_SPATIAL_KERNEL, group=None):
     """Separable 2-D spatial Gaussian, VALID padding (H and W shrink),
     max-normalized; each channel is smoothed on its own."""
     b, _, t, _, c = video.shape
     taps = _taps(kernel_size // 2, float(sigma), video.device)
-    out = _unframes(_conv_sep_spatial(_frames(video.float()), taps), b, t, c)
-    return out / out.amax()
+    return _normalized(_unframes(_conv_sep_spatial(_frames(video.float()), taps), b, t, c), group)
 
 
-def smooth_spatio_temporal(video, sigma, *, kernel_size: int = DEFAULT_SPATIAL_KERNEL):
+def smooth_spatio_temporal(video, sigma, *, kernel_size: int = DEFAULT_SPATIAL_KERNEL, group=None):
     """3-D (T, H, W) Gaussian with REFLECT padding, max-normalized: the
     temporal band, then the two spatial passes over frames REFLECT-padded
     by the radius, every axis with ``kernel_size``'s radius."""
@@ -164,7 +170,7 @@ def smooth_spatio_temporal(video, sigma, *, kernel_size: int = DEFAULT_SPATIAL_K
     b, _, t, _, c = video.shape
     frames = _reflect_pad(_frames(_temporal_band(video, radius, sigma)), radius)
     out = _unframes(_conv_sep_spatial(frames, _taps(radius, float(sigma), video.device)), b, t, c)
-    return out / out.amax()
+    return _normalized(out, group)
 
 
 def annealing_sigma(init_sigma, step: int, decay_steps: int = 500, decay_rate: float = 0.975) -> float:
@@ -181,15 +187,17 @@ def apply_smoothing(
     *,
     temporal_kernel: int = DEFAULT_TEMPORAL_KERNEL,
     spatial_kernel: int = DEFAULT_SPATIAL_KERNEL,
+    group=None,
 ):
     """Dispatch on the trainer's ``kernel`` option: ``'1d'``, ``'2d'``,
-    ``'3d'`` or ``'none'`` (the video as it is)."""
+    ``'3d'`` or ``'none'`` (the video as it is); ``group`` as in the
+    module docstring."""
     if mode == "none":
         return video
     if mode == "1d":
-        return smooth_temporal(video, sigma, kernel_size=temporal_kernel)
+        return smooth_temporal(video, sigma, kernel_size=temporal_kernel, group=group)
     if mode == "2d":
-        return smooth_spatial(video, sigma, kernel_size=spatial_kernel)
+        return smooth_spatial(video, sigma, kernel_size=spatial_kernel, group=group)
     if mode == "3d":
-        return smooth_spatio_temporal(video, sigma, kernel_size=spatial_kernel)
+        return smooth_spatio_temporal(video, sigma, kernel_size=spatial_kernel, group=group)
     raise ValueError(f"unknown smoothing mode: {mode!r}")

@@ -1,7 +1,14 @@
 """Training loop: batches, the NaN sentinel and its recovery, logging,
 checkpoints and periodic rollout sampling.
 
-Counterpart of ``kccotgan_tpu/train/loop.py`` on one device.  The host
+Counterpart of ``kccotgan_tpu/train/loop.py``, on one device or, given a
+mesh, as one rank of it (``Trainer(cfg, mesh=...)`` for data parallelism,
+``seq_mesh=...`` for sequence or 2-D data x seq parallelism): every rank
+reads the same seeded batch stream and keeps its rows
+(``parallel.sharding.shard_batch``); rank 0 alone writes the logs, the
+notes, the samples and the checkpoints, and every rank restores.  The
+NaN sentinel decides from the loss, which is the same on every rank in
+every mode, so the ranks stop or recover together.  The host
 never waits for the step it has just enqueued: each step's loss and pM
 go to pinned memory with a non-blocking copy and an event, and are read
 after the next step has been enqueued, one step behind.  The host waits
@@ -13,6 +20,7 @@ score a rollout.
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import time
 from typing import Iterator
@@ -57,7 +65,9 @@ class _Pending:
 
 class Trainer:
     """``Trainer(cfg, device="cuda").fit(batches)``: trains on ``device``,
-    the card unless the caller asks for the CPU.
+    the card unless the caller asks for the CPU; with ``mesh`` (a data
+    mesh) or ``seq_mesh`` (a seq or data x seq mesh) as this rank of it,
+    on the mesh's device.
 
     ``timings`` is filled by ``fit``: the loop's waits for a batch (their
     count, sum and largest, in milliseconds), each rollout sample's
@@ -65,12 +75,25 @@ class Trainer:
     host copy and write (``CheckpointWriter.records``).
     """
 
-    def __init__(self, cfg, *, device="cuda"):
-        self.device = torch.device(device)
+    def __init__(self, cfg, *, device="cuda", mesh=None, seq_mesh=None):
+        if mesh is not None and seq_mesh is not None:
+            raise ValueError("Trainer: pass mesh or seq_mesh, not both (a 2-D data x seq mesh is a seq_mesh)")
+        self.mesh = mesh if mesh is not None else seq_mesh
+        self.device = torch.device(device) if self.mesh is None else self.mesh.device
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Trainer: no CUDA device")
         self.cfg = cfg
-        self.train_step = build_train_step(cfg, device=self.device)
+        self.lead = self.mesh is None or self.mesh.rank == 0
+        if seq_mesh is not None:
+            from ..parallel.seqtrain import build_seq_train_step
+
+            self.train_step = build_seq_train_step(cfg, seq_mesh)
+        elif mesh is not None:
+            from ..parallel.sharding import build_sharded_train_step
+
+            self.train_step = build_sharded_train_step(cfg, mesh)
+        else:
+            self.train_step = build_train_step(cfg, device=self.device)
         self.rollout = build_rollout(cfg, device=self.device)
         self.run_dir = os.path.join(cfg.out_dir, cfg.run_name or self._default_run_name())
         self.logger: MetricsLogger | None = None
@@ -82,10 +105,20 @@ class Trainer:
 
     def init_state(self) -> TrainState:
         """A fresh state from ``cfg.seed``, or, with ``cfg.checkpoint``,
-        the newest checkpoint under ``cfg.ckpt_path``."""
+        the newest checkpoint under ``cfg.ckpt_path``; on a mesh, rank 0's
+        on every rank (``replicate_state``)."""
         if self.cfg.checkpoint and self.cfg.ckpt_path:
-            return restore_checkpoint(self.cfg.ckpt_path, self.cfg, device=self.device)
-        return create_train_state(self.cfg, device=self.device)
+            state = restore_checkpoint(self.cfg.ckpt_path, self.cfg, device=self.device)
+        else:
+            state = create_train_state(self.cfg, device=self.device)
+        return self._replicated(state)
+
+    def _replicated(self, state: TrainState) -> TrainState:
+        if self.mesh is None:
+            return state
+        from ..parallel.sharding import replicate_state
+
+        return replicate_state(state, self.mesh)
 
     def fit(
         self,
@@ -109,16 +142,29 @@ class Trainer:
         cfg = self.cfg
         if state is None:
             state = self.init_state()
-        os.makedirs(self.run_dir, exist_ok=True)
-        write_run_notes(self.run_dir, cfg)
+        lead, mesh = self.lead, self.mesh
         notes = os.path.join(self.run_dir, "train_notes.txt")
-        self.logger = MetricsLogger(os.path.join(self.run_dir, "log"))
         ckpt_dir = os.path.join(self.run_dir, "ckpt")
-        ckpt_writer = CheckpointWriter(ckpt_dir)
+        self.logger = ckpt_writer = None
+        if lead:
+            os.makedirs(self.run_dir, exist_ok=True)
+            write_run_notes(self.run_dir, cfg)
+            self.logger = MetricsLogger(os.path.join(self.run_dir, "log"))
+            ckpt_writer = CheckpointWriter(ckpt_dir)
+        else:
+            test_batch = profile_steps = None
         if test_batch is not None:
             test_batch = torch.as_tensor(np.asarray(test_batch, dtype=np.float32)).to(self.device)
+        rows, sharding = cfg.batch_size, None
+        if mesh is not None:
+            from ..parallel.sharding import shard_batch
+
+            # a ragged batch is dropped before it is split, on every rank alike
+            batches = (b for b in batches if b.shape[0] == cfg.batch_size)
+            rows, sharding = cfg.batch_size // mesh.data, functools.partial(shard_batch, mesh=mesh)
         wait = {"n": 0, "sum_ms": 0.0, "max_ms": 0.0}
-        self.timings = {"prefetch_wait": wait, "sample_ms": [], "checkpoints": ckpt_writer.records}
+        self.timings = {"prefetch_wait": wait, "sample_ms": [],
+                        "checkpoints": ckpt_writer.records if lead else []}
         # 3 Sinkhorn solves x L iterations x 2 phases a step
         thru = Throughput(cfg.batch_size * cfg.total_time_steps, 6 * cfg.sinkhorn_l)
         t_start = time.time()
@@ -131,19 +177,26 @@ class Trainer:
         profiler = None
 
         def note(text: str) -> None:
-            with open(notes, "a") as f:
-                f.write(text)
+            if lead:
+                with open(notes, "a") as f:
+                    f.write(text)
+
+        def save(at: int) -> None:
+            if lead:
+                ckpt_writer.save(state, at)
 
         def log(vals: dict, at: int) -> None:
+            if not lead:
+                return
             self.logger.scalar("Sinkhorn Loss", vals["sinkhorn_loss"], at)
             self.logger.scalar("pM", vals["pm"], at)
             self.logger.scalar("sigma", vals["sigma"], at)
 
         try:
             if retries_left > 0:
-                ckpt_writer.save(state, step)  # a restore point before any step runs
+                save(step)  # a restore point before any step runs
 
-            with contextlib.closing(device_prefetch(batches, device=self.device)) as prefetched:
+            with contextlib.closing(device_prefetch(batches, device=self.device, sharding=sharding)) as prefetched:
                 while True:
                     t0 = time.perf_counter()
                     batch = next(prefetched, None)
@@ -153,7 +206,7 @@ class Trainer:
                     wait["max_ms"] = max(wait["max_ms"], waited)
                     if batch is None:
                         break
-                    if batch.shape[0] != cfg.batch_size:
+                    if batch.shape[0] != rows:
                         continue  # ragged tail
                     if profiler is None and profile_steps is not None and step + 1 == profile_steps[0]:
                         profiler = profiling.start_trace(os.path.join(self.run_dir, "profile"))
@@ -181,7 +234,10 @@ class Trainer:
                             # another noise path, and go on past the batch.
                             retries_left -= 1
                             recoveries += 1
-                            ckpt_writer.wait()
+                            if lead:
+                                ckpt_writer.wait()
+                            if mesh is not None:  # rank 0's checkpoint is on disk for every rank
+                                torch.distributed.barrier(group=mesh.world)
                             state = restore_checkpoint(ckpt_dir, state, device=self.device)
                             state.rng = fold_in(state.rng, recoveries)
                             step = state.step
@@ -198,7 +254,7 @@ class Trainer:
                     # that a divergence at this very step cannot become the
                     # restore point.
                     if step % cfg.ckpt_freq == 0 and np.isfinite(float(metrics["sinkhorn_loss"])):
-                        ckpt_writer.save(state, step)
+                        save(step)
                     if test_batch is not None and (step % cfg.save_freq == 0 or step == 1):
                         self._sample_and_log(state, test_batch, step)
                     if max_steps is not None and step >= max_steps:
@@ -221,13 +277,15 @@ class Trainer:
                 "sigma": sigma,
                 **rates,
             }
-            for k, v in rates.items():
-                self.logger.scalar(f"throughput/{k}", v, step)
+            if lead:
+                for k, v in rates.items():
+                    self.logger.scalar(f"throughput/{k}", v, step)
         finally:
             if profiler is not None:  # the run ended inside the window
                 profiling.stop_trace(profiler)
-            self.logger.close()
-            ckpt_writer.close()
+            if lead:
+                self.logger.close()
+                ckpt_writer.close()
         return state, summary
 
     def _sample_and_log(self, state: TrainState, test_batch: torch.Tensor, step: int) -> None:

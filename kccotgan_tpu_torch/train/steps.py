@@ -45,10 +45,21 @@ where JAX's ``'pallas'`` sends such a layer to ``lax.scan``.  The
 Sinkhorn solves go through the fused kernels (``ot/cuda_sinkhorn.py``:
 one forward and one backward launch a phase) unless
 ``cfg.sinkhorn_solver`` is ``'scan'``.
+
+Meshes (``parallel/``) reach the step through three arguments of
+``build_train_step``; without them the step is the one-device step, to
+the bit: ``group`` (JAX's ``axis_name``, the per-shard mode: noise and
+masks from keys folded with the rank, each rank's Sinkhorn and pM on its
+shard, gradients, pM, the loss and the statistics averaged over the
+group), ``encode`` / ``decode`` (JAX's hooks: the generator's forwards,
+which the sequence-parallel step runs time-sharded) and ``placement``
+(``Placement``: where the exact modes put the batch, the counterpart of
+what GSPMD does in JAX's global-batch mode).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable
 
 import numpy as np
@@ -59,27 +70,64 @@ from ..config import check_trainable
 from ..models.layers import BatchNorm, bernoulli_source
 from ..models.video import discriminator_modules, generator_modules
 from ..ot import compute_sinkhorn_loss, martingale_regularization
+from ..parallel.comm import all_reduce_sum_
 from ..smoothing import annealing_sigma, apply_smoothing
-from .state import TrainState, dropout_keys, make_optimizers, split_key
+from .state import TrainState, dropout_keys, fold_in, make_optimizers, split_key
 
-__all__ = ["build_train_step", "fused_discriminators", "gan_forward"]
+__all__ = ["GanModules", "Placement", "build_train_step", "fused_discriminators", "gan_forward"]
 
 
 class GanModules:
     """The four modules a config describes, on the meta device: they only
     describe the computation, every parameter comes from the state.  Their
-    recurrences take the engine ``cfg.kernel_impl`` names."""
+    recurrences take the engine ``cfg.kernel_impl`` names; ``seq_axis``
+    and ``bn_group`` as in ``models/video.py``."""
 
-    def __init__(self, cfg):
+    def __init__(self, cfg, *, seq_axis=None, bn_group=None):
         with torch.device("meta"):
-            self.encoder, self.decoder = generator_modules(cfg)
-            self.disc_h, self.disc_m = discriminator_modules(cfg)
+            self.encoder, self.decoder = generator_modules(cfg, seq_axis)
+            self.disc_h, self.disc_m = discriminator_modules(cfg, bn_group)
 
 
-def _smooth(cfg, video, sigma):
+class Placement:
+    """Where a step's batch lives: on one device, every hook the
+    identity.  ``parallel/sharding.py::MeshPlacement`` splits the batch
+    over a mesh's ranks.
+
+    * ``bn_group``: the group over whose ranks the batch's rows are
+      split: the discriminators' BatchNorm statistics and the smoothing's
+      normalizing maximum are the whole batch's;
+    * ``rows``: how many ranks share the batch's rows, so that the noise
+      is drawn for ``rows`` times the rank's batch;
+    * ``noise(z)``: this rank's part of noise drawn for the whole batch;
+    * ``masks(source)``: a mask source that draws each mask for the whole
+      batch from ``source`` and hands back this rank's part;
+    * ``loss_inputs(xs)``: the smoothed videos and the four feature
+      stacks as the loss needs them (the whole batch's);
+    * ``sum_grads(phase, grads)``: the whole batch's gradients of one
+      phase (``'disc'`` or ``'gen'``) from this rank's parts.
+    """
+
+    bn_group = None
+    rows = 1
+
+    def noise(self, z):
+        return z
+
+    def masks(self, source):
+        return source
+
+    def loss_inputs(self, xs):
+        return xs
+
+    def sum_grads(self, phase, grads):
+        return grads
+
+
+def _smooth(cfg, video, sigma, group=None):
     return apply_smoothing(
         video, sigma, cfg.kernel,
-        temporal_kernel=cfg.temporal_kernel_size, spatial_kernel=cfg.spatial_kernel_size,
+        temporal_kernel=cfg.temporal_kernel_size, spatial_kernel=cfg.spatial_kernel_size, group=group,
     )
 
 
@@ -109,8 +157,17 @@ def fused_discriminators(mods, h_params, m_params, h_stats, m_stats, fake_s, rea
     return outs.unbind(0), h_stats, m_stats
 
 
+def _encode(mods, params, video, masks):
+    return functional_call(mods.encoder, params, (video,), {"training": True, "masks": masks})
+
+
+def _decode(mods, params, pyramid, z, masks):
+    return functional_call(mods.decoder, params, (pyramid, z), {"training": True, "masks": masks})
+
+
 def gan_forward(mods, cfg, enc_params, dec_params, h_params, m_params, h_stats, m_stats, real_data, z,
-                sigma, masks=None, pyramid=None, real_smoothed=None):
+                sigma, masks=None, pyramid=None, real_smoothed=None, encode=None, decode=None,
+                loss_inputs=None):
     """One full forward pass: encode, decode (teacher forcing), smooth,
     discriminate.  Returns ``(loss, pm, h_stats, m_stats)``: the mixed
     Sinkhorn divergence of the smoothed videos, pM on ``m_real`` and the
@@ -120,14 +177,19 @@ def gan_forward(mods, cfg, enc_params, dec_params, h_params, m_params, h_stats, 
     dropout, needed when the config has dropout.  ``pyramid`` supplies
     the context encoding (``enc_params`` is then unused), and
     ``real_smoothed`` the smoothed real video, both computed once a step
-    when the encoding is shared."""
+    when the encoding is shared.  ``encode(params, video, masks) ->
+    pyramid`` and ``decode(params, pyramid, z, masks) -> frames`` replace
+    the generator's forwards (JAX's hooks), ``loss_inputs`` maps the
+    smoothed videos and feature stacks before the loss
+    (``Placement.loss_inputs``)."""
     enc_masks, dec_masks = masks if masks is not None else (None, None)
     if pyramid is None:
-        pyramid = functional_call(mods.encoder, enc_params, (real_data,), {"training": True, "masks": enc_masks})
-    fake_pred = functional_call(mods.decoder, dec_params, (pyramid, z), {"training": True, "masks": dec_masks})
+        pyramid = (encode or functools.partial(_encode, mods))(enc_params, real_data, enc_masks)
+    fake_pred = (decode or functools.partial(_decode, mods))(dec_params, pyramid, z, dec_masks)
     fake = torch.cat([real_data[:, :, : cfg.int_time_steps], fake_pred], dim=2)
-    real_s = real_smoothed if real_smoothed is not None else _smooth(cfg, real_data, sigma)
-    fake_s = _smooth(cfg, fake, sigma)
+    group = mods.disc_h.bn_group  # the ranks the batch's rows are split over, in the exact modes
+    real_s = real_smoothed if real_smoothed is not None else _smooth(cfg, real_data, sigma, group)
+    fake_s = _smooth(cfg, fake, sigma, group)
     if cfg.fused_discriminators:
         (h_fake, h_real, m_real, m_fake), h_stats, m_stats = fused_discriminators(
             mods, h_params, m_params, h_stats, m_stats, fake_s, real_s)
@@ -136,6 +198,8 @@ def gan_forward(mods, cfg, enc_params, dec_params, h_params, m_params, h_stats, 
         h_real, h_stats = functional_call(mods.disc_h, h_params, (real_s, h_stats))
         m_real, m_stats = functional_call(mods.disc_m, m_params, (real_s, m_stats))
         m_fake, m_stats = functional_call(mods.disc_m, m_params, (fake_s, m_stats))
+    if loss_inputs is not None:
+        real_s, fake_s, h_fake, m_real, h_real, m_fake = loss_inputs((real_s, fake_s, h_fake, m_real, h_real, m_fake))
     scaling = cfg.effective_scaling
     loss = compute_sinkhorn_loss(
         real_s, fake_s, scaling, h_fake, m_real, h_real, m_fake,
@@ -157,7 +221,23 @@ def _grads(loss, *groups):
     return [{k: next(grads) for k in g} for g in groups]
 
 
-def build_train_step(cfg, *, device="cuda") -> Callable:
+def _flat_sum(group, tensors):
+    """``tensors`` summed over ``group`` in one flattened all-reduce."""
+    flat = all_reduce_sum_(torch.cat([t.reshape(-1).float() for t in tensors]), group)
+    return [part.view(t.shape).to(t.dtype) for part, t in zip(flat.split([t.numel() for t in tensors]), tensors)]
+
+
+def _pmean(group, *trees):
+    """Each dict or tensor of ``trees`` averaged over ``group``: JAX's
+    ``pmean``, in one all-reduce."""
+    leaves = [v for t in trees for v in (t.values() if isinstance(t, dict) else (t,))]
+    n = torch.distributed.get_world_size(group)
+    means = iter(x / n for x in _flat_sum(group, leaves))
+    return [{k: next(means) for k in t} if isinstance(t, dict) else next(means) for t in trees]
+
+
+def build_train_step(cfg, *, device="cuda", group=None, encode=None, decode=None,
+                     placement: Placement | None = None) -> Callable:
     """Returns ``train_step(state, real_data, generator=None, z=None,
     masks=None) -> (state, metrics)``.
 
@@ -179,37 +259,51 @@ def build_train_step(cfg, *, device="cuda") -> Callable:
     docstring); ``cfg.sinkhorn_solver='scan'`` solves the Sinkhorn
     problems with the plain loop under autograd, the kernels' reference.
     The state passed in is left as it was.
+
+    ``group``: the per-shard mode (module docstring), ``real_data`` this
+    rank's rows; the drawn noise and masks come from the keys folded with
+    the rank in ``group``.  ``placement``: the exact modes; ``z`` and the
+    masks, drawn or injected, are then the whole batch's, of which the
+    step keeps this rank's part.  ``encode`` / ``decode``: as in
+    ``gan_forward``.
     """
     check_trainable(cfg)
-    mods = GanModules(cfg)
+    place = placement or Placement()
+    if group is not None and placement is not None:
+        raise ValueError("build_train_step: the per-shard group and an exact placement exclude each other")
+    mods = GanModules(cfg, bn_group=place.bn_group)
     opts = make_optimizers(cfg)
     m = cfg.model
     needs_dropout = m.dropout > 0.0 or m.rnn_dropout > 0.0
     share_ctx = cfg.share_context_encoding and not needs_dropout
+    rank = torch.distributed.get_rank(group) if group is not None else None
+    hooks = dict(encode=encode, decode=decode, loss_inputs=place.loss_inputs)
+
+    def seeded(seed):
+        return torch.Generator(device=device).manual_seed(seed if rank is None else fold_in(seed, rank))
 
     def phase_masks(rng, masks):
         """``(rng, (disc phase's mask sources, gen phase's))``."""
         if not needs_dropout:
             return rng, (None, None)
         if masks is not None:
+            masks = place.masks(masks)
             return rng, ((masks, masks), (masks, masks))
         rng, *phases = dropout_keys(rng)
-        return rng, tuple(
-            tuple(bernoulli_source(torch.Generator(device=device).manual_seed(k)) for k in seeds)
-            for seeds in phases
-        )
+        return rng, tuple(tuple(place.masks(bernoulli_source(seeded(k))) for k in seeds) for seeds in phases)
 
     def train_step(state: TrainState, real_data, generator=None, z=None, masks=None):
         rng = state.rng
         if z is None:
             if generator is None:
                 rng, seed = split_key(rng)
-                generator = torch.Generator(device=device).manual_seed(seed)
-            shape = (real_data.shape[0], cfg.pred_time_steps, m.z_height, m.z_width, m.z_channels)
+                generator = seeded(seed)
+            shape = (real_data.shape[0] * place.rows, cfg.pred_time_steps, m.z_height, m.z_width, m.z_channels)
             z1 = torch.randn(shape, generator=generator, device=device)
             z2 = torch.randn(shape, generator=generator, device=device)
         else:
             z1, z2 = z
+        z1, z2 = place.noise(z1), place.noise(z2)
         rng, (disc_masks, gen_masks) = phase_masks(rng, masks)
         if cfg.decaying_sigma:
             sigma = annealing_sigma(cfg.init_sigma, state.step + 1)  # the reference's steps count from 1
@@ -218,8 +312,8 @@ def build_train_step(cfg, *, device="cuda") -> Callable:
 
         enc_p = _leaves(state.enc_params)
         if share_ctx:
-            pyramid = functional_call(mods.encoder, enc_p, (real_data,), {"training": True})
-            real_s = _smooth(cfg, real_data, sigma)
+            pyramid = (encode or functools.partial(_encode, mods))(enc_p, real_data, None)
+            real_s = _smooth(cfg, real_data, sigma, place.bn_group)
         else:
             pyramid = real_s = None
 
@@ -229,8 +323,12 @@ def build_train_step(cfg, *, device="cuda") -> Callable:
             mods, cfg, state.enc_params, state.dec_params, h_p, m_p, state.h_stats, state.m_stats,
             real_data, z1, sigma, masks=disc_masks,
             pyramid=[p.detach() for p in pyramid] if pyramid is not None else None, real_smoothed=real_s,
+            **hooks,
         )
-        gh, gm = _grads(-loss + pm, h_p, m_p)
+        gh, gm = place.sum_grads("disc", _grads(-loss + pm, h_p, m_p))
+        pm = pm.detach()
+        if group is not None:
+            gh, gm, pm, h_stats, m_stats = _pmean(group, gh, gm, pm, h_stats, m_stats)
         h_params, h_opt = opts["h"].update(gh, state.h_opt, state.h_params)
         m_params, m_opt = opts["m"].update(gm, state.m_opt, state.m_params)
         del loss, h_p, m_p
@@ -239,9 +337,12 @@ def build_train_step(cfg, *, device="cuda") -> Callable:
         dec_p = _leaves(state.dec_params)
         gen_loss, _, h_stats, m_stats = gan_forward(
             mods, cfg, enc_p, dec_p, h_params, m_params, h_stats, m_stats,
-            real_data, z2, sigma, masks=gen_masks, pyramid=pyramid, real_smoothed=real_s,
+            real_data, z2, sigma, masks=gen_masks, pyramid=pyramid, real_smoothed=real_s, **hooks,
         )
-        ge, gd = _grads(gen_loss, enc_p, dec_p)
+        ge, gd = place.sum_grads("gen", _grads(gen_loss, enc_p, dec_p))
+        gen_loss = gen_loss.detach()
+        if group is not None:
+            ge, gd, gen_loss, h_stats, m_stats = _pmean(group, ge, gd, gen_loss, h_stats, m_stats)
         enc_params, enc_opt = opts["enc"].update(ge, state.enc_opt, state.enc_params)
         dec_params, dec_opt = opts["dec"].update(gd, state.dec_opt, state.dec_params)
 
@@ -260,7 +361,7 @@ def build_train_step(cfg, *, device="cuda") -> Callable:
             m_opt=m_opt,
         )
         metrics = {
-            "sinkhorn_loss": gen_loss.detach(), "pm": pm.detach(),
+            "sinkhorn_loss": gen_loss, "pm": pm,
             "sigma": torch.tensor(sigma, dtype=torch.float32),
         }
         return new_state, metrics

@@ -161,12 +161,6 @@ def test_mixed_devices_raise():
         convlstm_scan(xconv, *rest)
 
 
-@pytest.mark.parametrize("kw", [dict(seq_axis="seq")])
-def test_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError):
-        ConvLSTM2D(3, 4, (3, 3), **kw)
-
-
 @pytest.mark.parametrize("kw,shape", [
     (dict(dropout=0.3), (2, 8, 8, 3)), (dict(recurrent_dropout=0.3), (2, 4, 4, 4)),
 ])

@@ -209,9 +209,8 @@ def test_cli_trains_synthetic(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--num_devices", "2"], ["--seq_devices", "4"], ["--conv_packing", "off"], ["--time_major"],
-    ["--no_time_major"], ["--remat_policy", "carry_only"], ["--compile_cache", "x"],
-    ["--local_sinkhorn"],
+    ["--conv_packing", "off"], ["--time_major"], ["--no_time_major"], ["--remat_policy", "carry_only"],
+    ["--compile_cache", "x"],
 ])
 def test_cli_refuses_what_the_port_does_not_carry(flags, capsys):
     with pytest.raises(SystemExit) as e:
