@@ -1,0 +1,8 @@
+"""Share of its roofline of the discriminators' LSTM kernels in a
+training step, forward and backward."""
+
+from port_bench.readers import roofline_percent
+
+
+def read(rec):
+    return roofline_percent(rec, "lstm") if rec["driver"] == "train" else None
