@@ -208,6 +208,7 @@ from kccotgan_tpu_torch.parallel.seqtrain import build_seq_train_step
 from kccotgan_tpu_torch.parallel.sharding import build_sharded_train_step, replicate_state
 from kccotgan_tpu_torch.train import Trainer, build_rollout, build_train_step, create_train_state
 from kccotgan_tpu_torch.train.rollout import graph_rollout
+from kccotgan_tpu_torch.train.steps import Placement
 from kccotgan_tpu_torch.weights import init_generator_params
 
 PRESET = "mmnist_full"
@@ -1117,7 +1118,10 @@ def check_engines(base, dev, per_step=PALLAS_COUNTS, video=None, preset=PRESET):
     """Two iterations of ``base`` under 'pallas' against two under 'scan'
     from the same state, video (``video`` if given, else a seeded uniform
     one) and z, in f32 and in the preset's bf16; every kernel's calls and
-    launches counted per 'pallas' iteration against ``per_step``."""
+    launches counted per 'pallas' iteration against ``per_step``.  Both
+    steps replay a CUDA graph from their second call, whose counts are
+    what the capture counted (``tests/test_torch_cuda.py`` holds those
+    against a trace of a replay); ``graph`` in the line says so."""
     results = {}
     for cdt in ("float32", base.compute_dtype):
         cfg = dataclasses.replace(base, compute_dtype=cdt)
@@ -1150,6 +1154,7 @@ def check_engines(base, dev, per_step=PALLAS_COUNTS, video=None, preset=PRESET):
         cmp, ok = compare_engines(runs["pallas"][0], runs["scan"][0], ENGINE_TOL[cdt])
         cmp["second_iteration_loss"] = [float(runs[i][1][0]["sinkhorn_loss"]) for i in ("pallas", "scan")]
         print(json.dumps({"engines_check": {"preset": preset, "compute_dtype": cdt, "per_iteration": per_iter[0],
+                                            "graph": {impl: dict(step.counts) for impl, step in steps.items()},
                                             "tol": ENGINE_TOL[cdt], **cmp}}), flush=True)
         if not ok:
             raise RuntimeError(f"{cdt}: 'pallas' and 'scan' iterations disagree: {cmp}")
@@ -1224,7 +1229,8 @@ def check_trainer_cli(tmp, data, options=(), tag="trainer_cli", per_step=PALLAS_
     calls and launches those of the steps (``per_step``) and the sampling
     rollouts (``rollout_counts``).  With ``--decaying_sigma`` among the
     options, each step's logged sigma must be the annealed one.  Printed
-    as ``tag``."""
+    as ``tag``.  Without decaying smoothing the steps after the first
+    replay a CUDA graph, and count what its capture counted."""
     per_sample = rollout_counts(get_preset(preset), torch.device("cuda", 0))
     argv = ["--preset", preset, "--dname", dname, "--data_path", str(data), "--kernel_impl", "pallas",
             *options, "--max_steps", str(TRAINER_STEPS), "--ckpt_freq", str(TRAINER_EVERY),
@@ -1433,11 +1439,13 @@ def check_smoothing(dev):
 def check_options_training(card, base, dev):
     """Phase 10b: 'pallas' iterations with each smoothing mode and
     decaying sigma, counted per iteration; '3d' under both engines in
-    f32; the modes timed against 'none' in turns, and the smoothing's
-    own device time an iteration."""
+    f32; the modes timed against 'none' in turns, every one eager, and
+    the smoothing's own device time an iteration."""
     state0, video, zs = training_inputs(base, dev)
+    # every mode eager (the identity placement), so that a mode's time over
+    # 'none' is its smoothing alone: 'none' would otherwise replay a graph
     steps = {mode: build_train_step(dataclasses.replace(
-        base, kernel_impl="pallas", kernel=mode, decaying_sigma=True), device=dev)
+        base, kernel_impl="pallas", kernel=mode, decaying_sigma=True), device=dev, placement=Placement())
         for mode in ("none",) + SMOOTH_MODES}
     want = {n: list(c) for n, c in PALLAS_COUNTS.items()}
     losses = {}
@@ -1571,7 +1579,8 @@ def check_dropout_training(card, base, dev):
     iteration without dropout but for the context's second encoding
     (``DROPOUT_COUNTS``; the ConvLSTM kernels take the masks), held
     against 'scan' from the same state and masks in f32; then the bf16
-    iteration with both dropouts timed against none in turns."""
+    iteration with both dropouts timed against none in turns, both
+    eager."""
     variants = {"dropout": (DROPOUT, 0.0), "dropout_rnn_dropout": (DROPOUT, DROPOUT)}
 
     def with_dropout(cfg, name):
@@ -1608,7 +1617,9 @@ def check_dropout_training(card, base, dev):
             raise RuntimeError(f"{name} f32: 'pallas' and 'scan' iterations disagree: {cmp}")
     cfg = with_dropout(base, "dropout_rnn_dropout")
     state0, video, zs = training_inputs(cfg, dev)
-    steps = {"none": build_train_step(dataclasses.replace(base, kernel_impl="pallas"), device=dev),
+    # both eager: without dropout the step would replay a graph
+    steps = {"none": build_train_step(dataclasses.replace(base, kernel_impl="pallas"), device=dev,
+                                      placement=Placement()),
              "dropout": build_train_step(cfg, device=dev)}
     ms = {"none": [], "dropout": []}
     for name in ("none", "dropout", "dropout", "none"):
@@ -2461,7 +2472,7 @@ def rows_of(video, mesh):
 def mesh_mode(rank, dev, inputs, cfg, build, mesh, want_counts, inject_z=True):
     """One iteration of a mesh mode on this rank from ``inputs``, the
     seeded state, video and z of phase 8, counted from zero; on rank 0 the
-    one-device step's iteration too, and their comparison (f32:
+    one-device step's iteration too (eager, as the mode's), and their comparison (f32:
     ENGINE_TOL; bf16: the losses at PAR_BF16_LOSS_RTOL).  Returns the
     record and what the timing needs."""
     state0, video, zs = inputs
@@ -2476,7 +2487,7 @@ def mesh_mode(rank, dev, inputs, cfg, build, mesh, want_counts, inject_z=True):
     rec = {"counts": counts(), "comm_one_iteration": comm_counts(), "loss": float(met["sinkhorn_loss"]),
            "pm": float(met["pm"]), "finite": _all_finite(st, met), "checksum": state_checksum(st)}
     rec["counts_ok"] = want_counts is None or rec["counts"] == {n: list(c) for n, c in want_counts.items()}
-    one = build_train_step(cfg, device=dev)
+    one = build_train_step(cfg, device=dev, placement=Placement())  # eager, as the mesh steps are
     if rank == 0 and inject_z:
         st1, met1 = one(state0, video, z=zs[0])
         torch.cuda.synchronize()

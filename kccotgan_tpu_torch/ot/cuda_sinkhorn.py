@@ -22,6 +22,8 @@ through a [K, B, B] scratch the wrapper allocates
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from .._build import load_library
@@ -48,11 +50,18 @@ def _dual_step(c, u, v, log_mu, eps):
     return u, v
 
 
+@functools.lru_cache(maxsize=16)
+def _log_mu(n: int, device: torch.device) -> torch.Tensor:
+    """log(1/B) rounded as the JAX package rounds it, f32 log of f32 B,
+    made once a (B, device): a captured CUDA graph copies nothing from the
+    host."""
+    return -torch.log(torch.tensor(float(n), dtype=torch.float32)).to(device)
+
+
 def sinkhorn_fwd_reference(c, eps: float, num_iters: int):
     """Plain forward of ``c [..., B, B]``, differentiable by autograd:
     ``(cost [...], uhist [L, ..., B], vhist [L, ..., B])``."""
-    # log(1/B) rounded as the JAX package rounds it: f32 log of f32 B
-    log_mu = -torch.log(torch.tensor(float(c.shape[-1]), dtype=torch.float32)).to(c.device)
+    log_mu = _log_mu(c.shape[-1], c.device)
     u = c.new_zeros(c.shape[:-1] + (1,))
     v = c.new_zeros(c.shape[:-2] + (1, c.shape[-1]))
     us, vs = [], []

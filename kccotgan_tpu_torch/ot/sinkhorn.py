@@ -31,7 +31,7 @@ from __future__ import annotations
 import torch
 
 from .cost import bi_causal_modified_cost, cost_xy, modified_cost
-from .cuda_sinkhorn import _dual_step, mixed_sinkhorn, sinkhorn_fwd_reference
+from .cuda_sinkhorn import _dual_step, _log_mu, mixed_sinkhorn, sinkhorn_fwd_reference
 
 __all__ = [
     "benchmark_sinkhorn",
@@ -84,15 +84,10 @@ class ImplicitCost(torch.autograd.Function):
         return g * (direct - dual), None, None, None
 
 
-def _log_mu(c):
-    # log(1/B) rounded as the JAX package rounds it: f32 log of f32 B
-    return -torch.log(torch.tensor(float(c.shape[-1]), dtype=torch.float32)).to(c.device)
-
-
 def _early_stop_duals(c, epsilon, num_iters, lmin, threshold):
     """The duals after dual updates of ``c`` until ``sum |u - u_prev| <
     threshold`` with at least ``lmin`` of them, or ``num_iters``."""
-    log_mu = _log_mu(c)
+    log_mu = _log_mu(c.shape[-1], c.device)
     u, v = c.new_zeros(c.shape[0], 1), c.new_zeros(1, c.shape[0])
     err, it = torch.tensor(float("inf")), 0
     while it < num_iters and (bool(err >= threshold) or it < lmin):

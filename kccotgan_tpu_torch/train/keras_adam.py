@@ -59,15 +59,24 @@ class KerasAdam:
             nu={k: torch.zeros_like(v) for k, v in params.items()},
         )
 
-    def update(self, grads: dict, state: KerasAdamState, params: dict):
-        """``(new_params, new_state)`` after one update with ``grads``."""
-        it = self.keras_iter(state.count)
+    def alpha(self, count: int) -> torch.Tensor:
+        """The step size of the group's update number ``count``, a 0-d
+        float32 CPU tensor computed in float32 on the host."""
+        it = self.keras_iter(count)
         lr = self.learning_rate(it) if callable(self.learning_rate) else self.learning_rate
         lr = torch.as_tensor(lr, dtype=torch.float32)
         t = torch.tensor(it + 1, dtype=torch.float32)
         b1p = torch.tensor(self.b1, dtype=torch.float32) ** t
         b2p = torch.tensor(self.b2, dtype=torch.float32) ** t
-        alpha = lr * torch.sqrt(1.0 - b2p) / (1.0 - b1p)
+        return lr * torch.sqrt(1.0 - b2p) / (1.0 - b1p)
+
+    def update(self, grads: dict, state: KerasAdamState, params: dict, alpha: torch.Tensor | None = None):
+        """``(new_params, new_state)`` after one update with ``grads``.
+        ``alpha``, a 0-d float32 tensor on the parameters' device, stands
+        for ``self.alpha(state.count)``: a captured CUDA graph reads the
+        step size from device memory, where each replay writes it."""
+        if alpha is None:
+            alpha = self.alpha(state.count)
         mu, nu, new_params = {}, {}, {}
         for k, p in params.items():
             g = grads[k]

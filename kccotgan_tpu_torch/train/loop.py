@@ -71,8 +71,10 @@ class Trainer:
 
     ``timings`` is filled by ``fit``: the loop's waits for a batch (their
     count, sum and largest, in milliseconds), each rollout sample's
-    milliseconds, and each checkpoint's
-    host copy and write (``CheckpointWriter.records``).
+    milliseconds, each checkpoint's
+    host copy and write (``CheckpointWriter.records``), and ``graph``, the
+    step's counts of eager calls, CUDA-graph captures and replays so far
+    (``build_train_step``).
     """
 
     def __init__(self, cfg, *, device="cuda", mesh=None, seq_mesh=None):
@@ -94,6 +96,7 @@ class Trainer:
             self.train_step = build_sharded_train_step(cfg, mesh)
         else:
             self.train_step = build_train_step(cfg, device=self.device)
+        self._step_counts = self.train_step.counts
         self.rollout = build_rollout(cfg, device=self.device)
         self.run_dir = os.path.join(cfg.out_dir, cfg.run_name or self._default_run_name())
         self.logger: MetricsLogger | None = None
@@ -260,6 +263,7 @@ class Trainer:
                     if max_steps is not None and step >= max_steps:
                         break
 
+            self.timings["graph"] = dict(self._step_counts)
             if pending is not None:
                 vals = pending.read()
                 log(vals, step)

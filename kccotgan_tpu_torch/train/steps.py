@@ -67,14 +67,19 @@ import torch
 from torch.func import functional_call
 
 from ..config import check_trainable
+from ..models.cuda_convlstm import convlstm_bwd, convlstm_fwd
+from ..models.cuda_lstm import lstm_bwd, lstm_fwd
 from ..models.layers import BatchNorm, bernoulli_source
 from ..models.video import discriminator_modules, generator_modules
 from ..ot import compute_sinkhorn_loss, martingale_regularization
+from ..ot.cuda_sinkhorn import sinkhorn_bwd, sinkhorn_fwd
 from ..parallel.comm import all_reduce_sum_
 from ..smoothing import annealing_sigma, apply_smoothing
+from .graph import StepGraph
+from .keras_adam import KerasAdamState
 from .state import TrainState, dropout_keys, fold_in, make_optimizers, split_key
 
-__all__ = ["GanModules", "Placement", "build_train_step", "fused_discriminators", "gan_forward"]
+__all__ = ["GanModules", "Placement", "build_train_step", "fused_discriminators", "gan_forward", "replays_graph"]
 
 
 class GanModules:
@@ -236,6 +241,54 @@ def _pmean(group, *trees):
     return [{k: next(means) for k in t} if isinstance(t, dict) else next(means) for t in trees]
 
 
+_GROUPS = ("enc", "dec", "h", "m")
+_TREES = ("enc_params", "dec_params", "h_params", "m_params", "h_stats", "m_stats")
+# what the kernels' wrappers count; a graph replay adds what its capture counted
+_KERNEL_COUNTERS = tuple(
+    (fn, name) for fn in (convlstm_fwd, convlstm_bwd, lstm_fwd, lstm_bwd) for name in ("calls", "launches")
+) + ((sinkhorn_fwd, "launches"), (sinkhorn_bwd, "launches"))
+
+
+def _state_trees(state: TrainState) -> list:
+    """The state's dicts of tensors in a fixed order: parameters,
+    statistics, then each group's Adam moments."""
+    opts = [getattr(state, f"{g}_opt") for g in _GROUPS]
+    return [getattr(state, name) for name in _TREES] + [d for o in opts for d in (o.mu, o.nu)]
+
+
+def _state_tensors(state: TrainState) -> list:
+    return [v for d in _state_trees(state) for v in d.values()]
+
+
+def _state_like(state: TrainState, tensors) -> TrainState:
+    """``state`` with ``tensors`` (in ``_state_tensors`` order) in place
+    of its own."""
+    it = iter(tensors)
+
+    def tree(d):
+        return {k: next(it) for k in d}
+
+    trees = {name: tree(getattr(state, name)) for name in _TREES}
+    opts = {}
+    for g in _GROUPS:
+        o = getattr(state, f"{g}_opt")
+        opts[f"{g}_opt"] = KerasAdamState(count=o.count, mu=tree(o.mu), nu=tree(o.nu))
+    return TrainState(step=state.step, rng=state.rng, **trees, **opts)
+
+
+def replays_graph(cfg, device, *, group=None, encode=None, decode=None, placement=None) -> bool:
+    """Whether ``build_train_step``'s step with these arguments replays a
+    CUDA graph: the one-device step on the card that draws no dropout
+    masks and smooths at the same sigma every step (or not at all)."""
+    m = cfg.model
+    return (
+        torch.device(device).type == "cuda"
+        and group is None and placement is None and encode is None and decode is None
+        and m.dropout <= 0.0 and m.rnn_dropout <= 0.0
+        and (not cfg.decaying_sigma or cfg.kernel == "none")
+    )
+
+
 def build_train_step(cfg, *, device="cuda", group=None, encode=None, decode=None,
                      placement: Placement | None = None) -> Callable:
     """Returns ``train_step(state, real_data, generator=None, z=None,
@@ -266,6 +319,21 @@ def build_train_step(cfg, *, device="cuda", group=None, encode=None, decode=None
     masks, drawn or injected, are then the whole batch's, of which the
     step keeps this rank's part.  ``encode`` / ``decode``: as in
     ``gan_forward``.
+
+    On the card, the one-device step (no ``group``, ``placement``,
+    ``encode`` or ``decode``) that draws no dropout masks and smooths at
+    one sigma every step replays its device work from a CUDA graph
+    (``StepGraph``), one for each signature of batch, noise and state:
+    the first call of a signature runs eagerly and warms up, the second
+    captures.  The state goes in and out through the graph's
+    buffers, the noise is copied in or drawn into its buffer as the eager
+    step draws it, and each Adam's step size, which changes with its
+    count, is written to the card before each replay; the state handed
+    back is the caller's to keep.  The replay runs the eager step's
+    kernels in their order.  Every other step runs eagerly.  The step's
+    ``counts`` say how many calls ran eagerly (``eager``), captured a
+    graph (``captures``) and replayed one (``replays``; a capturing call
+    replays too).
     """
     check_trainable(cfg)
     place = placement or Placement()
@@ -292,24 +360,33 @@ def build_train_step(cfg, *, device="cuda", group=None, encode=None, decode=None
         rng, *phases = dropout_keys(rng)
         return rng, tuple(tuple(place.masks(bernoulli_source(seeded(k))) for k in seeds) for seeds in phases)
 
-    def train_step(state: TrainState, real_data, generator=None, z=None, masks=None):
-        rng = state.rng
-        if z is None:
-            if generator is None:
-                rng, seed = split_key(rng)
-                generator = seeded(seed)
-            shape = (real_data.shape[0] * place.rows, cfg.pred_time_steps, m.z_height, m.z_width, m.z_channels)
-            z1 = torch.randn(shape, generator=generator, device=device)
-            z2 = torch.randn(shape, generator=generator, device=device)
-        else:
-            z1, z2 = z
-        z1, z2 = place.noise(z1), place.noise(z2)
-        rng, (disc_masks, gen_masks) = phase_masks(rng, masks)
-        if cfg.decaying_sigma:
-            sigma = annealing_sigma(cfg.init_sigma, state.step + 1)  # the reference's steps count from 1
-        else:
-            sigma = float(np.float32(cfg.init_sigma))
+    def noise_shape(real_data):
+        return (real_data.shape[0] * place.rows, cfg.pred_time_steps, m.z_height, m.z_width, m.z_channels)
 
+    def noise(rng, real_data, generator=None, z=None, out=(None, None)):
+        """``(rng, z1, z2)``: ``z``, or both phases' noise drawn from
+        ``generator`` or from a split of ``rng``, each into its ``out``."""
+        if z is not None:
+            return (rng, *z)
+        if generator is None:
+            rng, seed = split_key(rng)
+            generator = seeded(seed)
+        z1 = torch.randn(noise_shape(real_data), generator=generator, device=device, out=out[0])
+        z2 = torch.randn(noise_shape(real_data), generator=generator, device=device, out=out[1])
+        return rng, z1, z2
+
+    def step_sigma(step):
+        if cfg.decaying_sigma:
+            return annealing_sigma(cfg.init_sigma, step + 1)  # the reference's steps count from 1
+        return float(np.float32(cfg.init_sigma))
+
+    def iterate(state, real_data, z1, z2, sigma, disc_masks=None, gen_masks=None, alphas=None):
+        """The step's device work: ``(state with its tensors, step and
+        counts advanced, gen_loss, pm)``.  ``alphas``: each Adam's step
+        size by group, 0-d tensors on the card; without them each Adam
+        computes its own on the host."""
+        alpha = alphas or dict.fromkeys(_GROUPS)
+        z1, z2 = place.noise(z1), place.noise(z2)
         enc_p = _leaves(state.enc_params)
         if share_ctx:
             pyramid = (encode or functools.partial(_encode, mods))(enc_p, real_data, None)
@@ -329,8 +406,8 @@ def build_train_step(cfg, *, device="cuda", group=None, encode=None, decode=None
         pm = pm.detach()
         if group is not None:
             gh, gm, pm, h_stats, m_stats = _pmean(group, gh, gm, pm, h_stats, m_stats)
-        h_params, h_opt = opts["h"].update(gh, state.h_opt, state.h_params)
-        m_params, m_opt = opts["m"].update(gm, state.m_opt, state.m_params)
+        h_params, h_opt = opts["h"].update(gh, state.h_opt, state.h_params, alpha["h"])
+        m_params, m_opt = opts["m"].update(gm, state.m_opt, state.m_params, alpha["m"])
         del loss, h_p, m_p
 
         # ---------------- generator phase -----------------
@@ -343,12 +420,12 @@ def build_train_step(cfg, *, device="cuda", group=None, encode=None, decode=None
         gen_loss = gen_loss.detach()
         if group is not None:
             ge, gd, gen_loss, h_stats, m_stats = _pmean(group, ge, gd, gen_loss, h_stats, m_stats)
-        enc_params, enc_opt = opts["enc"].update(ge, state.enc_opt, state.enc_params)
-        dec_params, dec_opt = opts["dec"].update(gd, state.dec_opt, state.dec_params)
+        enc_params, enc_opt = opts["enc"].update(ge, state.enc_opt, state.enc_params, alpha["enc"])
+        dec_params, dec_opt = opts["dec"].update(gd, state.dec_opt, state.dec_params, alpha["dec"])
 
         new_state = TrainState(
             step=state.step + 1,
-            rng=rng,
+            rng=state.rng,
             enc_params=enc_params,
             dec_params=dec_params,
             h_params=h_params,
@@ -360,10 +437,63 @@ def build_train_step(cfg, *, device="cuda", group=None, encode=None, decode=None
             h_opt=h_opt,
             m_opt=m_opt,
         )
-        metrics = {
-            "sinkhorn_loss": gen_loss, "pm": pm,
-            "sigma": torch.tensor(sigma, dtype=torch.float32),
-        }
-        return new_state, metrics
+        return new_state, gen_loss, pm
 
-    return train_step
+    def metrics(gen_loss, pm, sigma):
+        return {"sinkhorn_loss": gen_loss, "pm": pm, "sigma": torch.tensor(sigma, dtype=torch.float32)}
+
+    counts = {"eager": 0, "captures": 0, "replays": 0}
+
+    def train_step(state: TrainState, real_data, generator=None, z=None, masks=None):
+        counts["eager"] += 1
+        rng, z1, z2 = noise(state.rng, real_data, generator, z)
+        rng, (disc_masks, gen_masks) = phase_masks(rng, masks)
+        sigma = step_sigma(state.step)
+        new_state, gen_loss, pm = iterate(state, real_data, z1, z2, sigma, disc_masks, gen_masks)
+        new_state.rng = rng
+        return new_state, metrics(gen_loss, pm, sigma)
+
+    graphs: dict = {}  # signature -> StepGraph, or None once its eager warm-up has run
+
+    def capture(state, real_data, z):
+        sigma = step_sigma(state.step)  # the same every step, or unread (smoothing off)
+        if z is None:
+            z = [torch.empty(noise_shape(real_data))] * 2
+
+        def fn(carried, fresh):
+            real, z1, z2, alphas = fresh
+            new, gen_loss, pm = iterate(_state_like(state, carried), real, z1, z2, sigma,
+                                        alphas=dict(zip(_GROUPS, alphas.unbind())))
+            return _state_tensors(new) + [gen_loss, pm]
+
+        return StepGraph(fn, _state_tensors(state), [real_data, *z, torch.empty(len(_GROUPS))], _KERNEL_COUNTERS)
+
+    def graphed_step(state: TrainState, real_data, generator=None, z=None, masks=None):
+        trees = _state_trees(state)
+        key = (
+            tuple(real_data.shape), real_data.dtype, real_data.device,
+            None if z is None else tuple((tuple(x.shape), x.dtype) for x in z),
+            tuple((k, tuple(v.shape), v.dtype) for d in trees for k, v in d.items()),
+        )
+        if key not in graphs:
+            graphs[key] = None
+            return train_step(state, real_data, generator, z, masks)
+        graph = graphs[key]
+        if graph is None:
+            graph = graphs[key] = capture(state, real_data, z)
+            counts["captures"] += 1
+        rng, z1, z2 = noise(state.rng, real_data, generator, z, out=graph.buffers[1:3])
+        # computed in float32 on the host, as each Adam computes its own eagerly
+        alphas = torch.stack([opts[g].alpha(getattr(state, f"{g}_opt").count) for g in _GROUPS])
+        outs = graph([v for d in trees for v in d.values()], [real_data, z1, z2, alphas])
+        counts["replays"] += 1
+        new_state = _state_like(state, outs[:-2])
+        new_state.step, new_state.rng = state.step + 1, rng
+        for g in _GROUPS:
+            getattr(new_state, f"{g}_opt").count += 1
+        return new_state, metrics(outs[-2], outs[-1], step_sigma(state.step))
+
+    graphed = replays_graph(cfg, device, group=group, encode=encode, decode=decode, placement=placement)
+    step = graphed_step if graphed else train_step
+    step.counts = counts
+    return step

@@ -52,15 +52,34 @@ typical entry shrinks like 1 / B^2 and reaches the 1e-6 floor near B =
 
 ``device_prefetch`` on the card: each batch is handed over as soon as
 its own copy is issued, not held back until the next one is pinned.
+
+The training step replayed from a CUDA graph (``build_train_step`` on the
+card, ``train/graph.py::StepGraph``) against the eager step (the same
+step given the identity ``Placement``, which the gate leaves eager) over
+four steps from one state, batches and noise, in f32 and bf16, for each
+option the gate sends to the graph (``GRAPHED``: both engines, both
+Sinkhorn solvers, ``fused_discriminators``, smoothing at one sigma):
+under cuDNN's deterministic algorithms every loss, pM, parameter, moment
+and statistic equal to the bit; nothing a step returned is written by a
+later one; one capture and three replays; the kernels' counters
+advancing in each replay by an eager iteration's counts.  A traced
+replay runs every kernel of a traced eager step that is not PyTorch's
+own, by name and count.  Under cuDNN's default algorithms, where runs of
+f32 differ, graphed runs differ from eager ones no more than runs of
+either differ among themselves.  Dropout and decaying smoothing stay
+eager on the card.
 """
 
+import collections
+import dataclasses
 import threading
 
 import numpy as np
 import pytest
 import torch
 
-from kccotgan_tpu_torch.data import device_prefetch
+from kccotgan_tpu_torch.config import ModelConfig, TrainConfig
+from kccotgan_tpu_torch.data import bouncing_blobs, device_prefetch
 
 from kccotgan_tpu_torch.models.cuda_convlstm import (
     _fwd_plain,
@@ -85,6 +104,9 @@ from kccotgan_tpu_torch.ot.cuda_sinkhorn import (
     sinkhorn_fwd,
     sinkhorn_fwd_reference,
 )
+
+from kccotgan_tpu_torch.train import build_train_step, create_train_state
+from kccotgan_tpu_torch.train.steps import _KERNEL_COUNTERS, Placement, _state_trees, replays_graph
 
 pytestmark = pytest.mark.cuda
 
@@ -570,3 +592,170 @@ def test_device_prefetch_hands_over_each_batch_before_the_next(cuda):
     got = [first, *it]
     assert all(b.device.type == "cuda" and b.dtype == torch.float32 for b in got)
     assert [b.cpu().tolist() for b in got] == [[[float(i)] * 3] * 2 for i in range(3)]
+
+
+STEP_CFG = TrainConfig(
+    dname="synthetic", batch_size=4, total_time_steps=4, int_time_steps=2, sinkhorn_l=5, warmup_steps=1,
+    kernel_impl="pallas",
+    model=ModelConfig(x_height=16, x_width=16, g_filter_size=2, d_filter_size=1, d_state_size=2,
+                      z_channels=2, z_height=1, z_width=1),
+)
+# each option the gate sends to the graph and the step's code branches on
+GRAPHED = {
+    "pallas": {},
+    "fused": {"fused_discriminators": True},
+    "scan_engine": {"kernel_impl": "scan"},
+    "scan_solver": {"sinkhorn_solver": "scan"},
+    "smooth_1d": {"kernel": "1d"},
+    "smooth_2d": {"kernel": "2d"},
+    "smooth_3d": {"kernel": "3d"},
+    "decaying_unread": {"decaying_sigma": True},
+}
+
+
+def _step_tensors(state, metrics):
+    names = [f"{tree} {k}" for tree, d in zip(
+        ("enc", "dec", "h", "m", "h_stats", "m_stats", "enc mu", "enc nu", "dec mu", "dec nu",
+         "h mu", "h nu", "m mu", "m nu"), _state_trees(state)) for k in d]
+    return dict(zip(names + ["loss", "pm"], [v for d in _state_trees(state) for v in d.values()]
+                    + [metrics["sinkhorn_loss"], metrics["pm"]]))
+
+
+def _eager_step(cfg, dev):
+    """The same step, left eager by the gate (the identity ``Placement``)."""
+    return build_train_step(cfg, device=dev, placement=Placement())
+
+
+def _four_steps(step, cfg, dev, seed=0):
+    """Four steps from the state seeded with ``seed``, each with its own
+    batch and injected noise: per step the tensors returned (and a copy
+    taken at once), and the kernel counters' advance."""
+    state = create_train_state(cfg, generator=torch.Generator().manual_seed(seed), device=dev)
+    data = torch.from_numpy(bouncing_blobs(16, cfg.total_time_steps, 16, 16, seed=3 + seed)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(7 + seed)
+    zshape = (cfg.batch_size, cfg.pred_time_steps, 1, 1, 2)
+    out = []
+    for i in range(4):
+        z = tuple(torch.randn(zshape, generator=gen, device=dev) for _ in range(2))
+        before = [getattr(obj, name) for obj, name in _KERNEL_COUNTERS]
+        state, metrics = step(state, data[4 * i: 4 * i + 4], z=z)
+        torch.cuda.synchronize()
+        got = _step_tensors(state, metrics)
+        out.append((got, {k: v.clone() for k, v in got.items()},
+                    [getattr(obj, name) - n for (obj, name), n in zip(_KERNEL_COUNTERS, before)]))
+    return out
+
+
+@pytest.mark.parametrize("variant", list(GRAPHED))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_graphed_step_equals_the_eager_step(cuda, dtype, variant):
+    """Under cuDNN's deterministic algorithms two eager runs agree, and
+    the graphed step equals them to the bit everywhere."""
+    cfg = dataclasses.replace(STEP_CFG, compute_dtype=dtype, **GRAPHED[variant])
+    assert replays_graph(cfg, cuda)
+    torch.backends.cudnn.deterministic = True
+    try:
+        eager = [_four_steps(_eager_step(cfg, cuda), cfg, cuda) for _ in range(2)]
+        step = build_train_step(cfg, device=cuda)
+        graphed = _four_steps(step, cfg, cuda)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    assert step.counts == {"eager": 1, "captures": 1, "replays": 3}
+    for (got, _, launched), (e1, _, eager_launched), (e2, _, _) in zip(graphed, *eager):
+        assert launched == eager_launched and sum(launched) > 0
+        for name, g in got.items():
+            assert torch.equal(e1[name], e2[name]), f"deterministic eager runs differ: {name}"
+            assert torch.equal(g, e1[name]), name
+    for got, then, _ in graphed:  # nothing a step returned was written by a later step
+        assert all(torch.equal(got[k], then[k]) for k in got)
+
+GAP_RUNS = 5
+GAP_FACTOR = 2
+
+
+def _largest_gaps(pairs):
+    """Per leaf, the largest difference over ``pairs`` of runs' tensors."""
+    return {k: max(float((a[k] - b[k]).abs().max()) for a, b in pairs) for k in pairs[0][0]}
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("fused", [False, True], ids=["sequential", "fused"])
+def test_graphed_step_lies_among_eager_runs_under_default_algorithms(cuda, fused, seed):
+    """f32 under cuDNN's default algorithms, which sum some weight
+    gradients with atomics in an order that changes run to run, and
+    changes more from replay to replay than from one eager run to the
+    next (the replay runs the eager step's kernels, as
+    ``test_a_replay_runs_the_eager_steps_kernels`` checks).  GAP_RUNS
+    eager runs and GAP_RUNS graphed runs, each captured anew, from one
+    seeded state, batches and noise: no leaf differs between a graphed
+    and an eager run that differs neither between two graphed runs nor
+    between two eager ones, and per leaf the largest gap across the two
+    is within GAP_FACTOR of the largest within either, as it would be
+    were the graphed runs more eager runs."""
+    cfg = dataclasses.replace(STEP_CFG, compute_dtype="float32", fused_discriminators=fused)
+    eager = [_four_steps(_eager_step(cfg, cuda), cfg, cuda, seed)[-1][0] for _ in range(GAP_RUNS)]
+    graphed = [_four_steps(build_train_step(cfg, device=cuda), cfg, cuda, seed)[-1][0] for _ in range(GAP_RUNS)]
+    within = _largest_gaps([(a, b) for runs in (eager, graphed) for i, a in enumerate(runs) for b in runs[i + 1:]])
+    across = _largest_gaps([(g, e) for g in graphed for e in eager])
+    print(f"[graphed step f32 fused={fused} seed={seed}] leaves that differ run to run: "
+          f"{sorted(k for k, v in within.items() if v)}")
+    assert not [k for k, v in across.items() if v and not within[k]], "leaves only the graph changes"
+    over = {k: (across[k], within[k]) for k in across if across[k] > GAP_FACTOR * within[k]}
+    assert not over, over
+
+
+def _kernel_counts(fn):
+    """Device events by name in a ``torch.profiler`` trace of ``fn()``."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return collections.Counter(e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def _torch_own(name):
+    """PyTorch's own elementwise, copy and fill work (a graph runs some
+    copies and fills as CUDA's own ``memcpy*`` / ``memset*`` kernels),
+    which the replay's copies add to and Adam's device-held step size
+    renames."""
+    return name.startswith(("void at::native::", "Memcpy", "Memset", "memcpy", "memset"))
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["sequential", "fused"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_a_replay_runs_the_eager_steps_kernels(cuda, dtype, fused):
+    """One eager step and one replay from the same state, batch and
+    noise, each traced, under cuDNN's default algorithms: every kernel
+    that is not PyTorch's own (the hand-written ones, cuDNN's, cuBLAS's)
+    runs in the replay as often as in the eager step and under the same
+    name, so the capture keeps the eager step's algorithms; and the
+    counters of the hand-written kernels advance alike in both."""
+    cfg = dataclasses.replace(STEP_CFG, compute_dtype=dtype, fused_discriminators=fused)
+    state = create_train_state(cfg, device=cuda)
+    batch = torch.from_numpy(bouncing_blobs(4, cfg.total_time_steps, 16, 16, seed=3)).to(cuda)
+    z = tuple(torch.randn(cfg.batch_size, cfg.pred_time_steps, 1, 1, 2, device=cuda) for _ in range(2))
+    steps = {"eager": _eager_step(cfg, cuda), "replay": build_train_step(cfg, device=cuda)}
+    traced = {}
+    for name, step in steps.items():
+        for _ in range(2):  # the graphed step's warm-up and capture
+            step(state, batch, z=z)
+        before = [getattr(obj, n) for obj, n in _KERNEL_COUNTERS]
+        counts = _kernel_counts(lambda: step(state, batch, z=z))
+        traced[name] = ({k: v for k, v in counts.items() if not _torch_own(k)},
+                        [getattr(obj, n) - b for (obj, n), b in zip(_KERNEL_COUNTERS, before)])
+    assert steps["replay"].counts == {"eager": 1, "captures": 1, "replays": 2}
+    (eager, eager_launched), (replay, launched) = traced["eager"], traced["replay"]
+    assert any("convlstm_" in k for k in eager), sorted(eager)
+    assert replay == eager, (collections.Counter(replay) - collections.Counter(eager),
+                             collections.Counter(eager) - collections.Counter(replay))
+    assert launched == eager_launched
+
+
+@pytest.mark.parametrize("over", [{"model": dataclasses.replace(STEP_CFG.model, dropout=0.1)},
+                                  {"kernel": "1d", "decaying_sigma": True}], ids=["dropout", "decaying_1d"])
+def test_steps_the_gate_leaves_out_run_eagerly_on_the_card(cuda, over):
+    cfg = dataclasses.replace(STEP_CFG, **over)
+    step = build_train_step(cfg, device=cuda)
+    _four_steps(step, cfg, cuda)
+    assert step.counts == {"eager": 4, "captures": 0, "replays": 0}
