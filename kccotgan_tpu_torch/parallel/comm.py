@@ -43,6 +43,11 @@ the way, not a computation on the CPU.
 
 ``COUNTERS`` counts each operation's calls, the bytes of its inputs and
 outputs on this rank, and the host's seconds in it (``reset_counters``).
+A training step replayed from a CUDA graph (``train/steps.py``) adds to
+``calls`` and ``bytes`` what its capture issued, each replay, so they
+count what ran, graphed or eager; ``host_s`` counts only the host's
+seconds in eager calls (the enqueue, under NCCL), the capture's among
+them: a replay issues its collectives with no call on the host.
 """
 
 from __future__ import annotations

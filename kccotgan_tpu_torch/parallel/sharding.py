@@ -22,7 +22,10 @@ Counterpart of ``kccotgan_tpu/parallel/sharding.py``, with its two modes:
   then the mean of the shards' divergences.
 
 ``MeshPlacement`` carries the exact modes into ``build_train_step``; the
-sequence-parallel step (``seqtrain.py``) uses it too, on a 2-D mesh.
+sequence-parallel step (``seqtrain.py``) uses it too, on a 2-D mesh.  On
+a data mesh over NCCL the exact step replays one CUDA graph a step, its
+collectives in it (``MeshPlacement.graphable``); the per-shard mode, gloo
+and meshes with a seq axis run eagerly.
 """
 
 from __future__ import annotations
@@ -116,6 +119,14 @@ class MeshPlacement(Placement):
         self.mesh = mesh
         self.bn_group = mesh.data_group
         self.rows = mesh.data
+
+    @property
+    def graphable(self) -> bool:
+        """A data mesh over NCCL: the synced BatchNorm's all-reduces, the
+        gathers, the smoothing's maximum and the gradients' all-reduces
+        are captured in the step's CUDA graph.  gloo's collectives run on
+        the host, and a seq axis brings the ring relay's hooks: eager."""
+        return self.mesh.seq == 1 and self.mesh.backend == "nccl"
 
     def _rows(self, x, n):
         i = self.mesh.data_rank

@@ -64,6 +64,17 @@ class GraphReplay:
         return graph, static, out
 
 
+def _get(obj, name):
+    return obj[name] if isinstance(obj, dict) else getattr(obj, name)
+
+
+def _set(obj, name, value) -> None:
+    if isinstance(obj, dict):
+        obj[name] = value
+    else:
+        setattr(obj, name, value)
+
+
 def _views(flat: torch.Tensor, shapes: list) -> list:
     """``flat`` cut into consecutive tensors of ``shapes``."""
     return [p.view(s) for p, s in zip(flat.split([math.prod(s) for s in shapes]), shapes)]
@@ -84,9 +95,10 @@ class StepGraph:
     buffer in ``buffers`` with a stream-ordered copy, a host tensor through
     pinned memory; an entry that is its buffer is not copied, so that a
     caller may write a buffer in place.
-    ``counters``: ``(object, attribute)`` pairs that ``fn`` advances as it
-    runs (launch counts).  The capture launches nothing, so its advance is
-    taken back, and each replay adds it: they count what ran.
+    ``counters``: ``(object, attribute)`` or ``(dict, key)`` pairs that
+    ``fn`` advances as it runs (launch counts, collectives' calls and
+    bytes).  The capture launches nothing, so its advance is taken back,
+    and each replay adds it: they count what ran.
 
     Like ``GraphReplay``, the graph reads every other tensor at the
     address it saw when captured: ``fn`` may read nothing but its inputs
@@ -106,14 +118,14 @@ class StepGraph:
             outs = fn(self.carried, self.buffers)
             return torch.cat([t.detach().reshape(-1) for t in outs]), [t.shape for t in outs]
 
-        before = [getattr(obj, name) for obj, name in counters]
+        before = [_get(obj, name) for obj, name in counters]
         self._replay, self._out, self._shapes = self._capture(run)
         if self._shapes[: len(carried)] != [t.shape for t in carried]:
             raise ValueError("StepGraph: fn must return the carried tensors' successors first, in their order")
         self._advance = []
         for (obj, name), n in zip(counters, before):
-            self._advance.append((obj, name, getattr(obj, name) - n))
-            setattr(obj, name, n)
+            self._advance.append((obj, name, _get(obj, name) - n))
+            _set(obj, name, n)
 
     def _capture(self, run):
         """``(replay, flat output, output shapes)`` of ``run()`` captured as
@@ -137,5 +149,5 @@ class StepGraph:
             torch._foreach_copy_([b for b, _ in pairs], [x for _, x in pairs], non_blocking=True)
         self._replay()
         for obj, name, n in self._advance:
-            setattr(obj, name, getattr(obj, name) + n)
+            _set(obj, name, _get(obj, name) + n)
         return _views(self._out.clone(), self._shapes)

@@ -73,7 +73,7 @@ from ..models.layers import BatchNorm, bernoulli_source
 from ..models.video import discriminator_modules, generator_modules
 from ..ot import compute_sinkhorn_loss, martingale_regularization
 from ..ot.cuda_sinkhorn import sinkhorn_bwd, sinkhorn_fwd
-from ..parallel.comm import all_reduce_sum_
+from ..parallel.comm import COUNTERS, all_reduce_sum_
 from ..smoothing import annealing_sigma, apply_smoothing
 from .graph import StepGraph
 from .keras_adam import KerasAdamState
@@ -110,11 +110,16 @@ class Placement:
     * ``loss_inputs(xs)``: the smoothed videos and the four feature
       stacks as the loss needs them (the whole batch's);
     * ``sum_grads(phase, grads)``: the whole batch's gradients of one
-      phase (``'disc'`` or ``'gen'``) from this rank's parts.
+      phase (``'disc'`` or ``'gen'``) from this rank's parts;
+    * ``graphable``: whether the step may replay a CUDA graph, its
+      collectives captured with its kernels (``replays_graph``).  The
+      identity placement says no: it is the eager form of the one-device
+      step, which the graphed step is held against.
     """
 
     bn_group = None
     rows = 1
+    graphable = False
 
     def noise(self, z):
         return z
@@ -243,10 +248,12 @@ def _pmean(group, *trees):
 
 _GROUPS = ("enc", "dec", "h", "m")
 _TREES = ("enc_params", "dec_params", "h_params", "m_params", "h_stats", "m_stats")
-# what the kernels' wrappers count; a graph replay adds what its capture counted
+# what the kernels' wrappers and the collectives count; a graph replay
+# adds what its capture counted
 _KERNEL_COUNTERS = tuple(
     (fn, name) for fn in (convlstm_fwd, convlstm_bwd, lstm_fwd, lstm_bwd) for name in ("calls", "launches")
 ) + ((sinkhorn_fwd, "launches"), (sinkhorn_bwd, "launches"))
+_COMM_COUNTERS = tuple((COUNTERS[op], name) for op in COUNTERS for name in ("calls", "bytes"))
 
 
 def _state_trees(state: TrainState) -> list:
@@ -278,12 +285,17 @@ def _state_like(state: TrainState, tensors) -> TrainState:
 
 def replays_graph(cfg, device, *, group=None, encode=None, decode=None, placement=None) -> bool:
     """Whether ``build_train_step``'s step with these arguments replays a
-    CUDA graph: the one-device step on the card that draws no dropout
-    masks and smooths at the same sigma every step (or not at all)."""
+    CUDA graph: on the card, the one-device step or the exact mode on a
+    data mesh over NCCL (``placement.graphable``), drawing no dropout
+    masks and smoothing at the same sigma every step (or not at all).
+    Eager: the per-shard mode (``group``), the sequence-parallel hooks
+    (``encode`` / ``decode``) and every mesh with a seq axis, gloo, the
+    identity ``Placement``, dropout, decaying smoothing, the CPU."""
     m = cfg.model
     return (
         torch.device(device).type == "cuda"
-        and group is None and placement is None and encode is None and decode is None
+        and group is None and encode is None and decode is None
+        and (placement is None or placement.graphable)
         and m.dropout <= 0.0 and m.rnn_dropout <= 0.0
         and (not cfg.decaying_sigma or cfg.kernel == "none")
     )
@@ -321,16 +333,22 @@ def build_train_step(cfg, *, device="cuda", group=None, encode=None, decode=None
     ``gan_forward``.
 
     On the card, the one-device step (no ``group``, ``placement``,
-    ``encode`` or ``decode``) that draws no dropout masks and smooths at
-    one sigma every step replays its device work from a CUDA graph
-    (``StepGraph``), one for each signature of batch, noise and state:
-    the first call of a signature runs eagerly and warms up, the second
-    captures.  The state goes in and out through the graph's
-    buffers, the noise is copied in or drawn into its buffer as the eager
-    step draws it, and each Adam's step size, which changes with its
-    count, is written to the card before each replay; the state handed
-    back is the caller's to keep.  The replay runs the eager step's
-    kernels in their order.  Every other step runs eagerly.  The step's
+    ``encode`` or ``decode``) and the exact mode on a data mesh over NCCL
+    (``MeshPlacement``), when they draw no dropout masks and smooth at
+    one sigma every step (``replays_graph``), replay their device work
+    from a CUDA graph (``StepGraph``), one for each signature of batch,
+    noise and state: the first call of a signature runs eagerly and warms
+    up (on a mesh it also sets up the communicators), the second
+    captures.  The state goes in and out through the graph's buffers, the
+    noise (on a mesh, the whole batch's) is copied in or drawn into its
+    buffer as the eager step draws it, and each Adam's step size, which
+    changes with its count, is written to the card before each replay;
+    the state handed back is the caller's to keep.  The replay runs the
+    eager step's kernels and collectives in their order; on a mesh every
+    rank captures the same collectives in the same order at its second
+    call, so the ranks' graphs agree.  A replay advances the kernels' and
+    the collectives' counters (``parallel.comm.COUNTERS``) by what its
+    capture issued.  Every other step runs eagerly.  The step's
     ``counts`` say how many calls ran eagerly (``eager``), captured a
     graph (``captures``) and replayed one (``replays``; a capturing call
     replays too).
@@ -466,7 +484,8 @@ def build_train_step(cfg, *, device="cuda", group=None, encode=None, decode=None
                                         alphas=dict(zip(_GROUPS, alphas.unbind())))
             return _state_tensors(new) + [gen_loss, pm]
 
-        return StepGraph(fn, _state_tensors(state), [real_data, *z, torch.empty(len(_GROUPS))], _KERNEL_COUNTERS)
+        return StepGraph(fn, _state_tensors(state), [real_data, *z, torch.empty(len(_GROUPS))],
+                         _KERNEL_COUNTERS + _COMM_COUNTERS)
 
     def graphed_step(state: TrainState, real_data, generator=None, z=None, masks=None):
         trees = _state_trees(state)

@@ -22,6 +22,7 @@ import torch
 from kccotgan_tpu_torch.models.layers import BatchNorm
 from kccotgan_tpu_torch.parallel.launch import run_ranks
 from kccotgan_tpu_torch.train import KerasAdamState, TrainState
+from kccotgan_tpu_torch.train import graph as graph_module
 
 TIMEOUT = 300.0
 GROUPS = ("enc", "dec", "h", "m")
@@ -110,6 +111,25 @@ def assert_states_match(gots, wants, metrics, want_metrics, lr):
                 scale = max(np.abs(v).max() for v in want[f"{g}_{moment}"].values())
                 np.testing.assert_allclose(got[f"{g}_{moment}"][k], want[f"{g}_{moment}"][k], rtol=0,
                                            atol=1e-4 * scale, err_msg=f"{g} {moment} {k}")
+
+
+class EagerStepGraph(graph_module.StepGraph):
+    """``StepGraph`` on the CPU: its buffers, copies, clones and counters,
+    with the step's function run on the buffers at each replay in place of
+    a captured graph.  A replay puts the counters back as the function
+    left them, since a graph's replay counts nothing on the host, so that
+    they advance by what ``StepGraph`` adds, as on the card."""
+
+    def _capture(self, run):
+        out, shapes = run()
+
+        def replay():
+            kept = [graph_module._get(obj, name) for obj, name, _ in self._advance]
+            out.copy_(run()[0])
+            for (obj, name, _), n in zip(self._advance, kept):
+                graph_module._set(obj, name, n)
+
+        return replay, out, shapes
 
 
 def assert_ranks_equal(results, pick):

@@ -20,6 +20,11 @@ meanwhile.
   1e-4 / atol 1e-6 wherever the gradient stood above rounding noise, the
   rule of ``tests/test_torch_train.py``); the state equal on every rank
   to the bit.
+* The exact step's CUDA-graph path at W = 2 on the CPU, the capture
+  replaced by running the step (``_torch_dist.EagerStepGraph``), with the
+  noise drawn and injected, against the eager exact step: states and
+  metrics to the bit on every rank, and each step's advance of the
+  collectives' calls and bytes (``comm.COUNTERS``) the same.
 * The per-shard mode at W = 2 against JAX's
   ``build_sharded_train_step(global_batch_sinkhorn=False)`` on
   ``make_mesh(2)``, each rank's noise drawn from JAX's folded keys, at
@@ -36,6 +41,7 @@ import dataclasses
 import io
 import json
 from concurrent.futures import ThreadPoolExecutor
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -47,9 +53,11 @@ from kccotgan_tpu_torch.config import ModelConfig, TrainConfig
 from kccotgan_tpu_torch.data import bouncing_blobs
 from kccotgan_tpu_torch.models.layers import BatchNorm
 from kccotgan_tpu_torch.parallel import all_reduce_sum, gather_replicated, gather_resharded, make_mesh
+from kccotgan_tpu_torch.parallel import comm
 from kccotgan_tpu_torch.parallel.comm import global_amax, recv_carry, send_carry, tag_of
 from kccotgan_tpu_torch.parallel.sharding import build_sharded_train_step, replicate_state, shard_batch
 from kccotgan_tpu_torch.train import Trainer, build_train_step, create_train_state
+from kccotgan_tpu_torch.train import steps
 from kccotgan_tpu_torch.train.state import fold_in, split_key
 from tests import _torch_dist
 from tests._torch_dist import GROUPS
@@ -154,6 +162,41 @@ def _exact(rank, dev, case, world):
     return {"metrics": mets, "states": states}
 
 
+def _graph_path(rank, dev):
+    """The exact step at W = 2 on the graph path, ``StepGraph``'s capture
+    replaced by running the step itself (``EagerStepGraph``), against the
+    eager exact step, four steps each from one state, with the noise drawn
+    from the state's key and injected: each step's state and metrics, and
+    the collectives' counters' advance."""
+    cfg = dataclasses.replace(CFG, kernel="3d")
+    mesh = make_mesh(2, device=dev)
+    rows = torch.from_numpy(shard_batch(_video(cfg), mesh))
+    zshape = (cfg.batch_size, cfg.pred_time_steps, 1, 1, cfg.model.z_channels)
+    out = {}
+    for inject in (False, True):
+        runs = {}
+        for name in ("eager", "graph"):
+            state = replicate_state(create_train_state(cfg, device=dev), mesh)
+            gen = torch.Generator().manual_seed(11)
+            got = []
+            graph_path = mock.patch.multiple(steps, replays_graph=lambda *a, **k: True,
+                                             StepGraph=_torch_dist.EagerStepGraph)
+            with graph_path if name == "graph" else contextlib.nullcontext():
+                step = build_sharded_train_step(cfg, mesh)
+                for _ in range(4):
+                    z = tuple(torch.randn(zshape, generator=gen) for _ in range(2)) if inject else None
+                    before = {op: dict(c) for op, c in comm.COUNTERS.items()}
+                    state, met = step(state, rows, z=z)
+                    moved = {op: (c["calls"] - before[op]["calls"], c["bytes"] - before[op]["bytes"])
+                             for op, c in comm.COUNTERS.items()}
+                    got.append((_torch_dist.state_np(state), [float(met[k]) for k in ("sinkhorn_loss", "pm")],
+                                moved))
+            runs[name] = (got, dict(step.counts))
+        out["injected" if inject else "drawn"] = runs
+    return out
+
+
+
 def _local(rank, dev, jax_inputs):
     """JAX's per-shard mode on the port: the JAX state converted, each
     rank's rows and its z from JAX's folded keys; then one step with the
@@ -208,6 +251,7 @@ def _trainer(rank, dev, tmp):
 def run_w2(rank, dev, tmp, jax_inputs):
     out = {"collectives": _collectives(rank, 2)}
     out["exact"] = {case: _exact(rank, dev, case, 2) for case in EXACT_CASES}
+    out["graph_path"] = _graph_path(rank, dev)
     out["local"] = _local(rank, dev, jax_inputs)
     out["trainer"] = _trainer(rank, dev, tmp)
     return out
@@ -433,6 +477,23 @@ def test_exact_mode_equals_one_device_step(case, w2):
     _torch_dist.assert_ranks_equal(results, lambda r: r["exact"][case]["states"][-1])
     for res in results[1:]:
         assert res["exact"][case]["metrics"] == got["metrics"]
+
+
+@pytest.mark.parametrize("noise", ["drawn", "injected"])
+def test_exact_mode_graph_path_equals_the_eager_step(noise, w2):
+    """On every rank: the same states and metrics to the bit, one eager
+    call, one capture and three replays, and each replay advancing the
+    collectives' calls and bytes as an eager step does."""
+    results = w2[0]
+    for res in results:
+        (eager, eager_counts), (graph, graph_counts) = (res["graph_path"][noise][k] for k in ("eager", "graph"))
+        assert eager_counts == {"eager": 4, "captures": 0, "replays": 0}
+        assert graph_counts == {"eager": 1, "captures": 1, "replays": 3}
+        for i, ((st_g, met_g, moved_g), (st_e, met_e, moved_e)) in enumerate(zip(graph, eager)):
+            assert met_g == met_e, f"step {i + 1}"
+            assert moved_g == moved_e, f"step {i + 1}"
+            assert moved_e["all_reduce"][0] > 0 and moved_e["all_gather"][0] > 0
+            _torch_dist.assert_ranks_equal([{"graph_path": st_e}, {"graph_path": st_g}], lambda r: r["graph_path"])
 
 
 def test_exact_mode_at_four_ranks(w4):

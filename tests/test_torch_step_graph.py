@@ -2,8 +2,10 @@
 
 ``build_train_step`` replays the step from a captured CUDA graph
 (``train/graph.py::StepGraph``) where ``replays_graph`` says so: the
-one-device step on the card that draws no dropout masks and smooths at
-one sigma every step.  Here: that gate, case by case; every step the CPU
+one-device step on the card, and the exact mode on a data mesh over
+NCCL, when they draw no dropout masks and smooth at one sigma every
+step.  Here: that gate, case by case, the meshes' on stand-in meshes
+(the gate reads a mesh's axes and backend alone); every step the CPU
 runs, and every step the gate leaves out, runs eagerly and its counts
 say so (``Trainer.timings["graph"]`` too); Keras Adam given its step size
 as a tensor, as the graph's replays give it, equals the update as it was
@@ -13,7 +15,8 @@ Adam's step size, the counts, nothing the caller keeps overwritten by a
 later call) equals the eager step to the bit over four steps, with
 ``StepGraph``'s capture replaced by running the step's function itself.
 The capture and replay themselves need the card:
-``tests/test_torch_cuda.py::test_graphed_step_equals_the_eager_step``.
+``tests/test_torch_cuda.py::test_graphed_step_equals_the_eager_step``,
+and on a mesh ``tests/test_torch_mesh_graph.py``.
 
 The geometry is ``tests/test_torch_loop.py``'s (B=2, 16x16, 2 + 1
 frames, g_filter_size 2, L=3).
@@ -28,11 +31,13 @@ import torch
 from kccotgan_tpu_torch.config import ModelConfig, TrainConfig
 from kccotgan_tpu_torch.data import bouncing_blobs
 from kccotgan_tpu_torch.train import Trainer, build_train_step, create_train_state
-from kccotgan_tpu_torch.train import graph as graph_module
 from kccotgan_tpu_torch.train import steps
 from kccotgan_tpu_torch.train.keras_adam import KerasAdam
 from kccotgan_tpu_torch.train.schedule import warmup_staircase_exponential_decay
+from kccotgan_tpu_torch.parallel.mesh import Mesh
+from kccotgan_tpu_torch.parallel.sharding import MeshPlacement
 from kccotgan_tpu_torch.train.steps import Placement, replays_graph
+from tests._torch_dist import EagerStepGraph
 
 torch.set_num_threads(1)
 
@@ -50,6 +55,17 @@ def _with(**over):
     return dataclasses.replace(CFG, model=dataclasses.replace(CFG.model, **model), **over)
 
 
+def _mesh(data, seq, backend):
+    """A stand-in ``Mesh`` of ``data x seq`` ranks on the card: its groups
+    are placeholders, since the gate reads the mesh's axes and backend."""
+    group = object()
+    return Mesh(data, seq, 0, torch.device("cuda", 0), backend, group,
+                group if data > 1 else None, group if seq > 1 else None)
+
+
+DATA4 = _mesh(4, 1, "nccl")
+
+
 @pytest.mark.parametrize("device,over,hooks,graphed", [
     ("cuda", {}, {}, True),
     ("cuda", {"kernel_impl": "pallas"}, {}, True),
@@ -64,8 +80,24 @@ def _with(**over):
     ("cuda", {}, {"placement": Placement()}, False),
     ("cuda", {}, {"encode": print}, False),
     ("cuda", {}, {"decode": print}, False),
+    # the meshes, on stand-ins: the exact mode on a data mesh over NCCL
+    # replays a graph, under the one-device step's conditions
+    ("cuda", {}, {"placement": MeshPlacement(DATA4)}, True),
+    ("cuda", {"kernel_impl": "pallas"}, {"placement": MeshPlacement(DATA4)}, True),
+    ("cuda", {"kernel": "3d"}, {"placement": MeshPlacement(DATA4)}, True),  # the global maximum, one sigma
+    ("cuda", {}, {"placement": MeshPlacement(_mesh(1, 1, "nccl"))}, True),  # a job of one rank
+    ("cuda", {}, {"placement": MeshPlacement(_mesh(1, 4, "nccl"))}, False),
+    ("cuda", {}, {"placement": MeshPlacement(_mesh(2, 2, "nccl"))}, False),
+    ("cuda", {}, {"placement": MeshPlacement(_mesh(4, 1, "gloo"))}, False),
+    ("cuda", {}, {"group": DATA4.data_group}, False),  # the per-shard mode
+    ("cuda", {"dropout": 0.1}, {"placement": MeshPlacement(DATA4)}, False),
+    ("cuda", {"rnn_dropout": 0.1}, {"placement": MeshPlacement(DATA4)}, False),
+    ("cuda", {"kernel": "1d", "decaying_sigma": True}, {"placement": MeshPlacement(DATA4)}, False),
+    ("cpu", {}, {"placement": MeshPlacement(DATA4)}, False),
 ], ids=["base", "pallas", "fused", "3d", "decaying_unread", "cpu", "dropout", "rnn_dropout",
-        "decaying_1d", "group", "placement", "encode", "decode"])
+        "decaying_1d", "group", "placement", "encode", "decode",
+        "mesh_data", "mesh_data_pallas", "mesh_data_3d", "mesh_world1", "mesh_seq", "mesh_data_seq", "mesh_gloo",
+        "mesh_per_shard", "mesh_dropout", "mesh_rnn_dropout", "mesh_decaying_1d", "mesh_cpu"])
 def test_which_steps_replay_a_graph(device, over, hooks, graphed):
     assert replays_graph(_with(**over), device, **hooks) is graphed
 
@@ -139,16 +171,6 @@ def test_adam_step_size_as_a_tensor_equals_the_host_form(double_step, offset):
         params, state = new, st
 
 
-class _EagerGraph(graph_module.StepGraph):
-    """``StepGraph`` on the CPU: its buffers, copies and clones, with the
-    step's function run on the buffers at each replay in place of a
-    captured graph."""
-
-    def _capture(self, run):
-        out, shapes = run()
-        return lambda: out.copy_(run()[0]), out, shapes
-
-
 def _tensors(state, metrics):
     return steps._state_tensors(state) + [metrics["sinkhorn_loss"], metrics["pm"], metrics["sigma"]]
 
@@ -161,7 +183,7 @@ def test_graph_path_equals_the_eager_step(monkeypatch, over, inject):
     cfg = _with(**over)
     eager = build_train_step(cfg, device="cpu")
     monkeypatch.setattr(steps, "replays_graph", lambda *a, **k: True)
-    monkeypatch.setattr(steps, "StepGraph", _EagerGraph)
+    monkeypatch.setattr(steps, "StepGraph", EagerStepGraph)
     graphed = build_train_step(cfg, device="cpu")
     gen = torch.Generator().manual_seed(5)
     zshape = (2, cfg.pred_time_steps, 1, 1, 2)
