@@ -110,7 +110,7 @@ The bf16 engine runs the ConvLSTM's recurrent conv, dh and drk, and the
 dense LSTM's step, dh and dR, on the tensor cores: the built library's
 LSTM kernels must show HMMA in ``cuobjdump -sass`` (bf16) or none (f32);
 each ConvLSTM layer's bf16 backward is profiled and split into its
-recompute step, dh and weight-gradient kernels, beside each layer's
+adjoint step, dh and weight-gradient kernels, beside each layer's
 achieved TFLOP/s (``roofline.convlstm_work`` over the time); and the
 tensor-core kernels must show by name in the bf16 rollout's and
 ``'pallas'`` iteration's traces.
@@ -173,7 +173,6 @@ from kccotgan_tpu_torch.models.cuda_convlstm import (
     convlstm_bwd,
     convlstm_bwd_reference,
     convlstm_fwd,
-    convlstm_fwd_reference,
     convlstm_scan,
     convlstm_scan_reference,
 )
@@ -276,7 +275,7 @@ KERNELS = {
 # another order, the longest sums (drk: B*T*H*W = 655,360 terms at enc1)
 # in f32 runs whose rounding error grows like sqrt(K) * 2**-24 of the
 # terms (~5e-5 at K = 655,360 in the worst case of no cancellation), so
-# 1e-4.  bf16: both round the recomputed recurrent conv, y and dz to bf16
+# 1e-4.  bf16: both round the recurrent conv's gates, y and dz to bf16
 # at the same points, but another summation order can put a rounding one
 # bf16 ulp (2**-8 = 3.9e-3 relative) apart; that moves a gate, its dz and
 # every later step's dh by about as much, so 2e-2 of the largest entry.
@@ -464,14 +463,14 @@ def layer_tflops(name, t, ms, backward=False):
 
 
 # The bf16 engine's tensor-core kernels, by the name they show in a
-# torch.profiler trace: forward step; backward recompute step, dh, drk.
-TC_KERNELS = ("convlstm_step_tc_kernel", "convlstm_bwd_step_tc_kernel", "convlstm_bwd_dh_tc_kernel",
-              "recurrent_wgrad_tc_kernel")
+# torch.profiler trace: forward step; backward dh, drk (the backward's
+# adjoint step, convlstm_bwd_step_kernel, runs no product).
+TC_KERNELS = ("convlstm_step_tc_kernel", "convlstm_bwd_dh_tc_kernel", "recurrent_wgrad_tc_kernel")
 # The bf16 LSTM kernels (tensor cores), by their trace names; the f32
 # ones are lstm_fwd_kernel and lstm_bwd_kernel (CUDA cores).
 LSTM_TC_KERNELS = ("lstm_fwd_tc_kernel", "lstm_bwd_tc_kernel")
-# Parts of one ConvLSTM backward call in a trace: the recompute-and-adjoint
-# step, the dh transposed conv, and the weight gradient (GEMM + finalize).
+# Parts of one ConvLSTM backward call in a trace: the adjoint step, the
+# dh transposed conv, and the weight gradient (GEMM + finalize).
 BWD_PARTS = {"step": ("bwd_step",), "dh": ("bwd_dh",), "wgrad": ("wgrad", "finalize")}
 
 
@@ -810,34 +809,34 @@ def check_convlstm_bwd(dev):
         for dtype in (torch.float32, torch.bfloat16):
             args = layer_inputs(hw, f, k, dtype, dev, seed=100 + i, t=t)
             g = torch.Generator().manual_seed(200 + i)
-            y_p, cs_p, h_p, c_p = convlstm_fwd_reference(*args)
-            y_k, cs_k, h_k, c_k = convlstm_fwd(*args, with_c_stack=True)
+            y_p, cs_p, h_p, c_p, _, gs_p = _fwd_plain(*args, None, with_gates=True)
+            fwd_k = convlstm_fwd(*args, with_c_stack=True)
             cot = (
                 torch.randn(y_p.shape, generator=g).to(dev, dtype),
                 torch.randn(h_p.shape, generator=g).to(dev),
                 torch.randn(c_p.shape, generator=g).to(dev),
             )
-            got = convlstm_bwd(*args, y_p, cs_p, *cot)
+            got = convlstm_bwd(gs_p, *args[1:4], y_p, cs_p, *cot)
             want = convlstm_bwd_reference(*args, y_p, cs_p, *cot)
             torch.cuda.synchronize()
             tag = f"{name} T={t} {str(dtype).removeprefix('torch.')}"
-            e_fwd = max_err((y_k, cs_k, h_k, c_k), (y_p, cs_p, h_p, c_p))
+            e_fwd = max_err(fwd_k, (y_p, cs_p, h_p, c_p, gs_p))
             e_bwd = {n: rel_err([a], [b]) for n, a, b in zip(("dx", "dh0", "dc0", "drk", "db"), got, want)}
-            print(f"[convlstm_bwd] {tag}: forward+c stack max abs err {e_fwd:.3e} (tol {TOL[dtype]:.0e}); "
+            print(f"[convlstm_bwd] {tag}: forward+c and gate stacks max abs err {e_fwd:.3e} (tol {TOL[dtype]:.0e}); "
                   f"gradients, err / largest: {json.dumps(e_bwd)} (tol {GRAD_TOL[dtype]:.0e}); "
                   f"max abs err {max_err(got, want):.3e}", flush=True)
             if not (e_fwd <= TOL[dtype] and max(e_bwd.values()) <= GRAD_TOL[dtype]):
                 failed.append(tag)
             errs[tag] = max_err(got, want)
         args = layer_inputs(hw, f, k, torch.bfloat16, dev, seed=100 + i, t=t)
-        y, cs, h, c = convlstm_fwd(*args, with_c_stack=True)
+        y, cs, h, c, gs = convlstm_fwd(*args, with_c_stack=True)
         cot = (torch.ones_like(y), torch.zeros_like(h), torch.zeros_like(c))
         times[name] = {
-            "kernel_ms": cuda_ms(lambda: convlstm_bwd(*args, y, cs, *cot), reps=3),
+            "kernel_ms": cuda_ms(lambda: convlstm_bwd(gs, *args[1:4], y, cs, *cot), reps=3),
             "plain_ms": cuda_ms(lambda: convlstm_bwd_reference(*args, y, cs, *cot), reps=1),
         }
         times[name]["kernel_tflops"] = layer_tflops(name, t, times[name]["kernel_ms"], backward=True)
-        by_name = profiled(lambda: convlstm_bwd(*args, y, cs, *cot), TC_KERNELS[1:],
+        by_name = profiled(lambda: convlstm_bwd(gs, *args[1:4], y, cs, *cot), TC_KERNELS[1:],
                            f"{name} bf16 backward")[3]
         for part, keys in BWD_PARTS.items():
             times[name][f"{part}_ms"] = sum(v for n, v in by_name.items() if any(x in n for x in keys))
@@ -1538,16 +1537,16 @@ def check_convlstm_dropout(dev):
         masks = ((torch.rand(4, B, hw, hw, f, generator=g) < 1 - DROPOUT).float() / (1 - DROPOUT)).to(dev)
         for dtype in (torch.float32, torch.bfloat16):
             args = layer_inputs(hw, f, k, dtype, dev, seed=300 + i, t=t)
-            y_p, cs_p, h_p, c_p, hm_p = _fwd_plain(*args, masks)
+            y_p, cs_p, h_p, c_p, hm_p, gs_p = _fwd_plain(*args, masks, with_gates=True)
             got_f = convlstm_fwd(*args, with_c_stack=True, rec_masks=masks)
             cot = (torch.randn(y_p.shape, generator=g).to(dev, dtype), torch.randn(h_p.shape, generator=g).to(dev),
                    torch.randn(c_p.shape, generator=g).to(dev))
-            got = convlstm_bwd(*args, y_p, cs_p, *cot, rec_masks=masks, hm=hm_p)
+            got = convlstm_bwd(gs_p, *args[1:4], y_p, cs_p, *cot, rec_masks=masks, hm=hm_p)
             want = convlstm_bwd_reference(*args, y_p, cs_p, *cot, rec_masks=masks, hm=hm_p)
             torch.cuda.synchronize()
             tag = f"{name} T={t} {str(dtype).removeprefix('torch.')}"
-            e_fwd = max_err((*got_f[:4], got_f[4][0], got_f[4][1][:, :-1]),
-                            (y_p, cs_p, h_p, c_p, hm_p[0], hm_p[1][:, :-1]))
+            e_fwd = max_err((*got_f[:5], got_f[5][0], got_f[5][1][:, :-1]),
+                            (y_p, cs_p, h_p, c_p, gs_p, hm_p[0], hm_p[1][:, :-1]))
             e_bwd = {n: rel_err([a], [b]) for n, a, b in zip(("dx", "dh0", "dc0", "drk", "db"), got, want)}
             errs[tag] = {"forward_max_abs_err": e_fwd, "grad_err_of_largest": e_bwd,
                          "grad_max_abs_err": max_err(got, want)}
@@ -1828,15 +1827,15 @@ def check_kernels_at(cfg, dev):
         for dtype in (torch.float32, torch.bfloat16):
             args = layer_inputs(hw, f, k, dtype, dev, seed=700 + i, t=t, b=b)
             g = torch.Generator().manual_seed(800 + i)
-            y_p, cs_p, h_p, c_p = convlstm_fwd_reference(*args)
+            y_p, cs_p, h_p, c_p, _, gs_p = _fwd_plain(*args, None, with_gates=True)
             got_f = convlstm_fwd(*args, with_c_stack=True)
             cot = (torch.randn(y_p.shape, generator=g).to(dev, dtype), torch.randn(h_p.shape, generator=g).to(dev),
                    torch.randn(c_p.shape, generator=g).to(dev))
-            got = convlstm_bwd(*args, y_p, cs_p, *cot)
+            got = convlstm_bwd(gs_p, *args[1:4], y_p, cs_p, *cot)
             want = convlstm_bwd_reference(*args, y_p, cs_p, *cot)
             torch.cuda.synchronize()
             tag = f"{name} B={b} T={t} {str(dtype).removeprefix('torch.')}"
-            e_fwd = max_err(got_f, (y_p, cs_p, h_p, c_p))
+            e_fwd = max_err(got_f, (y_p, cs_p, h_p, c_p, gs_p))
             e_bwd = max(rel_err([a], [w]) for a, w in zip(got, want))
             errs[tag] = {"forward_max_abs_err": e_fwd, "grad_err_of_largest": e_bwd}
             if not (e_fwd <= TOL[dtype] and e_bwd <= GRAD_TOL[dtype]):
@@ -2037,7 +2036,7 @@ def direct_scan(xconv, h0, c0, rec_kernel, bias, rec_masks=None):
     """The inference recurrence as it ran before the registered operator:
     ``convlstm_fwd`` called straight from the layer (its host time is what
     the operator's dispatch is measured against)."""
-    y, _, h, c = convlstm_fwd(xconv, h0, c0, rec_kernel, bias, rec_masks=rec_masks)
+    y, _, h, c, *_ = convlstm_fwd(xconv, h0, c0, rec_kernel, bias, rec_masks=rec_masks)
     return y, (h, c)
 
 

@@ -120,13 +120,11 @@ def load_library() -> ctypes.CDLL:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     argtypes = {
         "kccot_convlstm_fwd_step": [
-            i, p, ll, p, p, ll, p, p, p, p, p, p, ll, p, ll, p, p, ll, i, i, i, i, i, i, p,
+            i, p, ll, p, p, ll, p, p, p, p, p, p, ll, p, ll, p, ll, p, p, ll, i, i, i, i, i, i, p,
         ],
-        "kccot_convlstm_bwd_step": [
-            i, p, ll, p, ll, p, ll, p, p, p, ll, p, p, p, ll, p, i, i, i, i, i, i, i, p,
-        ],
+        "kccot_convlstm_bwd_step": [i, p, ll, p, ll, p, ll, p, p, p, ll, p, i, i, i, i, p],
         "kccot_convlstm_bwd_dh": [i, p, ll, p, p, p, i, i, i, i, i, i, p],
-        "kccot_convlstm_bwd_rows": [i, i, i, i, i],
+        "kccot_convlstm_bwd_rows": [i, i, i, i],
         "kccot_recurrent_wgrad_tiles": [i, i, i, i],
         "kccot_recurrent_wgrad": [i, p, p, p, p, i, ll, p, i, p, p, i, i, i, i, i, i, i, i, p],
         "kccot_lstm_fwd": [i, i, *[p] * 9, i, i, i, i, p],

@@ -7,17 +7,27 @@
 // VMEM across the whole grid.  Here, as in the forward, the step
 // boundary is a launch boundary (the carries are megabytes), and each
 // step is two launches, because dh_{t-1} at a pixel needs dz at every
-// pixel of its halo:
+// pixel of its halo.  The gates are not recomputed: under autograd the
+// forward saved each step's pre-activations z_t in the f32 gate stack
+// [B, T, H, W, 4f] (gate g of channel j at 4j + g), exactly the values
+// its epilogue ran on, so the recurrent conv runs once, in the forward.
 //
-// 1. The step kernel, per (sample, pixel, channel j): recompute z_t from
-//    cdt(h_{t-1}) (y[t-1], or cdt(h0) at t=0), the x stack, bias and
-//    c_{t-1} (c stack, or c0), exactly as the forward did; then the cell
-//    adjoint
+// 1. The step kernel, per (sample, pixel, channel j): the cell adjoint
+//    on z_t (one 16-byte load) and c_{t-1} (c stack, or c0)
+//        i, f, g, o = sigmoid(z_i), sigmoid(z_f), tanh(z_c), sigmoid(z_o)
 //        dh = dh_carry + dy_t;  dc = dc_carry + dh*o*(1 - tanh(c_t)^2)
 //        dz = [dc*g*i(1-i), dc*c_{t-1}*f(1-f), dc*i*(1-g^2), dh*tanh(c_t)*o(1-o)]
-//    dx_t = cdt(dz); dc_carry = dc * f; and the block's sum of the f32
-//    dz per channel into its own row of a db partial (each block owns
-//    its row across all steps: no atomics, deterministic).
+//    with c_t = f*c_{t-1} + i*g; dx_t = cdt(dz); dc_carry = dc * f; and
+//    the block's sum of the f32 dz per channel into its own row of a db
+//    partial (each block owns its row across all steps: no atomics,
+//    deterministic).  No halo, no weight, no product: it reads 16 bytes
+//    of gates, c_{t-1}, dy_t and the two carries and writes dx_t and dc,
+//    some 42 bytes a (pixel, j) in bf16, so memory bounds it.  One kernel
+//    for both dtypes (T = the dtype of dy and dx), pixel-major: a thread
+//    takes 4 consecutive channels of a pixel where f allows (four 16-byte
+//    gate loads, 16-byte c and carries, 8- or 16-byte dy and dx), and a
+//    warp's accesses to each stack are one contiguous span.  db sums over
+//    the block's pixels by a fixed butterfly and then the warps in order.
 // 2. The dh kernel: dh_carry = the transposed 'SAME' conv of cdt(dz)
 //    (read back from dx_t) with cdt(rk), accumulated in f32 and kept
 //    f32, with the flipped pads (k-1-lo before, lo after).
@@ -31,43 +41,38 @@
 //    dense LSTM's dR is the same sum with H = W = kh = kw = 1
 //    (models/cuda_lstm.py calls it so).
 //
-// What bounds it: three convs' worth of multiply-adds a step (the
-// recomputed rconv, dh and drk; about 3 TFLOP an iteration at
-// mmnist_full) -- on the tensor cores, the latency of the per-step
-// launches and their K loops rather than the MMA rate.  Two engines,
-// by dtype:
-// * bf16 (dtype 1): all three products on the tensor cores through the
+// What bounds it: two convs' worth of multiply-adds a step (dh and drk;
+// about 2 TFLOP an iteration at mmnist_full) -- on the tensor cores, the
+// latency of the per-step launches and their K loops rather than the MMA
+// rate -- and the adjoint's bytes.  Two engines, by dtype:
+// * bf16 (dtype 1): both products on the tensor cores through the
 //   implicit-GEMM block of convlstm_tile.cuh (mma.sync m16n8k16, ldmatrix,
 //   cp.async in three stages).  Every operand is already bf16 (y, dx,
-//   cdt(h0), and the weights the wrapper packs once per call: cdt(rk)
-//   with interleaved gate columns for the step, cdt(rk) transposed,
-//   [kh*kw*4f, 8*ceil(f/8)], for dh), so the products are exact in f32
-//   and only the order of the f32 sums differs.  The step kernel's
-//   epilogue holds the four gates of a (pixel, j) in one thread and runs
-//   the adjoint on them; its db partial is reduced in a fixed order
-//   (shuffles, then the block's warp rows) into the row of its M tile.
-//   The drk GEMM reads A = shifted cdt(h_{t-1}) transposed (ldmatrix
-//   .trans) and B = dx, split over K until about 4 blocks an SM are in
-//   flight.  Tiles are chosen per layer so a launch has at least one
-//   block per SM where the shape allows.
+//   cdt(h0), and cdt(rk) transposed, [kh*kw*4f, 8*ceil(f/8)], which the
+//   wrapper packs once per call for dh), so the products are exact in f32
+//   and only the order of the f32 sums differs.  The drk GEMM reads A =
+//   shifted cdt(h_{t-1}) transposed (ldmatrix .trans) and B = dx, split
+//   over K until about 4 blocks an SM are in flight.  Tiles are chosen
+//   per layer so a launch has at least one block per SM where the shape
+//   allows.
 // * f32 (dtype 0): the CUDA cores in f32 FMA (TF32 would miss the f32
-//   tolerances): kernels 1 and 2 stage their input tile (halo included)
-//   in shared memory and keep kPix pixels' sums in registers per weight
-//   load; kernel 2 chunks the 4f input channels so the staged tile fits;
-//   the drk GEMM uses 64x64 output tiles with a 4x4 register tile a
-//   thread.
+//   tolerances): kernel 2 stages its dz tile (halo included) in shared
+//   memory, nc input channels at a time, and keeps kPix pixels' sums in
+//   registers per weight load; the drk GEMM uses 64x64 output tiles with
+//   a 4x4 register tile a thread.
 //
 // Recurrent dropout (convlstm_fwd.cu): gate g's conv read hm_g =
 // cdt(h_{t-1} * mask_g), which the forward saved as the [B, T, H, W, 4f]
-// hm stack (hm_{-1} apart).  Kernel 1 recomputes z from hm as the forward
-// did.  Kernel 2 needs, per (pixel, ci), the four gates' transposed convs
-// apart, dh = sum_g mask_g * dhm_g: on the tensor cores its GEMM takes N
-// = 4 gates x f in the gate-quad column order of the forward (B the
-// transposed block-diagonal weight), so one thread holds the four dhm_g
-// of a (pixel, ci) and sums them with the masks in its epilogue; in f32
-// the kernel walks the gates one after the other.  Kernel 3 runs one
-// GEMM a gate over the grid (drk's gate-g columns from hm_g and dz_g),
-// the MMAs of the unmasked one.
+// hm stack (hm_{-1} apart).  Kernel 1 is the same: the masks enter only
+// the convs, and the gates it reads already hold them.  Kernel 2 needs,
+// per (pixel, ci), the four gates' transposed convs apart, dh = sum_g
+// mask_g * dhm_g: on the tensor cores its GEMM takes N = 4 gates x f in
+// the gate-quad column order of the forward (B the transposed
+// block-diagonal weight), so one thread holds the four dhm_g of a (pixel,
+// ci) and sums them with the masks in its epilogue; in f32 the kernel
+// walks the gates one after the other.  Kernel 3 runs one GEMM a gate
+// over the grid (drk's gate-g columns from hm_g and dz_g), the MMAs of
+// the unmasked one.
 
 #include "convlstm_tile.cuh"
 
@@ -75,95 +80,134 @@ namespace {
 
 using namespace kccot;
 
-template <int kPix>
+// V consecutive elements at p, widened to f32 / rounded from f32: one
+// 16-byte (f32) or 8-byte (bf16) access where V = 4.
+template <int V>
+__device__ __forceinline__ void load_vec(const float* p, float (&v)[V]) {
+  if constexpr (V == 4) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) v[i] = p[i];
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void load_vec(const bf16* p, float (&v)[V]) {
+  if constexpr (V == 4) {
+    const uint2 q = *reinterpret_cast<const uint2*>(p);
+    const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.x));
+    const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.y));
+    v[0] = lo.x, v[1] = lo.y, v[2] = hi.x, v[3] = hi.y;
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) v[i] = to_f32(p[i]);
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store_vec(float* p, const float (&v)[V]) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) p[i] = v[i];
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store_vec(bf16* p, const float (&v)[V]) {
+  if constexpr (V == 4) {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+    uint2 q;
+    q.x = *reinterpret_cast<const unsigned*>(&lo);
+    q.y = *reinterpret_cast<const unsigned*>(&hi);
+    *reinterpret_cast<uint2*>(p) = q;
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) p[i] = from_f32<bf16>(v[i]);
+  }
+}
+
+// Kernel 1: the cell adjoint (module comment, 1), T the dtype of dy and
+// dx.  Pixel-major: m = (sample, pixel) in row-major order, a thread V
+// consecutive channels of `it` pixels (j0 = V * channel group).  A block
+// is kThreads = nr x jt threads, jt channel groups (a power of two, so a
+// warp reads one contiguous span of each stack) by nr pixels, and covers
+// nr * it consecutive m; its db partial goes to row blockIdx.x.
+template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
-convlstm_bwd_step_kernel(const float* __restrict__ x, long long x_bstride,
-                         const float* __restrict__ hp, long long hp_bstride,
+convlstm_bwd_step_kernel(const float* __restrict__ gates, long long g_bstride,
                          const float* __restrict__ c_prev, long long cp_bstride,
-                         const float4* __restrict__ rk4, const float* __restrict__ bias,
-                         const float* __restrict__ dy, long long dy_bstride,
+                         const T* __restrict__ dy, long long dy_bstride,
                          const float* __restrict__ dh, float* __restrict__ dc,
-                         float* __restrict__ dx, long long dx_bstride, float* __restrict__ dbpart,
-                         int masked, int H, int W, int f, int kh, int kw,
-                         int tile_h, int tile_w, int tiles_w) {
-  extern __shared__ float hs[];  // [tile_h+kh-1][tile_w+kw-1][f], then the db reduction
-
-  const int b = blockIdx.z;
-  const int ty0 = (blockIdx.x / tiles_w) * tile_h;
-  const int tx0 = (blockIdx.x % tiles_w) * tile_w;
-  const int sw = tile_w + kw - 1;
-  if (!masked) {
-    stage_h(hs, hp + b * hp_bstride, H, W, f, f, kh, kw, ty0, tx0, tile_h, tile_w);
-    __syncthreads();
-  }
-
-  const int j = blockIdx.y * blockDim.x + threadIdx.x;
-  const bool valid_j = j < f;
-  const int nruns = blockDim.y;
-  int off[kPix];
-#pragma unroll
-  for (int p = 0; p < kPix; ++p) {
-    const int q = p * nruns + threadIdx.y;
-    off[p] = q < tile_h * tile_w ? ((q / tile_w) * sw + q % tile_w) * f : 0;
-  }
-  float acc[kPix][4];
-#pragma unroll
-  for (int p = 0; p < kPix; ++p) acc[p][0] = acc[p][1] = acc[p][2] = acc[p][3] = 0.0f;
-  if (masked)
-    rconv_gates_masked<kPix>(acc, hs, hp + b * hp_bstride, rk4, off, j, valid_j, H, W, f, kh, kw,
-                             ty0, tx0, tile_h, tile_w);
-  else if (valid_j)
-    rconv_gates<kPix>(acc, hs, rk4, off, j, f, kh, kw, sw);
-
+                         T* __restrict__ dx, long long dx_bstride, float* __restrict__ dbpart,
+                         int M, int HW, int f, int jt, int it) {
+  __shared__ float red[4 * V][kThreads];
+  const int nr = kThreads / jt, c = threadIdx.x % jt, r = threadIdx.x / jt;
+  const int j0 = (blockIdx.y * jt + c) * V;
   const int f4 = 4 * f;
-  float dbp[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  float dbp[4][V];
 #pragma unroll
-  for (int p = 0; p < kPix; ++p) {
-    const int q = p * nruns + threadIdx.y;
-    const int gy = ty0 + q / tile_w, gx = tx0 + q % tile_w;
-    if (!valid_j || q >= tile_h * tile_w || gy >= H || gx >= W) continue;
-    const long long pix = (long long)gy * W + gx;
-    const float* xp = x + b * x_bstride + pix * f4 + j;
-    float z[4];
+  for (int g = 0; g < 4; ++g)
 #pragma unroll
-    for (int g = 0; g < 4; ++g)
-      z[g] = (xp[g * f] + bias[g * f + j]) + acc[p][g];
-    const float i = sigmoid(z[0]), fg = sigmoid(z[1]), gg = tanhf(z[2]), o = sigmoid(z[3]);
-    const float cp = c_prev[b * cp_bstride + pix * f + j];
-    const float tc = tanhf(fg * cp + i * gg);
-    const long long s = ((long long)b * H * W + pix) * f + j;
-    const float dhv = dh[s] + dy[b * dy_bstride + pix * f + j];
-    const float dcv = dc[s] + dhv * o * (1.0f - tc * tc);
-    float dz[4];
-    dz[0] = dcv * gg * i * (1.0f - i);
-    dz[1] = dcv * cp * fg * (1.0f - fg);
-    dz[2] = dcv * i * (1.0f - gg * gg);
-    dz[3] = dhv * tc * o * (1.0f - o);
-    float* dxp = dx + b * dx_bstride + pix * f4 + j;
+    for (int v = 0; v < V; ++v) dbp[g][v] = 0.0f;
+  for (int k = 0; k < it; ++k) {
+    const int m = (blockIdx.x * it + k) * nr + r;
+    if (j0 >= f || m >= M) break;
+    const int b = m / HW, pix = m - b * HW;
+    const long long s = (long long)m * f + j0;
+    float cp[V], dyv[V], dhv[V], dcv[V];
+    load_vec<V>(c_prev + b * cp_bstride + (long long)pix * f + j0, cp);
+    load_vec<V>(dy + b * dy_bstride + (long long)pix * f + j0, dyv);
+    load_vec<V>(dh + s, dhv);
+    load_vec<V>(dc + s, dcv);
+    const float* zp = gates + b * g_bstride + (long long)pix * f4 + 4 * j0;
+    float dz[4][V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const float4 z = *reinterpret_cast<const float4*>(zp + 4 * v);
+      const float i = sigmoid(z.x), fg = sigmoid(z.y), gg = tanhf(z.z), o = sigmoid(z.w);
+      const float tc = tanhf(fg * cp[v] + i * gg);
+      const float dhs = dhv[v] + dyv[v];
+      const float dcs = dcv[v] + dhs * o * (1.0f - tc * tc);
+      dz[0][v] = dcs * gg * i * (1.0f - i);
+      dz[1][v] = dcs * cp[v] * fg * (1.0f - fg);
+      dz[2][v] = dcs * i * (1.0f - gg * gg);
+      dz[3][v] = dhs * tc * o * (1.0f - o);
+      dcv[v] = dcs * fg;
+    }
+    T* dxp = dx + b * dx_bstride + (long long)pix * f4 + j0;
 #pragma unroll
     for (int g = 0; g < 4; ++g) {
-      dxp[g * f] = dz[g];
-      dbp[g] += dz[g];
+      store_vec<V>(dxp + g * f, dz[g]);
+#pragma unroll
+      for (int v = 0; v < V; ++v) dbp[g][v] += dz[g][v];
     }
-    dc[s] = dcv * fg;
+    store_vec<V>(dc + s, dcv);
   }
 
-  // The block's db partial: sum over the nruns threads of each channel in
-  // a fixed order, added to the block's own row.
-  __syncthreads();
-  float* red = hs;  // [nruns][jt][4]
-  const int slot = (threadIdx.y * blockDim.x + threadIdx.x) * 4;
+  // db: each channel's sum over the block's pixels in a fixed order.
+  // Where jt < 32 a warp holds 32 / jt pixels of each channel: a fixed
+  // butterfly over them first, so the sums to finish are the warps'.
+  const int stride = jt < 32 ? 32 : jt;
 #pragma unroll
-  for (int g = 0; g < 4; ++g) red[slot + g] = dbp[g];
-  __syncthreads();
-  if (threadIdx.y == 0 && valid_j) {
-    float* row = dbpart + ((long long)b * gridDim.x + blockIdx.x) * f4;
+  for (int g = 0; g < 4; ++g)
 #pragma unroll
-    for (int g = 0; g < 4; ++g) {
-      float sum = 0.0f;
-      for (int r = 0; r < nruns; ++r) sum += red[(r * blockDim.x + threadIdx.x) * 4 + g];
-      row[g * f + j] += sum;
+    for (int v = 0; v < V; ++v) {
+      float x = dbp[g][v];
+      for (int o = jt; o < 32; o *= 2) x += __shfl_xor_sync(0xffffffffu, x, o);
+      red[g * V + v][threadIdx.x] = x;
     }
+  __syncthreads();
+  for (int q = threadIdx.x; q < 4 * V * jt; q += kThreads) {
+    const int e = q / jt, cq = q % jt, j = (blockIdx.y * jt + cq) * V + e % V;
+    if (j >= f) continue;
+    float sum = 0.0f;
+    for (int w = 0; w < kThreads / stride; ++w) sum += red[e][w * stride + cq];
+    dbpart[(long long)blockIdx.x * f4 + (e / V) * f + j] += sum;
   }
 }
 
@@ -447,90 +491,6 @@ __global__ void recurrent_finalize_kernel(const float* __restrict__ part, int sp
 // ---------------------------------------------------------------------------
 // bf16, tensor cores.
 
-// Kernel 1: the recomputed conv (A = hp gathered, B = wpk as in the
-// forward) and the cell adjoint on the accumulators; the block's db
-// partial goes to row blockIdx.x (its M tile).
-template <class Cfg, bool kVec>
-__global__ void __launch_bounds__(Cfg::kThreads)
-convlstm_bwd_step_tc_kernel(const bf16* __restrict__ x, long long x_bstride,
-                            const bf16* __restrict__ hp, long long hp_bstride,
-                            const float* __restrict__ c_prev, long long cp_bstride,
-                            const bf16* __restrict__ wpk, int npad, const float* __restrict__ bias,
-                            const bf16* __restrict__ dy, long long dy_bstride,
-                            const float* __restrict__ dh, float* __restrict__ dc,
-                            bf16* __restrict__ dx, long long dx_bstride,
-                            float* __restrict__ dbpart, int B, int H, int W, int f, int cin,
-                            int kh, int kw) {
-  extern __shared__ __align__(16) unsigned char bwd_tc_smem[];
-  __shared__ float red[Cfg::WM][Cfg::BN];
-  const int HW = H * W, M = B * HW, K = kh * kw * cin;
-  const int m0 = blockIdx.x * Cfg::BM, n0 = blockIdx.y * Cfg::BN;
-  int kt0, kt1;
-  split_range((K + Cfg::BK - 1) / Cfg::BK, blockIdx.z, gridDim.z, kt0, kt1);
-  ConvGatherA<Cfg, kVec> load_a(hp, hp_bstride, H, W, cin, kw, K, 1, -(kh - 1) / 2,
-                                -(kw - 1) / 2, m0, M, kt0);
-  const DenseB<Cfg> load_b{wpk, K, npad, n0};
-  float acc[2][Cfg::NI][4];
-  tc_gemm<Cfg, false>(acc, reinterpret_cast<bf16*>(bwd_tc_smem), kt0, kt1, load_a, load_b);
-  if (!cluster_sum<Cfg>(acc, bwd_tc_smem, gridDim.z)) return;
-
-  const int f4 = 4 * f;
-  float dbp[Cfg::NI / 2][4];
-#pragma unroll
-  for (int p = 0; p < Cfg::NI / 2; ++p) dbp[p][0] = dbp[p][1] = dbp[p][2] = dbp[p][3] = 0.0f;
-  for_each_gate_quad<Cfg>(acc, m0, n0, [&](int m, int j, int p, const float(&a)[4]) {
-    if (m >= M || j >= f) return;
-    const int b = m / HW, pix = m - b * HW;
-    const bf16* xp = x + b * x_bstride + (long long)pix * f4 + j;
-    float z[4];
-#pragma unroll
-    for (int g = 0; g < 4; ++g)
-      z[g] = (to_f32(xp[g * f]) + bias[g * f + j]) + round_to<bf16>(a[g]);
-    const float i = sigmoid(z[0]), fg = sigmoid(z[1]), gg = tanhf(z[2]), o = sigmoid(z[3]);
-    const float cp = c_prev[b * cp_bstride + (long long)pix * f + j];
-    const float tc = tanhf(fg * cp + i * gg);
-    const long long s = (long long)m * f + j;
-    const float dhv = dh[s] + to_f32(dy[b * dy_bstride + (long long)pix * f + j]);
-    const float dcv = dc[s] + dhv * o * (1.0f - tc * tc);
-    float dz[4];
-    dz[0] = dcv * gg * i * (1.0f - i);
-    dz[1] = dcv * cp * fg * (1.0f - fg);
-    dz[2] = dcv * i * (1.0f - gg * gg);
-    dz[3] = dhv * tc * o * (1.0f - o);
-    bf16* dxp = dx + b * dx_bstride + (long long)pix * f4 + j;
-#pragma unroll
-    for (int g = 0; g < 4; ++g) {
-      dxp[g * f] = from_f32<bf16>(dz[g]);
-      dbp[p][g] += dz[g];
-    }
-    dc[s] = dcv * fg;
-  });
-
-  // db: each channel's sum over the warp's rows (lanes lane%4 apart: a
-  // fixed butterfly), then over the block's warp rows in order.
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp % Cfg::WM, wn = warp / Cfg::WM;
-#pragma unroll
-  for (int p = 0; p < Cfg::NI / 2; ++p)
-#pragma unroll
-    for (int g = 0; g < 4; ++g) {
-      float v = dbp[p][g];
-      v += __shfl_xor_sync(0xffffffffu, v, 4);
-      v += __shfl_xor_sync(0xffffffffu, v, 8);
-      v += __shfl_xor_sync(0xffffffffu, v, 16);
-      if (lane < 4) red[wm][wn * 8 * Cfg::NI + p * 16 + g * 4 + lane] = v;
-    }
-  __syncthreads();
-  for (int c = threadIdx.x; c < Cfg::BN; c += Cfg::kThreads) {
-    const int j = (n0 + (c / 16) * 16) / 4 + c % 4, g = (c % 16) / 4;
-    if (j >= f) continue;
-    float sum = 0.0f;
-#pragma unroll
-    for (int r = 0; r < Cfg::WM; ++r) sum += red[r][c];
-    dbpart[(long long)blockIdx.x * f4 + g * f + j] += sum;
-  }
-}
-
 // Kernel 2: dh[m][ci] = sum_k A[m][k] wT[k][ci], A the transposed conv's
 // gather of dx_t (C = 4f, sgn = -1, o = +lo: the flipped pads).  With
 // mask [B, H, W, 4f] (recurrent dropout), wT has the gate-quad columns of
@@ -724,54 +684,6 @@ recurrent_wgrad_tc_kernel(const bf16* __restrict__ y, const bf16* __restrict__ h
       }
 }
 
-// The gate GEMM's tile at this shape (vec: f a multiple of 8).
-inline TcShape gate_shape(int B, int H, int W, int f) {
-  if (f % 8 != 0) return k64x64;
-  return pick_shape((long long)B * H * W, 16 * ((f + 3) / 4));
-}
-
-template <class Cfg, bool kVec>
-cudaError_t launch_step_tc(const void* x, long long x_bstride, const void* hp,
-                           long long hp_bstride, const void* c_prev, long long cp_bstride,
-                           const void* wpk, const void* bias, const void* dy, long long dy_bstride,
-                           const void* dh, void* dc, void* dx, long long dx_bstride,
-                           void* dbpart, int B, int H, int W, int f, int cin, int kh, int kw,
-                           cudaStream_t stream) {
-  const int npad = 16 * ((f + 3) / 4);
-  const long long M = (long long)B * H * W;
-  const dim3 grid((unsigned)((M + Cfg::BM - 1) / Cfg::BM), (npad + Cfg::BN - 1) / Cfg::BN);
-  const int split = pick_split(grid.x * grid.y, (kh * kw * cin + Cfg::BK - 1) / Cfg::BK);
-  return launch_split<Cfg>(
-      convlstm_bwd_step_tc_kernel<Cfg, kVec>, grid, split, stream, static_cast<const bf16*>(x),
-      x_bstride, static_cast<const bf16*>(hp), hp_bstride, static_cast<const float*>(c_prev),
-      cp_bstride, static_cast<const bf16*>(wpk), npad, static_cast<const float*>(bias),
-      static_cast<const bf16*>(dy), dy_bstride, static_cast<const float*>(dh),
-      static_cast<float*>(dc), static_cast<bf16*>(dx), dx_bstride, static_cast<float*>(dbpart), B,
-      H, W, f, cin, kh, kw);
-}
-
-// The tile, and so the db partial's rows (kccot_convlstm_bwd_rows), does
-// not depend on masked: only K does.
-cudaError_t step_tc(const void* x, long long x_bstride, const void* hp, long long hp_bstride,
-                    const void* c_prev, long long cp_bstride, const void* wpk, const void* bias,
-                    const void* dy, long long dy_bstride, const void* dh, void* dc, void* dx,
-                    long long dx_bstride, void* dbpart, int masked, int B, int H, int W, int f,
-                    int kh, int kw, cudaStream_t s) {
-  const int cin = masked ? 4 * f : f;
-#define KCCOT_STEP_TC(CFG, VEC)                                                                  \
-  launch_step_tc<CFG, VEC>(x, x_bstride, hp, hp_bstride, c_prev, cp_bstride, wpk, bias, dy,     \
-                           dy_bstride, dh, dc, dx, dx_bstride, dbpart, B, H, W, f, cin, kh, kw, s)
-  if (f % 8 != 0) return KCCOT_STEP_TC(Cfg64x64, false);
-  if (!aligned16(hp) || hp_bstride % 8 != 0) return cudaErrorMisalignedAddress;
-  switch (gate_shape(B, H, W, f)) {
-    case k128x64: return KCCOT_STEP_TC(Cfg128x64, true);
-    case k64x64: return KCCOT_STEP_TC(Cfg64x64, true);
-    case k32x64: return KCCOT_STEP_TC(Cfg32x64, true);
-    default: return KCCOT_STEP_TC(Cfg128x32, true);
-  }
-#undef KCCOT_STEP_TC
-}
-
 // The dh GEMM's padded N: f columns, or the four gates' quads with masks.
 inline int dh_npad(int f, bool masked) { return masked ? 16 * ((f + 3) / 4) : 8 * ((f + 7) / 8); }
 
@@ -831,29 +743,6 @@ cudaError_t launch_wgrad_tc(const void* y, const void* h0c, const void* dx, void
 }
 
 template <int kPix>
-cudaError_t launch_step(const void* x, long long x_bstride, const void* hp, long long hp_bstride,
-                        const void* c_prev, long long cp_bstride, const void* rk4,
-                        const void* bias, const void* dy, long long dy_bstride, const void* dh,
-                        void* dc, void* dx, long long dx_bstride, void* dbpart, int masked, int B,
-                        int H, int W, int f, int kh, int kw, cudaStream_t stream) {
-  const Tile t = make_tile(H, W, f, kPix);
-  const dim3 block(t.jt, t.nruns);
-  const dim3 grid(t.tiles_w * t.tiles_h, (f + t.jt - 1) / t.jt, B);
-  size_t smem = (size_t)(t.tile_h + kh - 1) * (t.tile_w + kw - 1) * f;
-  if (smem < (size_t)t.jt * t.nruns * 4) smem = (size_t)t.jt * t.nruns * 4;
-  smem *= sizeof(float);
-  const cudaError_t err = allow_smem((const void*)convlstm_bwd_step_kernel<kPix>, smem);
-  if (err != cudaSuccess) return err;
-  convlstm_bwd_step_kernel<kPix><<<grid, block, smem, stream>>>(
-      static_cast<const float*>(x), x_bstride, static_cast<const float*>(hp), hp_bstride,
-      static_cast<const float*>(c_prev), cp_bstride, static_cast<const float4*>(rk4),
-      static_cast<const float*>(bias), static_cast<const float*>(dy), dy_bstride,
-      static_cast<const float*>(dh), static_cast<float*>(dc), static_cast<float*>(dx), dx_bstride,
-      static_cast<float*>(dbpart), masked, H, W, f, kh, kw, t.tile_h, t.tile_w, t.tiles_w);
-  return cudaGetLastError();
-}
-
-template <int kPix>
 cudaError_t launch_dh(const void* dx, long long dx_bstride, const void* rkT4, const void* mask,
                       void* dh, int B, int H, int W, int f, int kh, int kw, cudaStream_t stream) {
   const Tile t = make_tile(H, W, f, kPix);
@@ -880,20 +769,61 @@ cudaError_t launch_dh(const void* dx, long long dx_bstride, const void* rkT4, co
   return cudaGetLastError();
 }
 
-cudaError_t step(const void* x, long long x_bstride, const void* hp, long long hp_bstride,
-                 const void* c_prev, long long cp_bstride, const void* rk4, const void* bias,
+// The adjoint's grid at this shape: V = 4 channels a thread where f
+// allows, jt channel groups a block (a power of two, at most 128), `it`
+// pixels a thread, doubled while about 4 blocks an SM (132) stay in
+// flight; a block a db row.
+struct StepGrid {
+  int v, jt, it;
+  dim3 grid;
+};
+
+inline StepGrid step_grid(int B, int H, int W, int f) {
+  StepGrid sg;
+  sg.v = f % 4 == 0 ? 4 : 1;
+  const int groups = f / sg.v;
+  sg.jt = 1;
+  while (sg.jt < groups && sg.jt < 128) sg.jt *= 2;
+  const long long M = (long long)B * H * W, nr = kThreads / sg.jt;
+  const unsigned ty = (groups + sg.jt - 1) / sg.jt;
+  auto rows = [&](int it) { return (unsigned)((M + nr * it - 1) / (nr * it)); };
+  sg.it = 1;
+  while (sg.it < 8 && (long long)rows(2 * sg.it) * ty >= 4 * 132) sg.it *= 2;
+  sg.grid = dim3(rows(sg.it), ty);
+  return sg;
+}
+
+template <typename T, int V>
+cudaError_t launch_step(const StepGrid& sg, const void* gates, long long g_bstride,
+                        const void* c_prev, long long cp_bstride, const void* dy,
+                        long long dy_bstride, const void* dh, void* dc, void* dx,
+                        long long dx_bstride, void* dbpart, int B, int H, int W, int f,
+                        cudaStream_t s) {
+  convlstm_bwd_step_kernel<T, V><<<sg.grid, kThreads, 0, s>>>(
+      static_cast<const float*>(gates), g_bstride, static_cast<const float*>(c_prev), cp_bstride,
+      static_cast<const T*>(dy), dy_bstride, static_cast<const float*>(dh),
+      static_cast<float*>(dc), static_cast<T*>(dx), dx_bstride, static_cast<float*>(dbpart),
+      B * H * W, H * W, f, sg.jt, sg.it);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t step(const void* gates, long long g_bstride, const void* c_prev, long long cp_bstride,
                  const void* dy, long long dy_bstride, const void* dh, void* dc, void* dx,
-                 long long dx_bstride, void* dbpart, int masked, int B, int H, int W, int f,
-                 int kh, int kw, cudaStream_t s) {
-#define KCCOT_STEP(PIX)                                                                          \
-  launch_step<PIX>(x, x_bstride, hp, hp_bstride, c_prev, cp_bstride, rk4, bias, dy, dy_bstride, \
-                   dh, dc, dx, dx_bstride, dbpart, masked, B, H, W, f, kh, kw, s)
-  switch (pixels_per_thread(H, W)) {
-    case 8: return KCCOT_STEP(8);
-    case 4: return KCCOT_STEP(4);
-    default: return KCCOT_STEP(2);
-  }
-#undef KCCOT_STEP
+                 long long dx_bstride, void* dbpart, int B, int H, int W, int f, cudaStream_t s) {
+  const StepGrid sg = step_grid(B, H, W, f);
+  if (sg.v == 1)
+    return launch_step<T, 1>(sg, gates, g_bstride, c_prev, cp_bstride, dy, dy_bstride, dh, dc,
+                             dx, dx_bstride, dbpart, B, H, W, f, s);
+  // 4 channels a thread: every stack's rows and strides keep V-element
+  // accesses aligned to their width
+  const size_t w = 4 * sizeof(T);
+  if (!aligned16(c_prev) || !aligned16(dh) || !aligned16(dc) || cp_bstride % 4 != 0 ||
+      reinterpret_cast<uintptr_t>(dy) % w != 0 || reinterpret_cast<uintptr_t>(dx) % w != 0 ||
+      dy_bstride % 4 != 0 || dx_bstride % 4 != 0)
+    return cudaErrorMisalignedAddress;
+  return launch_step<T, 4>(sg, gates, g_bstride, c_prev, cp_bstride, dy, dy_bstride, dh, dc, dx,
+                           dx_bstride, dbpart, B, H, W, f, s);
 }
 
 cudaError_t dh_step(const void* dx, long long dx_bstride, const void* rkT4, const void* mask,
@@ -947,16 +877,11 @@ cudaError_t wgrad(int dtype, const void* y, const void* h0c, const void* dx, voi
 }  // namespace
 
 // Rows of the db partial that kccot_convlstm_bwd_step accumulates into,
-// [rows, 4f] float32, zeroed by the caller: float32, one per (sample,
-// spatial tile); bfloat16, one per M tile of the gate GEMM.
-extern "C" int kccot_convlstm_bwd_rows(int dtype, int B, int H, int W, int f) {
+// [rows, 4f] float32, zeroed by the caller: one per block of the
+// adjoint's grid (its x extent), either dtype.
+extern "C" int kccot_convlstm_bwd_rows(int B, int H, int W, int f) {
   if (B <= 0 || H <= 0 || W <= 0 || f <= 0) return 0;
-  if (dtype == 1) {
-    const int bm = shape_bm(gate_shape(B, H, W, f));
-    return (int)(((long long)B * H * W + bm - 1) / bm);
-  }
-  const Tile t = make_tile(H, W, f, pixels_per_thread(H, W));
-  return B * t.tiles_w * t.tiles_h;
+  return (int)step_grid(B, H, W, f).grid.x;
 }
 
 // Output tiles of the weight-gradient GEMM at M = kh*kw*f, N = 4f (the
@@ -972,30 +897,29 @@ extern "C" int kccot_recurrent_wgrad_tiles(int dtype, int M, int f, int masked) 
 }
 
 // Step t of the reverse loop, kernel 1 (module comment).  dtype 0 =
-// float32, 1 = bfloat16: the dtype of x, hp, dy and dx.  x, dy and dx
-// point at step t of their [B, T, H, W, *] stacks; hp at y[:, t-1] or at
-// cdt(h0); c_prev at c_stack[:, t-1] or at c0; each with its per-sample
-// stride in elements.  dh (read) and dc (read and written) are the f32
-// carries [B, H, W, f]; w as in kccot_convlstm_fwd_step (float32: rk4;
-// bfloat16: the packed gate weight, on the tensor cores).  masked: the
-// recurrent-dropout mode, hp at the hm stack's step t-1 or at hm_{-1}
-// ([B, *, H, W, 4f], kccot_convlstm_fwd_step) and, for bfloat16, w packed
-// from the block-diagonal weight.
-extern "C" int kccot_convlstm_bwd_step(int dtype, const void* x, long long x_bstride,
-                                       const void* hp, long long hp_bstride, const void* c_prev,
-                                       long long cp_bstride, const void* w, const void* bias,
-                                       const void* dy, long long dy_bstride, const void* dh,
-                                       void* dc, void* dx, long long dx_bstride, void* dbpart,
-                                       int masked, int B, int H, int W, int f, int kh, int kw,
-                                       void* stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || f <= 0 || kh <= 0 || kw <= 0) return cudaErrorInvalidValue;
+// float32, 1 = bfloat16: the dtype of dy and dx.  gates points at step t
+// of the forward's f32 gate stack [B, T, H, W, 4f] (gate g of channel j
+// at 4j + g; 16-byte aligned, g_bstride a multiple of 4), dy and dx at
+// step t of theirs ([B, T, H, W, f] and [B, T, H, W, 4f]), c_prev at
+// c_stack[:, t-1] or at c0; each with its per-sample stride in elements.
+// dh (read) and dc (read and written) are the f32 carries [B, H, W, f].
+// Where f is a multiple of 4 every pointer and stride must keep 4-element
+// accesses aligned (16 bytes for the f32 ones, 4 elements for dy and dx).
+// The same call serves recurrent dropout: the masks enter only the convs.
+extern "C" int kccot_convlstm_bwd_step(int dtype, const void* gates, long long g_bstride,
+                                       const void* c_prev, long long cp_bstride, const void* dy,
+                                       long long dy_bstride, const void* dh, void* dc, void* dx,
+                                       long long dx_bstride, void* dbpart, int B, int H, int W,
+                                       int f, void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || f <= 0) return cudaErrorInvalidValue;
+  if (!aligned16(gates) || g_bstride % 4 != 0) return cudaErrorMisalignedAddress;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return step(x, x_bstride, hp, hp_bstride, c_prev, cp_bstride, w, bias, dy,
-                       dy_bstride, dh, dc, dx, dx_bstride, dbpart, masked, B, H, W, f, kh, kw, s);
+    return step<float>(gates, g_bstride, c_prev, cp_bstride, dy, dy_bstride, dh, dc, dx,
+                       dx_bstride, dbpart, B, H, W, f, s);
   if (dtype == 1)
-    return step_tc(x, x_bstride, hp, hp_bstride, c_prev, cp_bstride, w, bias, dy, dy_bstride, dh,
-                   dc, dx, dx_bstride, dbpart, masked, B, H, W, f, kh, kw, s);
+    return step<bf16>(gates, g_bstride, c_prev, cp_bstride, dy, dy_bstride, dh, dc, dx,
+                      dx_bstride, dbpart, B, H, W, f, s);
   return cudaErrorInvalidValue;
 }
 

@@ -14,8 +14,12 @@
 //   c_t = sigmoid(z_f) * c_{t-1} + sigmoid(z_i) * tanh(z_c)
 //   h_t = sigmoid(z_o) * tanh(c_t);  y_t = cdt(h_t)
 // with TF 'SAME' stride-1 padding (lo = (k-1)/2, the odd pad high).
-// Under autograd it also writes c_t into the f32 c stack (the TPU
-// kernel's cs_ref), which the backward reads.
+// Under autograd it also writes what the backward reads: c_t into the f32
+// c stack (the TPU kernel's cs_ref) and the four pre-activations z_g into
+// the f32 gate stack [B, T, H, W, 4f], those of channel j side by side at
+// 4j + g, one 16-byte store from the thread that holds them.  The backward
+// then runs the cell adjoint on them instead of the recurrent conv again
+// (convlstm_bwd.cu).  A forward-only call (serving, eval) writes neither.
 //
 // What bounds it: the recurrent conv, an implicit GEMM with M = B*H*W,
 // N = 4f, K = kh*kw*f (2*M*N*K FLOP a step), and, once that runs on the
@@ -27,9 +31,10 @@
 //   wrapper rounds once -- halo included; B is cdt(rk) packed once per
 //   call by the wrapper, [kh*kw*f, 16*ceil(f/4)], its columns ordered so
 //   that a thread's accumulators hold the four gates of its (pixel, j)
-//   and the gate math runs on them: the pre-activations never go to
-//   memory.  The tile is chosen per layer so a launch has at least one
-//   block per SM where the shape allows (enc4: 32x64 tiles, 256 blocks).
+//   and the gate math runs on them: the pre-activations go to memory only
+//   as the gate stack, one 16-byte store each.  The tile is chosen per
+//   layer so a launch has at least one block per SM where the shape
+//   allows (enc4: 32x64 tiles, 256 blocks).
 //   bf16 x bf16 products are exact in f32, so only the order of the f32
 //   sums differs from the f32-FMA version.
 // * f32 (dtype 0): the CUDA cores in f32 FMA, as TF32 would miss the f32
@@ -63,6 +68,7 @@ convlstm_step_kernel(const float* __restrict__ x, long long x_bstride,
                      float* __restrict__ h_next, float* __restrict__ c_next,
                      float* __restrict__ y, long long y_bstride,
                      float* __restrict__ cs, long long cs_bstride,
+                     float* __restrict__ gates, long long g_bstride,
                      const float* __restrict__ hm, long long hm_bstride,
                      const float* __restrict__ mask, float* __restrict__ hm_out,
                      long long hmo_bstride, int H, int W, int f, int kh, int kw,
@@ -114,6 +120,9 @@ convlstm_step_kernel(const float* __restrict__ x, long long x_bstride,
     h_next[s] = h;
     y[b * y_bstride + pix * f + j] = h;
     if (cs != nullptr) cs[b * cs_bstride + pix * f + j] = c;
+    if (gates != nullptr)
+      *reinterpret_cast<float4*>(gates + b * g_bstride + pix * f4 + 4 * j) =
+          make_float4(z[0], z[1], z[2], z[3]);
     if (hm_out != nullptr) {
       const float* mp = mask + ((long long)b * H * W + pix) * f4 + j;
       float* hp = hm_out + b * hmo_bstride + pix * f4 + j;
@@ -122,6 +131,16 @@ convlstm_step_kernel(const float* __restrict__ x, long long x_bstride,
     }
   }
 }
+
+// What a step saves for the backward, each at step t of its stack with
+// its per-sample stride (both null in a forward-only call): the c stack
+// [B, T, H, W, f] and the gate stack [B, T, H, W, 4f], float32.
+struct Saved {
+  void* cs;
+  long long cs_bstride;
+  void* gates;
+  long long g_bstride;
+};
 
 // The masked-mode operands of a step (all null without recurrent dropout):
 // hm = hm_{t-1} with its per-sample stride, the masks [B, H, W, 4f] f32,
@@ -137,8 +156,8 @@ struct Masked {
 template <int kPix>
 cudaError_t launch(const void* x, long long x_bstride, const void* h_prev, const void* c_prev,
                    const void* rk4, const void* bias, void* h_next, void* c_next, void* y,
-                   long long y_bstride, void* cs, long long cs_bstride, const Masked& mk, int B,
-                   int H, int W, int f, int kh, int kw, cudaStream_t stream) {
+                   long long y_bstride, const Saved& sv, const Masked& mk, int B, int H, int W,
+                   int f, int kh, int kw, cudaStream_t stream) {
   const Tile t = make_tile(H, W, f, kPix);
   const dim3 block(t.jt, t.nruns);
   const dim3 grid(t.tiles_w * t.tiles_h, (f + t.jt - 1) / t.jt, B);
@@ -149,8 +168,9 @@ cudaError_t launch(const void* x, long long x_bstride, const void* h_prev, const
       static_cast<const float*>(x), x_bstride, static_cast<const float*>(h_prev),
       static_cast<const float*>(c_prev), static_cast<const float4*>(rk4),
       static_cast<const float*>(bias), static_cast<float*>(h_next),
-      static_cast<float*>(c_next), static_cast<float*>(y), y_bstride, static_cast<float*>(cs),
-      cs_bstride, static_cast<const float*>(mk.hm), mk.hm_bstride,
+      static_cast<float*>(c_next), static_cast<float*>(y), y_bstride, static_cast<float*>(sv.cs),
+      sv.cs_bstride, static_cast<float*>(sv.gates), sv.g_bstride, static_cast<const float*>(mk.hm),
+      mk.hm_bstride,
       static_cast<const float*>(mk.mask), static_cast<float*>(mk.hm_out), mk.hmo_bstride, H, W, f,
       kh, kw, t.tile_h, t.tile_w, t.tiles_w);
   return cudaGetLastError();
@@ -158,11 +178,11 @@ cudaError_t launch(const void* x, long long x_bstride, const void* h_prev, const
 
 cudaError_t dispatch(const void* x, long long x_bstride, const void* h_prev, const void* c_prev,
                      const void* rk4, const void* bias, void* h_next, void* c_next, void* y,
-                     long long y_bstride, void* cs, long long cs_bstride, const Masked& mk, int B,
-                     int H, int W, int f, int kh, int kw, cudaStream_t stream) {
+                     long long y_bstride, const Saved& sv, const Masked& mk, int B, int H, int W,
+                     int f, int kh, int kw, cudaStream_t stream) {
 #define KCCOT_FWD(PIX)                                                                           \
-  launch<PIX>(x, x_bstride, h_prev, c_prev, rk4, bias, h_next, c_next, y, y_bstride, cs,         \
-              cs_bstride, mk, B, H, W, f, kh, kw, stream)
+  launch<PIX>(x, x_bstride, h_prev, c_prev, rk4, bias, h_next, c_next, y, y_bstride, sv, mk, B, \
+              H, W, f, kh, kw, stream)
   switch (pixels_per_thread(H, W)) {
     case 8: return KCCOT_FWD(8);
     case 4: return KCCOT_FWD(4);
@@ -181,6 +201,7 @@ convlstm_step_tc_kernel(const bf16* __restrict__ x, long long x_bstride,
                         const float* __restrict__ bias, float* __restrict__ h_next,
                         float* __restrict__ c_next, bf16* __restrict__ y, long long y_bstride,
                         float* __restrict__ cs, long long cs_bstride,
+                        float* __restrict__ gates, long long g_bstride,
                         const float* __restrict__ mask, bf16* __restrict__ hm_out,
                         long long hmo_bstride, int B, int H, int W, int f, int cin, int kh,
                         int kw) {
@@ -212,6 +233,9 @@ convlstm_step_tc_kernel(const bf16* __restrict__ x, long long x_bstride,
     h_next[s] = h;
     y[b * y_bstride + (long long)pix * f + j] = from_f32<bf16>(h);
     if (cs != nullptr) cs[b * cs_bstride + (long long)pix * f + j] = c;
+    if (gates != nullptr)
+      *reinterpret_cast<float4*>(gates + b * g_bstride + (long long)pix * f4 + 4 * j) =
+          make_float4(z[0], z[1], z[2], z[3]);
     if (hm_out != nullptr) {
       const float* mp = mask + (long long)m * f4 + j;
       bf16* hq = hm_out + b * hmo_bstride + (long long)pix * f4 + j;
@@ -224,7 +248,7 @@ convlstm_step_tc_kernel(const bf16* __restrict__ x, long long x_bstride,
 template <class Cfg, bool kVec>
 cudaError_t launch_tc(const void* x, long long x_bstride, const void* hp, long long hp_bstride,
                       const void* c_prev, const void* wpk, const void* bias, void* h_next,
-                      void* c_next, void* y, long long y_bstride, void* cs, long long cs_bstride,
+                      void* c_next, void* y, long long y_bstride, const Saved& sv,
                       const Masked& mk, int B, int H, int W, int f, int cin, int kh, int kw,
                       cudaStream_t stream) {
   const int npad = 16 * ((f + 3) / 4);
@@ -236,7 +260,8 @@ cudaError_t launch_tc(const void* x, long long x_bstride, const void* hp, long l
       x_bstride, static_cast<const bf16*>(hp), hp_bstride, static_cast<const float*>(c_prev),
       static_cast<const bf16*>(wpk), npad, static_cast<const float*>(bias),
       static_cast<float*>(h_next), static_cast<float*>(c_next), static_cast<bf16*>(y), y_bstride,
-      static_cast<float*>(cs), cs_bstride, static_cast<const float*>(mk.mask),
+      static_cast<float*>(sv.cs), sv.cs_bstride, static_cast<float*>(sv.gates), sv.g_bstride,
+      static_cast<const float*>(mk.mask),
       static_cast<bf16*>(mk.hm_out), mk.hmo_bstride, B, H, W, f, cin, kh, kw);
 }
 
@@ -244,13 +269,13 @@ cudaError_t launch_tc(const void* x, long long x_bstride, const void* hp, long l
 // dropout (then wpk is the block-diagonal weight, [kh*kw*4f, npad]).
 cudaError_t dispatch_tc(const void* x, long long x_bstride, const void* hp, long long hp_bstride,
                         const void* c_prev, const void* wpk, const void* bias, void* h_next,
-                        void* c_next, void* y, long long y_bstride, void* cs, long long cs_bstride,
+                        void* c_next, void* y, long long y_bstride, const Saved& sv,
                         const Masked& mk, int B, int H, int W, int f, int kh, int kw,
                         cudaStream_t stream) {
   const int cin = mk.mask != nullptr ? 4 * f : f;
 #define KCCOT_FWD_TC(CFG, VEC)                                                                  \
   launch_tc<CFG, VEC>(x, x_bstride, hp, hp_bstride, c_prev, wpk, bias, h_next, c_next, y,      \
-                      y_bstride, cs, cs_bstride, mk, B, H, W, f, cin, kh, kw, stream)
+                      y_bstride, sv, mk, B, H, W, f, cin, kh, kw, stream)
   if (cin % 8 != 0) return KCCOT_FWD_TC(Cfg64x64, false);
   if (!aligned16(hp) || hp_bstride % 8 != 0) return cudaErrorMisalignedAddress;
   switch (pick_shape((long long)B * H * W, 16 * ((f + 3) / 4))) {
@@ -267,8 +292,10 @@ cudaError_t dispatch_tc(const void* x, long long x_bstride, const void* hp, long
 // One step: dtype 0 = float32, 1 = bfloat16 (the dtype of x and y).
 // x and y point at time step t of [B, T, H, W, 4f] / [B, T, H, W, f]
 // stacks, with the given per-sample strides in elements; h and c are
-// [B, H, W, f] float32; bias [4f] float32.  cs, if not null, points at
-// step t of the f32 c stack [B, T, H, W, f].
+// [B, H, W, f] float32; bias [4f] float32.  cs and gates, if not null,
+// point at step t of the f32 c stack [B, T, H, W, f] and of the f32 gate
+// stack [B, T, H, W, 4f] (gate g of channel j at 4j + g; 16-byte aligned,
+// g_bstride a multiple of 4), each with its per-sample stride.
 // float32: the CUDA-core kernel reads h_prev; w is rk4, the recurrent
 // kernel as float32 with its gates interleaved, [kh, kw, f_in, f_out, 4]
 // (16-byte aligned); hp is not read.
@@ -289,19 +316,23 @@ extern "C" int kccot_convlstm_fwd_step(int dtype, const void* x, long long x_bst
                                        const void* h_prev, const void* hp, long long hp_bstride,
                                        const void* c_prev, const void* w, const void* bias,
                                        void* h_next, void* c_next, void* y, long long y_bstride,
-                                       void* cs, long long cs_bstride, const void* mask,
-                                       void* hm_out, long long hmo_bstride, int B, int H, int W,
-                                       int f, int kh, int kw, void* stream) {
+                                       void* cs, long long cs_bstride, void* gates,
+                                       long long g_bstride, const void* mask, void* hm_out,
+                                       long long hmo_bstride, int B, int H, int W, int f, int kh,
+                                       int kw, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || H <= 0 || W <= 0 || f <= 0 || kh <= 0 || kw <= 0) return cudaErrorInvalidValue;
   if (mask == nullptr && hm_out != nullptr) return cudaErrorInvalidValue;
+  if (gates != nullptr && (!aligned16(gates) || g_bstride % 4 != 0))
+    return cudaErrorMisalignedAddress;
+  const Saved sv{cs, cs_bstride, gates, g_bstride};
   const Masked mk{mask != nullptr ? hp : nullptr, hp_bstride, mask, hm_out, hmo_bstride};
   if (dtype == 0)
-    return dispatch(x, x_bstride, h_prev, c_prev, w, bias, h_next, c_next, y, y_bstride,
-                           cs, cs_bstride, mk, B, H, W, f, kh, kw, s);
+    return dispatch(x, x_bstride, h_prev, c_prev, w, bias, h_next, c_next, y, y_bstride, sv, mk,
+                    B, H, W, f, kh, kw, s);
   if (dtype == 1)
     return dispatch_tc(x, x_bstride, hp, hp_bstride, c_prev, w, bias, h_next, c_next, y,
-                       y_bstride, cs, cs_bstride, mk, B, H, W, f, kh, kw, s);
+                       y_bstride, sv, mk, B, H, W, f, kh, kw, s);
   return cudaErrorInvalidValue;
 }
 

@@ -11,19 +11,18 @@
 // pixels.  Grid: x = spatial tile, y = channel tile, z = sample.
 //
 // bf16 path (tensor cores): one implicit-GEMM building block that all
-// four products of the recurrence use -- the forward step's and the
-// backward recompute's conv (M = B*H*W, N = 4f, K = kh*kw*f), the
-// backward's transposed conv dh (N = f, K = kh*kw*4f) and the weight
-// gradient drk (M = kh*kw*f, N = 4f, K = B*T*H*W).  A block computes a
-// BM x BN tile of C = A B with warps of 32 x 8*NI each, by
-// mma.sync.m16n8k16 (bf16 x bf16 -> f32) on fragments read by ldmatrix;
-// A and B reach shared memory by cp.async, kStages k-tiles of 32 in
-// flight.  The loaders gather: A as (pixel, (tap, ci)) from a frame with
-// its halo (zero outside), K ordered tap by tap with the ci of a tap
-// contiguous, so one 16-byte copy moves 8 channels of one tap and a k16
-// step spans two taps when f = 8.  Where the channel count is not a
-// multiple of 8 the loaders copy element by element instead (same
-// tiles, same mma).
+// three products of the recurrence use -- the forward step's conv (M =
+// B*H*W, N = 4f, K = kh*kw*f), the backward's transposed conv dh (N = f,
+// K = kh*kw*4f) and the weight gradient drk (M = kh*kw*f, N = 4f, K =
+// B*T*H*W).  A block computes a BM x BN tile of C = A B with warps of
+// 32 x 8*NI each, by mma.sync.m16n8k16 (bf16 x bf16 -> f32) on fragments
+// read by ldmatrix; A and B reach shared memory by cp.async, kStages
+// k-tiles of 32 in flight.  The loaders gather: A as (pixel, (tap, ci))
+// from a frame with its halo (zero outside), K ordered tap by tap with
+// the ci of a tap contiguous, so one 16-byte copy moves 8 channels of one
+// tap and a k16 step spans two taps when f = 8.  Where the channel count
+// is not a multiple of 8 the loaders copy element by element instead
+// (same tiles, same mma).
 #pragma once
 
 #include <cooperative_groups.h>

@@ -13,12 +13,15 @@ once to the compute dtype and back; then ``(x_t + bias) + rconv`` in f32
 and the Keras gates [i, f, c, o] (sigmoid / tanh).
 
 Gradients: when autograd needs one, ``convlstm_scan`` runs
-``ConvLstmScan``, whose forward also keeps the f32 c stack and whose
-backward is the reverse-time adjoint of ``_bwd_kernel``
-(``convlstm_bwd``): gates recomputed from ``y[t-1]`` (or ``h0``) and the
-c stack, ``dx = cdt(dz)``, ``db`` summed from the f32 ``dz``,
-``dh_{t-1}`` the transposed conv of ``cdt(dz)`` kept in f32, and ``drk``
-the sum of ``cdt(h_{t-1})^T cdt(dz)`` over steps, samples and pixels.
+``ConvLstmScan``, whose forward also keeps the f32 c stack and the f32
+gate stack ``gates [B, T, H', W', 4f]``, each step's pre-activations
+``z_t`` with gate g of channel j at ``4j + g``, and whose backward is the
+reverse-time adjoint of ``_bwd_kernel`` (``convlstm_bwd``): the cell
+adjoint on the saved gates and the c stack (``_bwd_kernel`` recomputes
+the gates; ``convlstm_bwd_reference`` still does), ``dx = cdt(dz)``,
+``db`` summed from the f32 ``dz``, ``dh_{t-1}`` the transposed conv of
+``cdt(dz)`` kept in f32, and ``drk`` the sum of ``cdt(h_{t-1})^T
+cdt(dz)`` over steps, samples and pixels.
 
 Recurrent dropout (``rec_masks [4, B, H', W', f]``, Keras
 ``recurrent_dropout`` of ``layers.ConvLSTM2D``): gate g's conv reads
@@ -28,19 +31,23 @@ W', 4f]`` frames (channel ``g*f + j``) for ``t = -1 .. T-2``, which the
 backward reads: ``dh_{t-1} = sum_g mask_g * dhm_g`` and gate g's columns
 of ``drk`` sum ``hm_g^T dz_g``.
 
-Dispatch: CPU tensors run the plain versions (``convlstm_fwd_reference``,
-``convlstm_bwd_reference``); CUDA tensors launch ``csrc/convlstm_fwd.cu``
-once per time step and ``csrc/convlstm_bwd.cu`` twice per step plus twice
-for the weight gradient (or raise).  The compute dtype picks the engine
-inside each kernel: bf16 runs the recurrent conv, dh and drk as implicit
-GEMMs on the tensor cores, with the weights packed here once per call
-(``_pack_gates``, ``_pack_dh``); f32 runs them on the CUDA cores in f32
+Dispatch: CPU tensors run the plain versions (``convlstm_fwd_reference``'s
+loop, and ``convlstm_bwd_reference``'s on the saved gates); CUDA tensors
+launch ``csrc/convlstm_fwd.cu`` once per time step and
+``csrc/convlstm_bwd.cu`` twice per step (the cell adjoint, then dh) plus
+twice for the weight gradient (or raise).
+The compute dtype picks the engine inside each kernel: bf16 runs the
+recurrent conv, dh and drk as implicit GEMMs on the tensor cores, with
+the weights packed here once per call (``_pack_gates`` in the forward,
+``_pack_dh`` in the backward); f32 runs them on the CUDA cores in f32
 FMA (``_rk4``).  Under recurrent dropout the same kernels run in their
 masked mode, with the launches of the unmasked ones: bf16 takes the
 gate GEMM over the four masked h's and the block-diagonal weight
 (``_block_diagonal``), dh with gate-quad columns (``_pack_dh_gates``);
 f32 reads ``_rk4`` gate by gate.  Each wrapper counts its calls in
-``.calls`` and its kernel launches in ``.launches``.
+``.calls`` and its kernel launches in ``.launches``; ``convlstm_fwd``
+counts in ``.gate_stacks`` the calls that wrote a gate stack, on either
+device.
 
 Inference (no gradient, no masks) goes through the registered operator
 ``torch.ops.kccot.convlstm_fwd`` (``convlstm_fwd_op``): ``(xconv, h0,
@@ -102,19 +109,33 @@ def _masked_h(h, mask, cdt):
     return (h.unsqueeze(3) * mask.view(b, hh, ww, 4, f)).reshape(b, hh, ww, 4 * f).to(cdt)
 
 
-def _fwd_plain(xconv, h0, c0, rec_kernel, bias, rec_masks):
-    """``(y, c_stack, h_n, c_n, hm)``; ``hm`` is ``(hm0, hm stack)`` under
-    ``rec_masks`` (the module docstring), else None."""
+def _gate_quads(z):
+    """Gate-major ``[..., 4f]`` (channel ``g*f + j``) -> the gate stack's
+    ``[..., 4f]`` (``4j + g``)."""
+    return z.unflatten(-1, (4, -1)).transpose(-1, -2).flatten(-2)
+
+
+def _gate_major_z(gq):
+    """The gate stack's ``[..., 4f]`` (``4j + g``) -> gate-major."""
+    return gq.unflatten(-1, (-1, 4)).transpose(-1, -2).flatten(-2)
+
+
+def _fwd_plain(xconv, h0, c0, rec_kernel, bias, rec_masks, with_gates=False):
+    """``(y, c_stack, h_n, c_n, hm, gates)``; ``hm`` is ``(hm0, hm stack)``
+    under ``rec_masks`` (the module docstring), else None; ``gates`` the
+    gate stack if ``with_gates``, else None."""
     cdt = xconv.dtype
     f = h0.shape[-1]
     h, c = h0, c0
-    ys, cs, hms = [], [], []
+    ys, cs, hms, zs = [], [], [], []
     mask = _gate_major(rec_masks) if rec_masks is not None else None
     for t in range(xconv.shape[1]):
         if mask is not None:
             hms.append(_masked_h(h, mask, cdt))
         rconv = _rconv(h, rec_kernel, cdt, rec_masks)
         z = (xconv[:, t].float() + bias) + rconv
+        if with_gates:
+            zs.append(_gate_quads(z))
         i = torch.sigmoid(z[..., :f])
         fg = torch.sigmoid(z[..., f : 2 * f])
         c = fg * c + i * torch.tanh(z[..., 2 * f : 3 * f])
@@ -124,7 +145,8 @@ def _fwd_plain(xconv, h0, c0, rec_kernel, bias, rec_masks):
     hm = None
     if mask is not None:  # the stack's slot t holds hm_t; its last slot is never read
         hm = (hms[0], torch.stack(hms[1:] + hms[-1:], dim=1))
-    return torch.stack(ys, dim=1), torch.stack(cs, dim=1), h, c, hm
+    gates = torch.stack(zs, dim=1) if with_gates else None
+    return torch.stack(ys, dim=1), torch.stack(cs, dim=1), h, c, hm, gates
 
 
 def convlstm_fwd_reference(xconv, h0, c0, rec_kernel, bias, rec_masks=None):
@@ -151,7 +173,8 @@ def _shifted(hp, kh, kw):
 
 def convlstm_bwd_reference(xconv, h0, c0, rec_kernel, bias, y, c_stack, dy, dh_n, dc_n,
                            rec_masks=None, hm=None):
-    """Plain port of ``_bwd_kernel``: ``(dx, dh0, dc0, drk, db)``.
+    """Plain port of ``_bwd_kernel``: ``(dx, dh0, dc0, drk, db)``, the
+    gates recomputed at each reverse step as the TPU kernel does.
 
     ``dy`` is in the compute dtype; the products of compute-dtype values
     are summed in f32 (the kernel's ``preferred_element_type``), and only
@@ -160,7 +183,22 @@ def convlstm_bwd_reference(xconv, h0, c0, rec_kernel, bias, y, c_stack, dy, dh_n
     h's, as one conv over the gate-major ``hm`` with the block-diagonal
     weight."""
     cdt = xconv.dtype
-    b, t_total, ho, wo, f4 = xconv.shape
+    rk = _block_diagonal(rec_kernel) if rec_masks is not None else rec_kernel
+
+    def gates_at(t, hp):
+        rconv = same_conv(hp, rk, (1, 1), cdt, out_dtype=cdt).float()
+        return (xconv[:, t].float() + bias) + rconv
+
+    return _bwd_plain(gates_at, xconv.shape, h0, c0, rec_kernel, y, c_stack, dy, dh_n, dc_n,
+                      rec_masks, hm)
+
+
+def _bwd_plain(gates_at, shape, h0, c0, rec_kernel, y, c_stack, dy, dh_n, dc_n, rec_masks, hm):
+    """The reverse loop of ``convlstm_bwd_reference``: ``gates_at(t,
+    hp)`` gives step t's gate-major pre-activations ``z_t`` from ``hp``,
+    the compute-dtype h (or masked h's) its recurrent conv read."""
+    cdt = y.dtype
+    b, t_total, ho, wo, f4 = shape
     f = f4 // 4
     kh, kw = rec_kernel.shape[0], rec_kernel.shape[1]
     masked = rec_masks is not None
@@ -170,9 +208,9 @@ def convlstm_bwd_reference(xconv, h0, c0, rec_kernel, bias, y, c_stack, dy, dh_n
     rk = rec_kernel.to(cdt).float()
     cin = rk.shape[2]
     dh, dc = dh_n.float(), dc_n.float()
-    dx = torch.empty_like(xconv)
-    drk = torch.zeros(kh, kw, cin, f4, dtype=torch.float32, device=xconv.device)
-    db = torch.zeros(f4, dtype=torch.float32, device=xconv.device)
+    dx = torch.empty(shape, dtype=cdt, device=y.device)
+    drk = torch.zeros(kh, kw, cin, f4, dtype=torch.float32, device=y.device)
+    db = torch.zeros(f4, dtype=torch.float32, device=y.device)
     # dh_prev: correlate dz with the flipped kernel, pads (hi, lo) swapped
     w_t = torch.flip(rk, (0, 1)).permute(2, 3, 0, 1)  # [f, 4f, kh, kw]
     (lh, hh), (lw, hw) = _same_pads(kh), _same_pads(kw)
@@ -182,8 +220,7 @@ def convlstm_bwd_reference(xconv, h0, c0, rec_kernel, bias, y, c_stack, dy, dh_n
             hp = hm[0] if t == 0 else hm[1][:, t - 1]
         else:
             hp = (h0 if t == 0 else y[:, t - 1]).to(cdt)
-        rconv = same_conv(hp, rec_kernel, (1, 1), cdt, out_dtype=cdt).float()
-        z = (xconv[:, t].float() + bias) + rconv
+        z = gates_at(t, hp)
         i = torch.sigmoid(z[..., :f])
         fg = torch.sigmoid(z[..., f : 2 * f])
         g = torch.tanh(z[..., 2 * f : 3 * f])
@@ -332,7 +369,10 @@ def _launch_fwd(xconv, h0, c0, rec_kernel, bias, with_c_stack, rec_masks):
         hm = torch.empty(b, t, ho, wo, 4 * f, dtype=cdt, device=dev)
     lib = load_library()
     y = torch.empty(b, t, ho, wo, f, dtype=cdt, device=dev)
-    cs = torch.empty(b, t, ho, wo, f, dtype=torch.float32, device=dev) if with_c_stack else None
+    cs = gates = None
+    if with_c_stack:
+        cs = torch.empty(b, t, ho, wo, f, dtype=torch.float32, device=dev)
+        gates = torch.empty(b, t, ho, wo, 4 * f, dtype=torch.float32, device=dev)
     # h is read through the conv halo, so it is double-buffered; c is too,
     # so that the caller's (h0, c0) are never written.
     hbuf = [torch.empty_like(h0), torch.empty_like(h0)]
@@ -342,6 +382,7 @@ def _launch_fwd(xconv, h0, c0, rec_kernel, bias, with_c_stack, rec_masks):
     x_bstride, y_bstride = t * hw * 4 * f, t * hw * f
     h_prev, c_prev = h0, c0
     convlstm_fwd.calls += 1
+    convlstm_fwd.gate_stacks += int(with_c_stack)
     for s in range(t):
         h_next, c_next = hbuf[s % 2], cbuf[s % 2]
         hm_out = None
@@ -366,26 +407,30 @@ def _launch_fwd(xconv, h0, c0, rec_kernel, bias, with_c_stack, rec_masks):
             h_next.data_ptr(), c_next.data_ptr(),
             y.data_ptr() + s * hw * f * isz, y_bstride,
             cs.data_ptr() + s * hw * f * 4 if cs is not None else None, y_bstride,
+            gates.data_ptr() + s * hw * 4 * f * 4 if gates is not None else None, x_bstride,
             mask.data_ptr() if mask is not None else None, hm_out, 4 * y_bstride,
             b, ho, wo, f, kh, kw, stream,
         )
         _raise_on(lib, err, "convlstm_fwd")
         convlstm_fwd.launches += 1
         h_prev, c_prev = h_next, c_next
-    return y, cs, h_prev, c_prev, (hm0, hm) if mask is not None else None
+    return y, cs, h_prev, c_prev, gates, (hm0, hm) if mask is not None else None
 
 
 def convlstm_fwd(xconv, h0, c0, rec_kernel, bias, with_c_stack=False, rec_masks=None):
-    """``(y, c_stack or None, h_n, c_n)``: the plain version for CPU
-    tensors, the forward kernel (one launch a step) for CUDA tensors.
-    With ``rec_masks`` (recurrent dropout) a fifth element, ``hm``, which
-    ``convlstm_bwd`` takes (module docstring)."""
+    """``(y, c_stack, h_n, c_n, gates)``: the plain version for CPU tensors,
+    the forward kernel (one launch a step) for CUDA tensors.  With
+    ``with_c_stack`` (what ``convlstm_bwd`` reads) the f32 c stack and the
+    f32 gate stack ``[B, T, H', W', 4f]`` (module docstring), else both
+    None.  With ``rec_masks`` (recurrent dropout) a sixth element, ``hm``,
+    which ``convlstm_bwd`` takes too."""
     args = (xconv, h0, c0, rec_kernel, bias)
     devices = {x.device.type for x in args if x is not None}
     devices |= {rec_masks.device.type} if rec_masks is not None else set()
     if devices == {"cpu"}:
-        y, cs, h, c, hm = _fwd_plain(*args, rec_masks)
-        out = y, cs if with_c_stack else None, h, c
+        y, cs, h, c, hm, gates = _fwd_plain(*args, rec_masks, with_gates=with_c_stack)
+        convlstm_fwd.gate_stacks += int(with_c_stack)
+        out = y, cs if with_c_stack else None, h, c, gates
     elif devices == {"cuda"}:
         *out, hm = _launch_fwd(*args, with_c_stack, rec_masks)
     else:
@@ -426,15 +471,30 @@ def recurrent_wgrad(lib, y, h0c, dx, dbpart, kh, kw, masked=False):
     return drk, db
 
 
-def _launch_bwd(xconv, h0, c0, rec_kernel, bias, y, c_stack, dy, dh_n, dc_n, rec_masks, hm):
-    from .._build import load_library
-
-    b, t, ho, wo, f, kh, kw = _geometry(xconv, h0, c0, rec_kernel, bias)
-    cdt, dev = xconv.dtype, xconv.device
+def _bwd_geometry(gates, h0, c0, rec_kernel, y, c_stack, dy, dh_n, dc_n):
+    """Checks the backward's inputs; returns ``(b, t, ho, wo, f, kh, kw)``."""
+    cdt = y.dtype
+    if cdt not in _DTYPE_CODES:
+        raise TypeError(f"convlstm: unsupported compute dtype {cdt}")
+    if y.dim() != 5:
+        raise ValueError(f"convlstm: y must be [B, T, H, W, f], got {tuple(y.shape)}")
+    b, t, ho, wo, f = y.shape
+    kh, kw = rec_kernel.shape[0], rec_kernel.shape[1]
+    dev = y.device
+    _check("gates", gates, (b, t, ho, wo, 4 * f), torch.float32, dev)
     for name, x, dtype in (("y", y, cdt), ("c_stack", c_stack, torch.float32), ("dy", dy, cdt)):
         _check(name, x, (b, t, ho, wo, f), dtype, dev)
-    _check("dh_n", dh_n, (b, ho, wo, f), torch.float32, dev)
-    _check("dc_n", dc_n, (b, ho, wo, f), torch.float32, dev)
+    for name, x in (("h0", h0), ("c0", c0), ("dh_n", dh_n), ("dc_n", dc_n)):
+        _check(name, x, (b, ho, wo, f), torch.float32, dev)
+    _check("rec_kernel", rec_kernel, (kh, kw, f, 4 * f), None, dev)
+    return b, t, ho, wo, f, kh, kw
+
+
+def _launch_bwd(gates, h0, c0, rec_kernel, y, c_stack, dy, dh_n, dc_n, rec_masks, hm):
+    from .._build import load_library
+
+    b, t, ho, wo, f, kh, kw = _bwd_geometry(gates, h0, c0, rec_kernel, y, c_stack, dy, dh_n, dc_n)
+    cdt, dev = y.dtype, y.device
     f4 = 4 * f
     mask = _masks_for_kernels(rec_masks, b, ho, wo, f, dev)
     if mask is not None:
@@ -442,41 +502,33 @@ def _launch_bwd(xconv, h0, c0, rec_kernel, bias, y, c_stack, dy, dh_n, dc_n, rec
             raise ValueError("convlstm: recurrent dropout's backward needs the forward's hm")
         _check("hm0", hm[0], (b, ho, wo, f4), cdt, dev)
         _check("hm", hm[1], (b, t, ho, wo, f4), cdt, dev)
-    if cdt == torch.bfloat16 and mask is not None:  # tensor cores, masked
-        w, wT = _pack_gates(_block_diagonal(rec_kernel), cdt), _pack_dh_gates(rec_kernel, cdt)
-    elif cdt == torch.bfloat16:  # tensor cores
-        w, wT = _pack_gates(rec_kernel, cdt), _pack_dh(rec_kernel, cdt)
+    if cdt == torch.bfloat16:  # tensor cores
+        wT = _pack_dh(rec_kernel, cdt) if mask is None else _pack_dh_gates(rec_kernel, cdt)
     else:
-        w = _rk4(rec_kernel, cdt)
         # [kh, kw, 4f/4, f, 4]: four consecutive output channels n of one ci
         wT = (
             rec_kernel.detach().to(cdt).float()
             .reshape(kh, kw, f, f4 // 4, 4).permute(0, 1, 3, 2, 4).contiguous()
         )
-    h0c = h0.to(cdt)  # h_{-1} as the kernels read y: rounded to the compute dtype
     lib = load_library()
     code = _DTYPE_CODES[cdt]
     dh, dc = dh_n.clone(), dc_n.clone()
-    dx = torch.empty_like(xconv)
-    dbpart = torch.zeros(lib.kccot_convlstm_bwd_rows(code, b, ho, wo, f), f4, device=dev)
+    dx = torch.empty(b, t, ho, wo, f4, dtype=cdt, device=dev)
+    dbpart = torch.zeros(lib.kccot_convlstm_bwd_rows(b, ho, wo, f), f4, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    isz, hw = xconv.element_size(), ho * wo
+    isz, hw = dx.element_size(), ho * wo
     x_bs, y_bs = t * hw * f4, t * hw * f
     convlstm_bwd.calls += 1
-    # hm_{t-1} (masked) or cdt(h_{t-1}): the stack at t-1, or its t = 0 frame
-    h_stack, h_first, c_in = (hm[1], hm[0], f4) if mask is not None else (y, h0c, f)
     for s in reversed(range(t)):
         if s:
-            hp, hp_bs = h_stack.data_ptr() + (s - 1) * hw * c_in * isz, t * hw * c_in
             cp, cp_bs = c_stack.data_ptr() + (s - 1) * hw * f * 4, y_bs
         else:
-            hp, hp_bs, cp, cp_bs = h_first.data_ptr(), hw * c_in, c0.data_ptr(), hw * f
+            cp, cp_bs = c0.data_ptr(), hw * f
         dx_t = dx.data_ptr() + s * hw * f4 * isz
         err = lib.kccot_convlstm_bwd_step(
-            code, xconv.data_ptr() + s * hw * f4 * isz, x_bs, hp, hp_bs, cp, cp_bs,
-            w.data_ptr(), bias.data_ptr(), dy.data_ptr() + s * hw * f * isz, y_bs,
-            dh.data_ptr(), dc.data_ptr(), dx_t, x_bs, dbpart.data_ptr(), int(mask is not None),
-            b, ho, wo, f, kh, kw, stream,
+            code, gates.data_ptr() + s * hw * f4 * 4, x_bs, cp, cp_bs,
+            dy.data_ptr() + s * hw * f * isz, y_bs, dh.data_ptr(), dc.data_ptr(), dx_t, x_bs,
+            dbpart.data_ptr(), b, ho, wo, f, stream,
         )
         _raise_on(lib, err, "convlstm_bwd step")
         err = lib.kccot_convlstm_bwd_dh(
@@ -485,21 +537,26 @@ def _launch_bwd(xconv, h0, c0, rec_kernel, bias, y, c_stack, dy, dh_n, dc_n, rec
         )
         _raise_on(lib, err, "convlstm_bwd dh")
         convlstm_bwd.launches += 2
+    # hm_{t-1} (masked) or cdt(h_{t-1}): the stack at t-1, or its t = 0 frame,
+    # h_{-1} rounded to the compute dtype as the kernels read y
+    h_stack, h_first = (hm[1], hm[0]) if mask is not None else (y, h0.to(cdt))
     drk, db = recurrent_wgrad(lib, h_stack, h_first, dx, dbpart, kh, kw, mask is not None)
     convlstm_bwd.launches += 2
     return dx, dh, dc, drk, db
 
 
-def convlstm_bwd(xconv, h0, c0, rec_kernel, bias, y, c_stack, dy, dh_n, dc_n, rec_masks=None,
-                 hm=None):
-    """``(dx, dh0, dc0, drk, db)`` of the recurrence: the plain version for
-    CPU tensors, the backward kernels for CUDA tensors.  ``rec_masks`` and
-    the forward's ``hm``: recurrent dropout."""
-    args = (xconv, h0, c0, rec_kernel, bias, y, c_stack, dy, dh_n, dc_n)
+def convlstm_bwd(gates, h0, c0, rec_kernel, y, c_stack, dy, dh_n, dc_n, rec_masks=None, hm=None):
+    """``(dx, dh0, dc0, drk, db)`` of the recurrence from what the forward
+    kept under ``with_c_stack``: the gate stack, y and the c stack (and
+    under recurrent dropout ``rec_masks`` and ``hm``).  The cell adjoint
+    runs on the saved gates, recomputing nothing: in plain PyTorch for
+    CPU tensors, by the backward kernels for CUDA tensors."""
+    args = (gates, h0, c0, rec_kernel, y, c_stack, dy, dh_n, dc_n)
     devices = {x.device.type for x in args}
     devices |= {rec_masks.device.type} if rec_masks is not None else set()
     if devices == {"cpu"}:
-        return convlstm_bwd_reference(*args, rec_masks, hm)
+        return _bwd_plain(lambda t, hp: _gate_major_z(gates[:, t]), gates.shape, h0, c0, rec_kernel,
+                          y, c_stack, dy, dh_n, dc_n, rec_masks, hm)
     if devices == {"cuda"}:
         return _launch_bwd(*args, rec_masks, hm)
     raise ValueError(f"convlstm: inputs on devices {sorted(devices)}")
@@ -507,6 +564,7 @@ def convlstm_bwd(xconv, h0, c0, rec_kernel, bias, y, c_stack, dy, dh_n, dc_n, re
 
 for _fn in (convlstm_fwd, convlstm_bwd):
     _fn.calls = _fn.launches = 0
+convlstm_fwd.gate_stacks = 0
 
 
 @torch.library.custom_op(
@@ -516,7 +574,7 @@ for _fn in (convlstm_fwd, convlstm_bwd):
 def convlstm_fwd_op(xconv, h0, c0, rec_kernel, bias):
     """The recurrence's forward without the c stack, ``(y, h_n, c_n)``: on
     the CPU the plain version."""
-    y, _, h, c, _ = _fwd_plain(xconv, h0, c0, rec_kernel, bias, None)
+    y, _, h, c, _, _ = _fwd_plain(xconv, h0, c0, rec_kernel, bias, None)
     return y, h, c
 
 
@@ -526,7 +584,7 @@ def _convlstm_fwd_cuda(xconv, h0, c0, rec_kernel, bias):
     # run time, which tracing may not have foreseen; the kernel takes
     # C-contiguous tensors.
     args = [x.contiguous() for x in (xconv, h0, c0, rec_kernel, bias)]
-    y, _, h, c, _ = _launch_fwd(*args, False, None)
+    y, _, h, c, _, _ = _launch_fwd(*args, False, None)
     return y, h, c
 
 
@@ -537,29 +595,32 @@ def _convlstm_fwd_fake(xconv, h0, c0, rec_kernel, bias):
 
 
 class ConvLstmScan(torch.autograd.Function):
-    """The recurrence under autograd: saves ``(xconv, h0, c0, rec_kernel,
-    bias, y, c_stack)`` as ``_vjp_fwd`` does, and under recurrent dropout
-    the masks and ``hm``; unused ``(h_n, c_n)`` count as zero cotangents.
-    The masks are constants (no gradient)."""
+    """The recurrence under autograd: saves ``(gates, h0, c0, rec_kernel,
+    y, c_stack)``, the forward's f32 gate stack in place of the
+    ``xconv`` and ``bias`` that ``_vjp_fwd`` saves to recompute the gates,
+    and under recurrent dropout the masks and ``hm``; unused ``(h_n,
+    c_n)`` count as zero cotangents.  The masks are constants (no
+    gradient)."""
 
     @staticmethod
     def forward(ctx, xconv, h0, c0, rec_kernel, bias, rec_masks=None):
-        y, cs, h, c, *hm = convlstm_fwd(
+        y, cs, h, c, gates, *hm = convlstm_fwd(
             xconv, h0, c0, rec_kernel, bias, with_c_stack=True, rec_masks=rec_masks
         )
         hm = hm[0] if hm else (None, None)
-        ctx.save_for_backward(xconv, h0, c0, rec_kernel, bias, y, cs, rec_masks, *hm)
+        ctx.save_for_backward(gates, h0, c0, rec_kernel, y, cs, rec_masks, *hm)
+        ctx.bias_dtype = bias.dtype
         return y, h, c
 
     @staticmethod
     def backward(ctx, dy, dh_n, dc_n):
-        xconv, h0, c0, rec_kernel, bias, y, cs, rec_masks, hm0, hm = ctx.saved_tensors
+        gates, h0, c0, rec_kernel, y, cs, rec_masks, hm0, hm = ctx.saved_tensors
         dx, dh0, dc0, drk, db = convlstm_bwd(
-            xconv, h0, c0, rec_kernel, bias, y, cs,
-            dy.to(xconv.dtype).contiguous(), dh_n.float().contiguous(), dc_n.float().contiguous(),
+            gates, h0, c0, rec_kernel, y, cs,
+            dy.to(y.dtype).contiguous(), dh_n.float().contiguous(), dc_n.float().contiguous(),
             rec_masks, (hm0, hm) if rec_masks is not None else None,
         )
-        return dx, dh0, dc0, drk.to(rec_kernel.dtype), db.to(bias.dtype), None
+        return dx, dh0, dc0, drk.to(rec_kernel.dtype), db.to(ctx.bias_dtype), None
 
 
 def convlstm_scan(xconv, h0, c0, rec_kernel, bias, rec_masks=None):

@@ -52,15 +52,18 @@ def convlstm_layers(cfg) -> dict:
     }
 
 
-def convlstm_work(layers: dict, b: int, t_of, backward: bool = False, cbytes: int = 2):
+def convlstm_work(layers: dict, b: int, t_of, backward: bool = False, cbytes: int = 2,
+                  recompute: bool = False):
     """``(ops, bytes)`` of the recurrences of ``layers`` at batch ``b`` and
     ``t_of(name)`` steps.  Forward: the recurrent conv (2 kh kw f 4f FLOP
     a pixel and step) and the gates (about 20 a channel); reads the x
     stack (compute dtype), h0, c0, kernel and bias (f32) and writes y
-    (compute dtype) and h, c (f32).  Backward: the recurrent conv three
-    times (gates recomputed, dh, dW) and the gate adjoint (about 40 a
-    channel); reads x, y and dy (compute dtype), the c stack, h0, c0, the
-    kernel and bias (f32), writes dx (compute dtype), dh0, dc0, dW, db."""
+    (compute dtype) and h, c (f32).  Backward: the recurrent conv twice
+    (dh and dW) and the gate adjoint (about 40 a channel); reads the f32
+    gate stack the forward kept, y and dy (compute dtype), the c stack,
+    h0, c0, the kernel and bias (f32), writes dx (compute dtype), dh0,
+    dc0, dW, db.  ``recompute``: a backward that recomputes the gates
+    instead, a third conv, reading the x stack in place of the gates."""
     ops = nbytes = 0
     for name, (hw, f, k) in layers.items():
         t = t_of(name)
@@ -69,8 +72,9 @@ def convlstm_work(layers: dict, b: int, t_of, backward: bool = False, cbytes: in
         state = 2 * b * hw * hw * f * 4
         weights = (k * k * f * 4 * f + 4 * f) * 4
         if backward:
-            ops += pix * (3 * conv + 40 * f)
-            nbytes += pix * (4 * f * cbytes * 2 + 2 * f * cbytes + f * 4) + 2 * state + 2 * weights
+            ops += pix * ((3 if recompute else 2) * conv + 40 * f)
+            gates = 4 * f * (cbytes if recompute else 4)
+            nbytes += pix * (gates + 4 * f * cbytes + 2 * f * cbytes + f * 4) + 2 * state + 2 * weights
         else:
             ops += pix * (conv + 20 * f)
             nbytes += pix * (4 * f * cbytes + f * cbytes) + 2 * state + weights
@@ -89,9 +93,11 @@ def lstm_layers(cfg) -> dict:
 def lstm_work(layers: dict, b: int, t: int, backward: bool = False, cbytes: int = 2):
     """``(ops, bytes)`` of the recurrences (the hoisted input projection is
     a plain product outside the kernel), as for the ConvLSTM with the
-    recurrent matmul ``2 U 4U`` a row and step in place of the conv."""
+    recurrent matmul ``2 U 4U`` a row and step in place of the conv; the
+    backward recomputes the gates."""
     return convlstm_work(
-        {name: (1, u, 1) for name, (_, u) in layers.items()}, b, lambda _: t, backward, cbytes
+        {name: (1, u, 1) for name, (_, u) in layers.items()}, b, lambda _: t, backward, cbytes,
+        recompute=True,
     )
 
 

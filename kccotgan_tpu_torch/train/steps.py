@@ -252,7 +252,7 @@ _TREES = ("enc_params", "dec_params", "h_params", "m_params", "h_stats", "m_stat
 # adds what its capture counted
 _KERNEL_COUNTERS = tuple(
     (fn, name) for fn in (convlstm_fwd, convlstm_bwd, lstm_fwd, lstm_bwd) for name in ("calls", "launches")
-) + ((sinkhorn_fwd, "launches"), (sinkhorn_bwd, "launches"))
+) + ((convlstm_fwd, "gate_stacks"), (sinkhorn_fwd, "launches"), (sinkhorn_bwd, "launches"))
 _COMM_COUNTERS = tuple((COUNTERS[op], name) for op in COUNTERS for name in ("calls", "bytes"))
 
 

@@ -105,6 +105,45 @@ def test_bwd_reference_matches_autograd_through_the_plain_loop(k):
         torch.testing.assert_close(g, x.grad, rtol=0, atol=1e-5 * scale, msg=name)
 
 
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("cdt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k", [3, 4])
+def test_bwd_from_the_gate_stack_matches_the_reference(k, cdt, masked):
+    """No JAX: the plain forward's gate stack (``with_c_stack``) holds
+    each step's pre-activations with gate g of channel j at 4j + g, which
+    give back its c stack and y; ``convlstm_bwd`` on that stack gives
+    ``convlstm_bwd_reference``'s outputs, which recompute the gates: to
+    the bit without masks (the same convs on the same operands), else
+    within the module's tolerances (the reference's one block-diagonal
+    conv sums in another order than the forward's four)."""
+    d = _inputs(seed=3 * k + len(cdt), k=k, t=4)
+    tdt = _TDT[cdt]
+    args = [torch.tensor(d["xconv"]).to(tdt)] + [torch.tensor(d[n]) for n in ("h0", "c0", "rk", "bias")]
+    b, t, h, w, f4 = args[0].shape
+    masks = None
+    if masked:
+        masks = (torch.rand(4, b, h, w, f4 // 4, generator=torch.Generator().manual_seed(k)) < 0.7).float() / 0.7
+    stacks = convlstm_fwd.gate_stacks
+    y, cs, h_n, c_n, gates, *hm = convlstm_fwd(*args, with_c_stack=True, rec_masks=masks)
+    assert convlstm_fwd.gate_stacks == stacks + 1
+    assert gates.shape == (b, t, h, w, f4) and gates.dtype == torch.float32
+    zi, zf, zc, zo = gates.unflatten(-1, (-1, 4)).unbind(-1)
+    c = torch.sigmoid(zf) * torch.cat([args[2][:, None], cs[:, :-1]], 1) + torch.sigmoid(zi) * torch.tanh(zc)
+    torch.testing.assert_close(c, cs, rtol=0, atol=1e-6)
+    torch.testing.assert_close((torch.sigmoid(zo) * torch.tanh(c)).to(tdt), y, rtol=0, atol=TOL[cdt][0])
+    cot = (torch.tensor(d["dy"]).to(tdt), torch.tensor(d["dh"]), torch.tensor(d["dc"]))
+    hm = hm[0] if masked else None
+    got = convlstm_bwd(gates, *args[1:4], y, cs, *cot, rec_masks=masks, hm=hm)
+    want = convlstm_bwd_reference(*args, y, cs, *cot, rec_masks=masks, hm=hm)
+    for name, g, r in zip(("dx", "dh0", "dc0", "drk", "db"), got, want):
+        assert g.dtype == r.dtype, name
+        if masked:
+            atol = (1e-5 if cdt == "float32" else TOL[cdt][1]) * float(r.float().abs().max())
+            torch.testing.assert_close(g, r, rtol=0, atol=atol, msg=name)
+        else:
+            assert torch.equal(g, r), name
+
+
 def test_layer_engines_agree_and_cpu_launches_nothing():
     """``ConvLSTM2D(plain=False)`` (ConvLstmScan on the CPU) and
     ``plain=True`` (autograd through the loop) give the same output and
@@ -123,7 +162,7 @@ def test_layer_engines_agree_and_cpu_launches_nothing():
         torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
     assert (convlstm_fwd.launches, convlstm_bwd.launches) == counts
     args = [torch.zeros(1, 1, 2, 2, 4, device="meta"), *(torch.zeros(1, 2, 2, 1) for _ in range(2)),
-            torch.zeros(1, 1, 1, 4), torch.zeros(4)]
+            torch.zeros(1, 1, 1, 4)]
     with pytest.raises(ValueError, match="devices"):
         convlstm_bwd(*args, torch.zeros(1, 1, 2, 2, 1), torch.zeros(1, 1, 2, 2, 1),
                      torch.zeros(1, 1, 2, 2, 1), args[1], args[2])

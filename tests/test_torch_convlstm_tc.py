@@ -4,20 +4,24 @@ The bf16 engine of ``csrc/convlstm_fwd.cu`` and ``csrc/convlstm_bwd.cu``
 runs every product of the recurrence as an implicit GEMM on the tensor
 cores; those kernels run only on the card.  Their index maps do not need
 it: this file rebuilds each GEMM in plain PyTorch exactly as the kernels
-lay it out, and checks the result against the plain versions
-(``convlstm_fwd_reference``, ``convlstm_bwd_reference``), which
+lay it out, and checks the result against the plain versions (the
+forward's ``_fwd_plain``, ``convlstm_bwd_reference``), which
 ``test_torch_convlstm.py`` and ``test_torch_convlstm_grad.py`` pin to JAX.
 
-* The gate GEMM (forward step and backward recompute): A[m][k] gathered
-  from h_{t-1} with k = (ky*kw + kx)*f + ci in chunks of 8 channels of one
-  tap, summed a k16 step at a time (two taps a step at f = 8); B the
-  packed weight of ``_pack_gates``, read back through the epilogue's
-  column map (gate g of channel j at 16*(j//4) + 8*(g//2) + 2*(j%4) + g%2).
+* The gate GEMM (the forward step): A[m][k] gathered from h_{t-1} with
+  k = (ky*kw + kx)*f + ci in chunks of 8 channels of one tap, summed a k16
+  step at a time (two taps a step at f = 8); B the packed weight of
+  ``_pack_gates``, read back through the epilogue's column map (gate g of
+  channel j at 16*(j//4) + 8*(g//2) + 2*(j%4) + g%2).  Under autograd the
+  epilogue stores the four gates of (pixel, j) together, at 4j + g of the
+  gate stack, from which the backward's cell adjoint reads them (it runs
+  no gate GEMM).
 * dh: A gathered from dz with the flipped pads (source pixel y - ky + lo),
   B the transposed weight of ``_pack_dh``.
 * drk: A^T[p][m] the shifted h_{t-1} over the B*T*H*W pixels, split over
   K into partials that are added in the finalize's order; db from
-  per-M-tile partial rows, accumulated over the steps and added in order.
+  partial rows, one a block of consecutive pixels of the adjoint,
+  accumulated over the steps and added in order.
 * Recurrent dropout (the kernels' masked mode): the gate GEMM gathers
   the gate-major masked h's (4f channels) against the block-diagonal
   weight (``_block_diagonal``); dh takes the gate-quad columns of
@@ -42,7 +46,6 @@ from kccotgan_tpu_torch.models.cuda_convlstm import (
     _pack_gates,
     _wgrad_splits,
     convlstm_bwd_reference,
-    convlstm_fwd_reference,
 )
 
 TOL = 1e-5  # of each output's largest entry, f32
@@ -123,10 +126,25 @@ def _gate_conv(hp, rk, taps_per_step=None):
     return _unpack_gates(acc, f).reshape(*hp.shape[:3], 4 * f)
 
 
+def _store_quads(z, f):
+    """The epilogue's gate-stack store: gate-major [..., 4f] -> gate g of
+    channel j at 4j + g."""
+    out = torch.empty_like(z)
+    for g, j in np.ndindex(4, f):
+        out[..., 4 * j + g] = z[..., g * f + j]
+    return out
+
+
+def _load_quads(gates, f):
+    """The adjoint's 16-byte load of (pixel, j)'s gates, back to
+    gate-major."""
+    return torch.cat([gates[..., g : 4 * f : 4] for g in range(4)], dim=-1)
+
+
 def _emulate_fwd(xconv, h0, c0, rk, bias):
     f = h0.shape[-1]
     taps_per_step = 2 if f == 8 else None
-    h, c, ys, cs = h0, c0, [], []
+    h, c, ys, cs, zs = h0, c0, [], [], []
     for t in range(xconv.shape[1]):
         z = (xconv[:, t] + bias) + _gate_conv(h, rk, taps_per_step)
         i, fg = torch.sigmoid(z[..., :f]), torch.sigmoid(z[..., f : 2 * f])
@@ -134,14 +152,16 @@ def _emulate_fwd(xconv, h0, c0, rk, bias):
         h = torch.sigmoid(z[..., 3 * f :]) * torch.tanh(c)
         ys.append(h)
         cs.append(c)
-    return torch.stack(ys, 1), torch.stack(cs, 1), h, c
+        zs.append(_store_quads(z, f))
+    return torch.stack(ys, 1), torch.stack(cs, 1), h, c, torch.stack(zs, 1)
 
 
-def _emulate_bwd(xconv, h0, c0, rk, bias, y, c_stack, dy, dh_n, dc_n, bm=64, splits=3):
-    """The bf16 engine's backward with its three GEMMs in their kernel
-    layouts (f32): per step the gate GEMM and adjoint, db into per-M-tile
-    rows, dh by the transposed-conv GEMM; then drk by the split-K GEMM."""
-    b, t_total, h, w, f4 = xconv.shape
+def _emulate_bwd(gates, h0, c0, rk, y, c_stack, dy, dh_n, dc_n, bm=64, splits=3):
+    """The bf16 engine's backward with its two GEMMs in their kernel
+    layouts (f32): per step the adjoint on the gate stack, db into rows
+    of bm consecutive pixels, dh by the transposed-conv GEMM; then drk by
+    the split-K GEMM."""
+    b, t_total, h, w, f4 = gates.shape
     f = f4 // 4
     kh, kw = rk.shape[0], rk.shape[1]
     m_total = b * h * w
@@ -150,11 +170,10 @@ def _emulate_bwd(xconv, h0, c0, rk, bias, y, c_stack, dy, dh_n, dc_n, bm=64, spl
     wT = _pack_dh(rk, torch.float32)
     assert wT.shape == (kh * kw * f4, -(-f // 8) * 8)
     dh, dc = dh_n.clone(), dc_n.clone()
-    dx = torch.empty_like(xconv)
+    dx = torch.empty_like(gates)
     for t in reversed(range(t_total)):
-        hp = h0 if t == 0 else y[:, t - 1]
         cp = c0 if t == 0 else c_stack[:, t - 1]
-        z = (xconv[:, t] + bias) + _gate_conv(hp, rk)
+        z = _load_quads(gates[:, t], f)
         i, fg = torch.sigmoid(z[..., :f]), torch.sigmoid(z[..., f : 2 * f])
         g, o = torch.tanh(z[..., 2 * f : 3 * f]), torch.sigmoid(z[..., 3 * f :])
         tc = torch.tanh(fg * cp + i * g)
@@ -164,7 +183,7 @@ def _emulate_bwd(xconv, h0, c0, rk, bias, y, c_stack, dy, dh_n, dc_n, bm=64, spl
                         dhv * tc * o * (1 - o)], dim=-1)
         dx[:, t] = dz
         flat = dz.reshape(m_total, f4)
-        for r in range(rows):  # each M tile's block owns row r across all steps
+        for r in range(rows):  # each adjoint block owns row r across all steps
             dbpart[r] += flat[r * bm : (r + 1) * bm].sum(0)
         a = _gather(dz, kh, kw, -1, (kh - 1) // 2, (kw - 1) // 2)
         dh = _gemm_k16(a, wT)[:, :f].reshape(b, h, w, f)
@@ -222,9 +241,9 @@ def test_wgrad_splits():
 @pytest.mark.parametrize("f", [8, 16, 24])
 def test_gate_gemm_matches_reference(f, k):
     args = _inputs(2, 3, 5, 6, f, k, seed=f + k)
-    want = convlstm_fwd_reference(*args)
+    want = _fwd_plain(*args, None, with_gates=True)
     got = _emulate_fwd(*args)
-    for g, w, name in zip(got, want, ("y", "c_stack", "h", "c")):
+    for g, w, name in zip(got, want[:4] + want[5:], ("y", "c_stack", "h", "c", "gates")):
         _assert_rel(g, w, name)
 
 
@@ -232,12 +251,12 @@ def test_gate_gemm_matches_reference(f, k):
 @pytest.mark.parametrize("f", [8, 16, 24])
 def test_backward_gemms_match_reference(f, k):
     args = _inputs(2, 3, 5, 6, f, k, seed=10 + f + k)
-    y, cs, h, c = convlstm_fwd_reference(*args)
+    y, cs, h, c, gates = _emulate_fwd(*args)
     rng = np.random.default_rng(f * k)
     cot = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
            for s in (y.shape, h.shape, c.shape)]
     want = convlstm_bwd_reference(*args, y, cs, *cot)
-    got = _emulate_bwd(*args, y, cs, *cot)
+    got = _emulate_bwd(gates, *args[1:4], y, cs, *cot)
     for g, w, name in zip(got, want, ("dx", "dh0", "dc0", "drk", "db")):
         _assert_rel(g, w, name)
 
@@ -255,7 +274,7 @@ def _emulate_fwd_masked(xconv, h0, c0, rk, bias, masks):
     mask = _gate_major(masks)
     wp = _pack_gates(_block_diagonal(rk), torch.float32)
     kh, kw = rk.shape[0], rk.shape[1]
-    h, c, ys, cs = h0, c0, [], []
+    h, c, ys, cs, zs = h0, c0, [], [], []
     hm = (h0.unsqueeze(3) * mask.view(*h0.shape[:3], 4, f)).reshape(mask.shape)
     hms = [hm]
     for t in range(xconv.shape[1]):
@@ -268,25 +287,27 @@ def _emulate_fwd_masked(xconv, h0, c0, rk, bias, masks):
         hms.append(hm)
         ys.append(h)
         cs.append(c)
-    return torch.stack(ys, 1), torch.stack(cs, 1), h, c, (hms[0], torch.stack(hms[1:], 1))
+        zs.append(_store_quads(z, f))
+    return (torch.stack(ys, 1), torch.stack(cs, 1), h, c, (hms[0], torch.stack(hms[1:], 1)),
+            torch.stack(zs, 1))
 
 
-def _emulate_bwd_masked(xconv, h0, c0, rk, bias, y, c_stack, dy, dh_n, dc_n, masks, hm):
-    """The masked backward's GEMMs in their kernel layouts (f32)."""
-    b, t_total, h, w, f4 = xconv.shape
+def _emulate_bwd_masked(gates, h0, c0, rk, y, c_stack, dy, dh_n, dc_n, masks, hm):
+    """The masked backward's GEMMs in their kernel layouts (f32); the
+    adjoint is the unmasked one, on the gate stack."""
+    b, t_total, h, w, f4 = gates.shape
     f = f4 // 4
     kh, kw = rk.shape[0], rk.shape[1]
     mask = _gate_major(masks).view(b, h, w, 4, f)
-    wp, wq = _pack_gates(_block_diagonal(rk), torch.float32), _pack_dh_gates(rk, torch.float32)
+    wq = _pack_dh_gates(rk, torch.float32)
     assert wq.shape == (kh * kw * f4, 16 * -(-f // 4))
     dh, dc = dh_n.clone(), dc_n.clone()
-    dx = torch.empty_like(xconv)
+    dx = torch.empty_like(gates)
     db = torch.zeros(f4)
     hms = [hm[0]] + [hm[1][:, s] for s in range(t_total - 1)]  # hm_{t-1} of step t
     for t in reversed(range(t_total)):
         cp = c0 if t == 0 else c_stack[:, t - 1]
-        a = _gather(hms[t], kh, kw, 1, -((kh - 1) // 2), -((kw - 1) // 2))
-        z = (xconv[:, t] + bias) + _unpack_gates(_gemm_k16(a, wp), f).reshape(b, h, w, f4)
+        z = _load_quads(gates[:, t], f)
         i, fg = torch.sigmoid(z[..., :f]), torch.sigmoid(z[..., f : 2 * f])
         g, o = torch.tanh(z[..., 2 * f : 3 * f]), torch.sigmoid(z[..., 3 * f :])
         tc = torch.tanh(fg * cp + i * g)
@@ -315,18 +336,18 @@ def test_masked_gemms_match_reference(f, k):
     masked layouts against the plain versions with the same masks."""
     args = _inputs(2, 3, 5, 6, f, k, seed=20 + f + k)
     masks = _masks(2, 5, 6, f, seed=f)
-    want = _fwd_plain(*args, masks)
+    want = _fwd_plain(*args, masks, with_gates=True)
     got = _emulate_fwd_masked(*args, masks)
-    for g, w, name in zip(got[:4], want[:4], ("y", "c_stack", "h", "c")):
+    for g, w, name in zip(got[:4] + got[5:], want[:4] + want[5:], ("y", "c_stack", "h", "c", "gates")):
         _assert_rel(g, w, name)
     _assert_rel(got[4][0], want[4][0], "hm0")
     _assert_rel(got[4][1][:, :-1], want[4][1][:, :-1], "hm")
-    y, cs, h, c, hm = want
+    y, cs, h, c, hm, gates = got
     rng = np.random.default_rng(f * k)
     cot = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
            for s in (y.shape, h.shape, c.shape)]
     want = convlstm_bwd_reference(*args, y, cs, *cot, rec_masks=masks, hm=hm)
-    got = _emulate_bwd_masked(*args, y, cs, *cot, masks, hm)
+    got = _emulate_bwd_masked(gates, *args[1:4], y, cs, *cot, masks, hm)
     for g, w, name in zip(got, want, ("dx", "dh0", "dc0", "drk", "db")):
         _assert_rel(g, w, name)
 

@@ -15,7 +15,11 @@ engine (tensor cores) adds ragged M, f = 8 and 256 on a 4x4 frame, f =
 12 (its element-by-element gather) and the bitwise determinism of drk
 and db; the kernels' recurrent-dropout mode (four masks, gate g's conv
 over h_{t-1} * mask_g) at the same kinds of shape in both dtypes, under
-autograd, and its weight gradient bitwise over two calls.  The LSTM
+autograd, and its weight gradient bitwise over two calls.  At the
+flagship's 8 ConvLSTM layer shapes (B = 32, the training T), bf16
+unmasked and masked and one f32 layer: the gate stack the forward keeps
+for the backward against the plain recurrence's pre-activations, and the
+backward kernels on it against the plain backward.  The LSTM
 shapes: B=1, U=3 (an odd U, and fewer units than a warp), ragged row
 blocks (B=5, 17, 33), U=64, whose staged recurrent kernel needs more
 than 48 KiB of shared memory, the flagship's B=32, T=20 at U = 8, 32, 64
@@ -86,7 +90,6 @@ from kccotgan_tpu_torch.models.cuda_convlstm import (
     convlstm_bwd,
     convlstm_bwd_reference,
     convlstm_fwd,
-    convlstm_fwd_reference,
     convlstm_scan,
     convlstm_scan_reference,
 )
@@ -189,6 +192,24 @@ def _bwd_args(fwd_ref, args, dev, seed):
     return (y, cs), (y, cs, h, c), (dy, dh, dc)
 
 
+def _convlstm_bwd_args(args, dev, seed, masks=None):
+    """The plain forward's ``(y, c_stack, h_n, c_n, gates)`` and ``hm``,
+    and random cotangents for a backward call."""
+    y, cs, h, c, hm, gates = _fwd_plain(*args, masks, with_gates=True)
+    g = torch.Generator().manual_seed(seed)
+    dy = torch.randn(y.shape, generator=g).to(dev, y.dtype)
+    dh, dc = (torch.randn(h.shape, generator=g).to(dev) for _ in range(2))
+    return (y, cs, h, c, gates), hm, (dy, dh, dc)
+
+
+def _assert_fwd_close(got, want, dtype):
+    """The forward's ``(y, c_stack, h_n, c_n, gates)`` at the forward's
+    tolerance."""
+    for name, g, r in zip(("y", "c_stack", "h_n", "c_n", "gates"), got, want):
+        assert g.shape == r.shape and g.dtype == r.dtype, name
+        torch.testing.assert_close(g.float(), r.float(), rtol=0, atol=TOL[dtype], msg=name)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize(
     "b,h,w,f,k",
@@ -196,17 +217,20 @@ def _bwd_args(fwd_ref, args, dev, seed):
      (2, 3, 18, 33, 2), (1, 20, 20, 16, 8)],
 )
 def test_convlstm_backward_matches_plain(cuda, b, h, w, f, k, dtype):
+    """The forward kernel's stacks (the gate stack too) against the plain
+    forward's, and the backward kernels on them against the plain
+    backward, which recomputes the gates from the same y."""
     args = _inputs(b, 4, h, w, f, k, dtype, cuda, seed=f + k)
     with torch.no_grad():
-        (y, cs), fwd_k, cot = _bwd_args(convlstm_fwd_reference, args, cuda, seed=k)
+        fwd_p, _, cot = _convlstm_bwd_args(args, cuda, seed=k)
         got_fwd = convlstm_fwd(*args, with_c_stack=True)
+        y, cs, _, _, gates = got_fwd
         launches = convlstm_bwd.launches
-        got = convlstm_bwd(*args, y, cs, *cot)
+        got = convlstm_bwd(gates, *args[1:4], y, cs, *cot)
         want = convlstm_bwd_reference(*args, y, cs, *cot)
     torch.cuda.synchronize()
     assert convlstm_bwd.launches == launches + 2 * 4 + 2
-    for g, r in zip(got_fwd, fwd_k):
-        torch.testing.assert_close(g.float(), r.float(), rtol=0, atol=TOL[dtype])
+    _assert_fwd_close(got_fwd, fwd_p, dtype)
     _assert_grads_close(got, want, dtype, ("dx", "dh0", "dc0", "drk", "db"))
 
 
@@ -221,13 +245,13 @@ def test_tensor_core_path_matches_plain(cuda, b, h, w, f, k):
     element by element), forward and backward."""
     args = _inputs(b, 5, h, w, f, k, torch.bfloat16, cuda, seed=3 * f + k)
     with torch.no_grad():
-        (y, cs), fwd_p, cot = _bwd_args(convlstm_fwd_reference, args, cuda, seed=f)
+        fwd_p, _, cot = _convlstm_bwd_args(args, cuda, seed=f)
         got_fwd = convlstm_fwd(*args, with_c_stack=True)
-        got = convlstm_bwd(*args, y, cs, *cot)
+        y, cs, _, _, gates = got_fwd
+        got = convlstm_bwd(gates, *args[1:4], y, cs, *cot)
         want = convlstm_bwd_reference(*args, y, cs, *cot)
     torch.cuda.synchronize()
-    for g, r in zip(got_fwd, fwd_p):
-        torch.testing.assert_close(g.float(), r.float(), rtol=0, atol=TOL[torch.bfloat16])
+    _assert_fwd_close(got_fwd, fwd_p, torch.bfloat16)
     _assert_grads_close(got, want, torch.bfloat16, ("dx", "dh0", "dc0", "drk", "db"))
 
 
@@ -237,12 +261,44 @@ def test_weight_gradient_is_deterministic(cuda):
     for dtype in (torch.bfloat16, torch.float32):
         args = _inputs(4, 6, 8, 8, 32, 5, dtype, cuda, seed=11)
         with torch.no_grad():
-            (y, cs), _, cot = _bwd_args(convlstm_fwd_reference, args, cuda, seed=12)
-            first = convlstm_bwd(*args, y, cs, *cot)
-            second = convlstm_bwd(*args, y, cs, *cot)
+            (y, cs, _, _, gates), _, cot = _convlstm_bwd_args(args, cuda, seed=12)
+            first = convlstm_bwd(gates, *args[1:4], y, cs, *cot)
+            second = convlstm_bwd(gates, *args[1:4], y, cs, *cot)
         torch.cuda.synchronize()
         for name, a, b in zip(("dx", "dh0", "dc0", "drk", "db"), first, second):
             assert torch.equal(a, b), (dtype, name)
+
+
+# The 8 ConvLSTM layers of mmnist_full at B = 32: (H = W, f, k, the
+# training T: 20 for the encoder, 10 for the decoder)
+FLAGSHIP = {"enc1": (32, 32, 6, 20), "enc2": (16, 64, 6, 20), "enc3": (8, 128, 5, 20),
+            "enc4": (4, 256, 5, 20), "dec2": (8, 128, 4, 10), "dec3": (16, 64, 6, 10),
+            "dec4": (32, 32, 8, 10), "dec5": (64, 8, 8, 10)}
+
+
+@pytest.mark.parametrize(
+    "layer,dtype,masked",
+    [(n, torch.bfloat16, m) for n in FLAGSHIP for m in (False, True)] + [("enc3", torch.float32, False)],
+)
+def test_gate_stack_at_the_flagship_layers(cuda, layer, dtype, masked):
+    """At the flagship's layer shapes, unmasked and masked in bf16 and at
+    one f32 layer: the gate stack the forward writes (one a call, counted)
+    is the plain recurrence's pre-activations at the forward's tolerance,
+    and the backward kernels on it give the plain backward's gradients."""
+    hw, f, k, t = FLAGSHIP[layer]
+    args = _inputs(32, t, hw, hw, f, k, dtype, cuda, seed=f + k)
+    masks = _rec_masks(32, hw, hw, f, cuda, seed=k) if masked else None
+    with torch.no_grad():
+        fwd_p, _, cot = _convlstm_bwd_args(args, cuda, seed=k, masks=masks)
+        stacks = convlstm_fwd.gate_stacks
+        y, cs, h_n, c_n, gates, *hm = convlstm_fwd(*args, with_c_stack=True, rec_masks=masks)
+        assert convlstm_fwd.gate_stacks == stacks + 1
+        hm = hm[0] if masked else None
+        got = convlstm_bwd(gates, *args[1:4], y, cs, *cot, rec_masks=masks, hm=hm)
+        want = convlstm_bwd_reference(*args, y, cs, *cot, rec_masks=masks, hm=hm)
+    torch.cuda.synchronize()
+    _assert_fwd_close((y, cs, h_n, c_n, gates), fwd_p, dtype)
+    _assert_grads_close(got, want, dtype, ("dx", "dh0", "dc0", "drk", "db"))
 
 
 def _rec_masks(b, h, w, f, dev, seed, keep=0.7):
@@ -268,21 +324,18 @@ def test_recurrent_dropout_kernels_match_plain(cuda, b, h, w, f, k, dtype):
     args = _inputs(b, t, h, w, f, k, dtype, cuda, seed=5 * f + k)
     masks = _rec_masks(b, h, w, f, cuda, seed=f)
     with torch.no_grad():
-        y, cs, h_n, c_n, hm = _fwd_plain(*args, masks)
-        g = torch.Generator().manual_seed(k)
-        cot = (torch.randn(y.shape, generator=g).to(cuda, dtype),
-               *(torch.randn(h_n.shape, generator=g).to(cuda) for _ in range(2)))
+        fwd_p, hm, cot = _convlstm_bwd_args(args, cuda, seed=k, masks=masks)
         launches = (convlstm_fwd.launches, convlstm_bwd.launches)
         got_fwd = convlstm_fwd(*args, with_c_stack=True, rec_masks=masks)
-        got = convlstm_bwd(*args, y, cs, *cot, rec_masks=masks, hm=hm)
-        want = convlstm_bwd_reference(*args, y, cs, *cot, rec_masks=masks, hm=hm)
+        y, cs, _, _, gates, hm_k = got_fwd
+        got = convlstm_bwd(gates, *args[1:4], y, cs, *cot, rec_masks=masks, hm=hm_k)
+        want = convlstm_bwd_reference(*args, y, cs, *cot, rec_masks=masks, hm=hm_k)
     torch.cuda.synchronize()
     assert (convlstm_fwd.launches, convlstm_bwd.launches) == (launches[0] + t, launches[1] + 2 * t + 2)
-    for got_x, want_x in zip(got_fwd[:4], (y, cs, h_n, c_n)):
-        torch.testing.assert_close(got_x.float(), want_x.float(), rtol=0, atol=TOL[dtype])
+    _assert_fwd_close(got_fwd, fwd_p, dtype)
     # hm, the masked h's the gates read (its last slot is never read)
-    torch.testing.assert_close(got_fwd[4][0].float(), hm[0].float(), rtol=0, atol=TOL[dtype])
-    torch.testing.assert_close(got_fwd[4][1][:, : t - 1].float(), hm[1][:, : t - 1].float(),
+    torch.testing.assert_close(hm_k[0].float(), hm[0].float(), rtol=0, atol=TOL[dtype])
+    torch.testing.assert_close(hm_k[1][:, : t - 1].float(), hm[1][:, : t - 1].float(),
                                rtol=0, atol=TOL[dtype] * 2)
     _assert_grads_close(got, want, dtype, ("dx", "dh0", "dc0", "drk", "db"))
 
@@ -305,10 +358,10 @@ def test_recurrent_dropout_autograd_and_determinism(cuda):
     args = _inputs(4, 6, 8, 8, 32, 5, torch.bfloat16, cuda, seed=23)
     masks = _rec_masks(4, 8, 8, 32, cuda, seed=24)
     with torch.no_grad():
-        y, cs, h_n, c_n, hm = _fwd_plain(*args, masks)
+        y, cs, h_n, c_n, hm, gates = _fwd_plain(*args, masks, with_gates=True)
         cot = (torch.ones_like(y), torch.ones_like(h_n), torch.zeros_like(c_n))
-        first = convlstm_bwd(*args, y, cs, *cot, rec_masks=masks, hm=hm)
-        second = convlstm_bwd(*args, y, cs, *cot, rec_masks=masks, hm=hm)
+        first = convlstm_bwd(gates, *args[1:4], y, cs, *cot, rec_masks=masks, hm=hm)
+        second = convlstm_bwd(gates, *args[1:4], y, cs, *cot, rec_masks=masks, hm=hm)
     for name, a, b in zip(("dx", "dh0", "dc0", "drk", "db"), first, second):
         assert torch.equal(a, b), name
 

@@ -31,6 +31,7 @@ from kccotgan_tpu.config import ModelConfig, TrainConfig
 from kccotgan_tpu.train.rollout import build_rollout as jax_build_rollout
 from kccotgan_tpu.train.state import GanModules
 from kccotgan_tpu_torch.models import generator_modules
+from kccotgan_tpu_torch.models.cuda_convlstm import convlstm_fwd
 from kccotgan_tpu_torch.train import build_rollout
 from kccotgan_tpu_torch.weights import generator_params_from_jax, init_generator_params
 from tests._torch_port import compile_o0, port_cfg
@@ -138,7 +139,9 @@ def test_rollout_matches_jax(setup, compute_dtype, tol):
 
     rollout = build_rollout(port_cfg(cfg), device="cpu")
     z = torch.tensor(_jax_z(cfg, rng_key, batch=2))
+    stacks = convlstm_fwd.gate_stacks
     got = rollout(generator_params_from_jax(enc_p, dec_p), torch.tensor(context), z=z)
+    assert convlstm_fwd.gate_stacks == stacks  # a rollout keeps no gates for a backward
     assert tuple(got.shape) == want.shape == (2, 16, 5, 16, 1)
     assert torch.equal(got[:, :, :3], torch.tensor(context))
     _close(got, want, tol)

@@ -120,7 +120,9 @@ def test_pallas_train_step_matches_jax_f32(jax_pallas):
 def test_pallas_step_runs_the_plain_versions_on_cpu(jax_pallas, monkeypatch):
     """On the CPU the 'pallas' step builds and runs every recurrence's
     plain forward and backward (8 ConvLSTM and 18 LSTM backward calls an
-    iteration), and launches nothing."""
+    iteration; each ConvLSTM backward from the gate stack its forward
+    kept, 8 of them: the 4 encoder layers and the generator phase's 4
+    decoder layers), and launches nothing."""
     calls = {"convlstm": 0, "lstm": 0}
 
     def counting(name, fn):
@@ -129,13 +131,14 @@ def test_pallas_step_runs_the_plain_versions_on_cpu(jax_pallas, monkeypatch):
             return fn(*args, **kw)
         return wrapped
 
-    monkeypatch.setattr(cuda_convlstm, "convlstm_bwd_reference",
-                        counting("convlstm", cuda_convlstm.convlstm_bwd_reference))
+    monkeypatch.setattr(cuda_convlstm, "_bwd_plain", counting("convlstm", cuda_convlstm._bwd_plain))
     monkeypatch.setattr(cuda_lstm, "lstm_bwd_reference", counting("lstm", cuda_lstm.lstm_bwd_reference))
     counters = [fn.launches for fn in (cuda_convlstm.convlstm_fwd, cuda_convlstm.convlstm_bwd,
                                        cuda_lstm.lstm_fwd, cuda_lstm.lstm_bwd)]
+    stacks = cuda_convlstm.convlstm_fwd.gate_stacks
     (metrics, state), = _port_run({**jax_pallas, "runs": jax_pallas["runs"][:1]})
     assert calls == {"convlstm": 8, "lstm": 18}
+    assert cuda_convlstm.convlstm_fwd.gate_stacks == stacks + 8
     assert counters == [fn.launches for fn in (cuda_convlstm.convlstm_fwd, cuda_convlstm.convlstm_bwd,
                                                cuda_lstm.lstm_fwd, cuda_lstm.lstm_bwd)]
     assert state.step == 1 and torch.isfinite(metrics["sinkhorn_loss"])
