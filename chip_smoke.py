@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""Smoke test of the PyTorch port on one NVIDIA H100.
+"""Card checks of the PyTorch port on one NVIDIA H100.
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from ``kccotgan_tpu_torch/csrc`` and drives the
+Builds the CUDA kernels from ``kccotgan_tpu_torch/csrc`` and checks the
 ported paths at the ``mmnist_full`` preset (B=32, 64x64x1, 10 context +
-10 predicted frames, bf16 convs, seeded random weights):
+10 predicted frames, bf16 convs, seeded random weights) and beyond.  It
+measures no time: the benchmark (``python3 -m port_bench.run``, with
+``--trace 1`` for each kernel's device time) does that.
 
 * kernels vs their plain PyTorch versions: the ConvLSTM forward at the 8
   ConvLSTM layer shapes (f32 and bf16), the Sinkhorn forward and
@@ -14,106 +16,96 @@ ported paths at the ``mmnist_full`` preset (B=32, 64x64x1, 10 context +
   to 64, a thread-block cluster a problem past that, C in its shared
   memory up to about 600, read through L2 past it), and at [1, 8200,
   8200] with L=3 (u and v no longer staged in shared memory), one launch
-  a call, traced at B = 32, 240 and 1024, and each Sinkhorn kernel's
-  registers and spills
-  (``nvcc -Xptxas -v``); the ConvLSTM backward (and the forward's c stack)
-  at the 8 layer shapes with the training T, and the LSTM forward and
-  backward at lstm1-3, B=32, T=20, f32 and bf16, each wrapper call
-  traced for its kernel's own device time (one launch and no other
-  device op a call), beside cuDNN's LSTM at lstm1 and lstm2, and at
-  U = 128 and 256 (past the kernels' 64-unit staging: bf16 up to 128 on
-  the tensor cores, else R read through L2);
-* the conditioned rollout through the kernel and the plain path, timed,
-  and per path where its device time goes (CUDA-graph replay beside the
-  eager rollout, and one rollout under ``torch.profiler``);
+  a call, each path's kernel by name in a trace at B = 32, 240 and 1024,
+  and each Sinkhorn kernel's registers and spills (``nvcc -Xptxas -v``);
+  the ConvLSTM backward (and the forward's c and gate stacks) at the 8
+  layer shapes with the training T, the bf16 backward's tensor-core
+  kernels by name in its trace; the LSTM forward and backward at
+  lstm1-3, B=32, T=20, f32 and bf16, each wrapper call traced (one
+  launch and no other device op a call, the tensor-core kernels in bf16
+  and only there), and at U = 128 and 256 (past the kernels' 64-unit
+  staging: bf16 up to 128 on the tensor cores, else R read through L2);
+* the conditioned rollout through the kernel and the plain path, counted,
+  and one rollout of each path traced (the ConvLSTM kernels in the kernel
+  path's trace alone, its tensor-core kernel by name in bf16);
 * two training iterations (``kernel_impl='scan'``, L=100) through the
   Sinkhorn kernels and two through the plain loop from the same state,
-  compared, timed in turns, with peak memory and one iteration of each
-  under ``torch.profiler``;
+  compared, and one iteration of each traced (the Sinkhorn kernels in
+  the kernel path's trace alone);
 * two training iterations under ``kernel_impl='pallas'`` (every ConvLSTM
   and LSTM recurrence through its forward and backward kernels) against
   two under ``'scan'`` from the same state, video and z, in f32 and in
   bf16, with every kernel's calls and launches counted per iteration;
-  then both engines timed in turns and profiled;
+  then one iteration of each engine traced (the LSTM kernels in the
+  'pallas' trace alone, every tensor-core kernel there by name);
 * the trainer: ``cli.main`` trains 8 ``'pallas'`` steps at ``mmnist_full``
   on an MMNIST-layout fixture (checkpoints and samples every 4 steps,
   every kernel's launches counted over the run, which the ``kernels``
   line reports); ``Trainer.fit`` run 4 steps, checkpointed, restored into
   a new trainer and run 4 more, against 8 straight, equal to the bit;
-  and the loop against the bare step in turns (the ``trainer`` line);
 * the training options: the separable Gaussian smoothing ('1d', '2d',
   '3d') against the dense conv1d / conv2d / conv3d it stands for, outputs
   and VJPs, at mmnist_full's video and a 3-channel one; 'pallas'
   iterations with each mode and decaying sigma, counted (the kernels'
-  launches those of ``kernel='none'``), '3d' under both engines in f32,
-  the modes timed against 'none' and the smoothing's own device time (the
-  ``smoothing_timings`` line); the ConvLSTM kernels' recurrent-dropout
-  mode (gate g's conv over h_{t-1} * mask_g) against the plain versions
-  at the 8 layer shapes, forward and backward, f32 and bf16, timed
-  beside the unmasked kernels; 'pallas' iterations with dropout alone
-  and with dropout and recurrent dropout, counted (every kernel's
+  launches those of ``kernel='none'``), '3d' under both engines in f32;
+  the ConvLSTM kernels' recurrent-dropout mode (gate g's conv over
+  h_{t-1} * mask_g) against the plain versions at the 8 layer shapes,
+  forward and backward, f32 and bf16; 'pallas' iterations with dropout
+  alone and with dropout and recurrent dropout, counted (every kernel's
   launches those of an iteration without dropout but for the context's
-  second encoding) and held against
-  'scan' on the same masks in f32, timed; and the CLI with ``--kernel 3d
-  --decaying_sigma --dropout 0.1 --rnn_dropout 0.1``, counted, its logged
-  sigma the annealed one, and a resumed run equal to the straight one to
-  the bit;
+  second encoding) and held against 'scan' on the same masks in f32; and
+  the CLI with ``--kernel 3d --decaying_sigma --dropout 0.1 --rnn_dropout
+  0.1``, counted, its logged sigma the annealed one, and a resumed run
+  equal to the straight one to the bit;
 * the datasets: fixtures written on the host in each reader's format (a
   BAIR set of 64 + 16 RGB videos, a flat-float ``animation`` set and,
   where PIL is installed, a GQN mazes set of 84x84 JPEG frames; a line
   says whether PIL and cv2 are present and what was not run); the native
-  TFRecord reader built and byte-identical to the Python one, records/s
-  and videos/s of each; then at the RGB presets ``robot_push`` and
-  ``mazes`` (B=8, 64x64x3, 5 + 10 frames): the CLI through ``'pallas'``
-  with every kernel's calls and launches derived from the preset's T,
-  ``'pallas'`` against ``'scan'`` on the reader's first batch in f32 and
-  bf16, each kernel against its plain version at B=8 and T=15/10, the
-  bf16 iteration timed and profiled, and the loop reading the fixture
-  against the loop from memory and the bare step;
+  TFRecord reader built and byte-identical to the Python one; then at
+  the RGB presets ``robot_push`` and ``mazes`` (B=8, 64x64x3, 5 + 10
+  frames): the CLI through ``'pallas'`` with every kernel's calls and
+  launches derived from the preset's T, ``'pallas'`` against ``'scan'``
+  on the reader's first batch in f32 and bf16, each kernel against its
+  plain version at B=8 and T=15/10, and one bf16 iteration of each
+  engine traced;
 * serving, from a checkpoint of the seeded ``mmnist_full`` state:
   ``cli.sample`` (32 videos, best-of-4, the rollouts replayed from a CUDA
   graph; without matplotlib its functions, all but the PNG) and
   ``cli.export --check`` (the ``torch.export`` artifact equal to the live
   rollout to the bit), counted; the sample's rollout and best-of-K through
-  the eager rollout, counted and equal to the graph's; the graph rollout
-  and the loaded artifact equal to the eager rollout to the bit, and the
-  artifact within the rollout's tolerance of the plain one, at B = 32 and
-  7; the ConvLSTM forward's tensor-core kernel in a trace of the
-  artifact's graph replay, once a step; eager, eager without the
-  registered operator, graph, artifact and the artifact's program run
-  eagerly, timed in turns, and best-of-K timed (the ``serving`` line);
+  the eager rollout, counted and equal to the graph's; the graph rollout,
+  the rollout without the registered operator and the loaded artifact
+  equal to the eager rollout to the bit, and the artifact within the
+  rollout's tolerance of the plain one, at B = 32 and 7; the ConvLSTM
+  forward's tensor-core kernel in a trace of the artifact's graph
+  replay, once a step;
 * the fused discriminators (``fused_discriminators=True``): the LSTM
   kernels with an instance axis (4 instances, each its own weights, in
   one launch) against their plain versions and, to the bit, against
   one-instance calls on each slice, at lstm1-3 and at U = 128 and 256, f32
   and bf16; one fused 'pallas' iteration against one sequential from the
   same state in f32 and bf16, counted from zero around each (LSTM 6 + 6
-  calls against 24 + 18), then both timed in turns (the
-  ``fused_discriminators`` line).
+  calls against 24 + 18), then one bf16 iteration of each traced (the
+  LSTM tensor-core kernels by name);
 * the meshes (``kccotgan_tpu_torch/parallel``): the exact mode on a
   1-rank NCCL mesh equal to the one-device step to the bit (NCCL across
   several cards is not run: one card); 2 ranks sharing the card over
   gloo (NCCL refuses two ranks on one device; each rank's compute on the
   card, only the transport through the host): the exact mode in f32
   (within ``ENGINE_TOL``) and bf16 (losses within 1e-3) against the
-  one-device step, the per-shard mode, the seq mode at S = 2 (f32
-  against the one-device step), every rank's kernels counted from zero
-  (``PALLAS_COUNTS`` at B = 16 a rank; ``seq_counts`` under seq), the
-  ranks' states equal to the bit, each mode timed against the
-  one-device step in turns with each rank's peak memory and its
-  collectives' bytes and host time, and ``Trainer`` 2 + checkpoint +
-  restore + 2 against 4 straight on the mesh, to the bit; 4 ranks on
-  the data 2 x seq 2 mesh, checked and timed alike; ``cli.main
-  --num_devices 2`` for 4 steps (the ``parallel`` line).
+  one-device step, the per-shard mode, the seq mode at S = 2 (f32 and
+  bf16, each against the one-device step), every rank's kernels counted
+  from zero (``PALLAS_COUNTS`` at B = 16 a rank; ``seq_counts`` under
+  seq) with its collectives' calls and bytes, the ranks' states equal to
+  the bit, and ``Trainer`` 2 + checkpoint + restore + 2 against 4
+  straight on the mesh, to the bit; 4 ranks on the data 2 x seq 2 mesh,
+  checked alike; ``cli.main --num_devices 2`` for 4 steps (the
+  ``parallel`` line).
 
 The bf16 engine runs the ConvLSTM's recurrent conv, dh and drk, and the
 dense LSTM's step, dh and dR, on the tensor cores: the built library's
-LSTM kernels must show HMMA in ``cuobjdump -sass`` (bf16) or none (f32);
-each ConvLSTM layer's bf16 backward is profiled and split into its
-adjoint step, dh and weight-gradient kernels, beside each layer's
-achieved TFLOP/s (``roofline.convlstm_work`` over the time); and the
-tensor-core kernels must show by name in the bf16 rollout's and
-``'pallas'`` iteration's traces.
+LSTM kernels must show HMMA in ``cuobjdump -sass`` (bf16) or none (f32),
+and the tensor-core kernels must show by name in the traces above.
 
 Each path's kernel launches are counted from zero around its run.  Every
 phase raises on failure.  The last lines are the kernels' JSON record,
@@ -135,6 +127,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -164,8 +157,7 @@ from kccotgan_tpu_torch.data import (
 from kccotgan_tpu_torch.data import io as data_io
 from kccotgan_tpu_torch.data.bair import robot_push_samples
 from kccotgan_tpu_torch.data.generic import flat_feature_samples
-from kccotgan_tpu_torch.data.gqn import GQN_DATASETS, GqnReader, gqn_record_files
-from kccotgan_tpu_torch.eval import best_of_k
+from kccotgan_tpu_torch.data.gqn import GQN_DATASETS, gqn_record_files
 from kccotgan_tpu_torch.export import load_rollout
 from kccotgan_tpu_torch.models import layers as model_layers
 from kccotgan_tpu_torch.models.cuda_convlstm import (
@@ -182,23 +174,7 @@ from kccotgan_tpu_torch.models.cuda_lstm import (
     lstm_fwd,
     lstm_scan_reference,
 )
-from kccotgan_tpu_torch.models.layers import LSTM
-from kccotgan_tpu_torch.ot.cuda_sinkhorn import (
-    sinkhorn_bwd,
-    sinkhorn_bwd_reference,
-    sinkhorn_fwd,
-    sinkhorn_fwd_reference,
-)
-from kccotgan_tpu_torch.roofline import (
-    PEAK_BF16,
-    PEAK_F32,
-    bound_ms,
-    convlstm_layers,
-    convlstm_work,
-    lstm_layers,
-    lstm_work,
-    sinkhorn_work,
-)
+from kccotgan_tpu_torch.ot.cuda_sinkhorn import sinkhorn_bwd, sinkhorn_fwd, sinkhorn_fwd_reference
 from kccotgan_tpu_torch.smoothing import annealing_sigma, apply_smoothing
 from kccotgan_tpu_torch.parallel import comm, data_seq_mesh, make_mesh, seq_mesh
 from kccotgan_tpu_torch.parallel.launch import run_ranks
@@ -207,12 +183,37 @@ from kccotgan_tpu_torch.parallel.seqtrain import build_seq_train_step
 from kccotgan_tpu_torch.parallel.sharding import build_sharded_train_step, replicate_state
 from kccotgan_tpu_torch.train import Trainer, build_rollout, build_train_step, create_train_state
 from kccotgan_tpu_torch.train.rollout import graph_rollout
+from kccotgan_tpu_torch.train.state import state_tensors
 from kccotgan_tpu_torch.train.steps import Placement
 from kccotgan_tpu_torch.weights import init_generator_params
 
 PRESET = "mmnist_full"
 B, T = 32, 10
-# name: (spatial H = W, filters f, kernel k) of each ConvLSTM on the rollout path
+
+
+def convlstm_layers(cfg) -> dict:
+    """``name: (H = W, filters f, kernel k)`` of the 8 ConvLSTM layers
+    (square frames): the encoder's four stride-2 levels, then the
+    decoder's."""
+    m = cfg.model
+    f, hw = m.g_filter_size, m.x_height
+    return {
+        "enc1": (hw // 2, f * 4, 6), "enc2": (hw // 4, f * 8, 6),
+        "enc3": (hw // 8, f * 16, 5), "enc4": (hw // 16, f * 32, 5),
+        "dec2": (hw // 8, f * 16, 4), "dec3": (hw // 4, f * 8, 6),
+        "dec4": (hw // 2, f * 4, 8), "dec5": (hw, f, 8),
+    }
+
+
+def lstm_layers(cfg) -> dict:
+    """``name: (in_features, units)`` of the discriminator's three LSTMs."""
+    m = cfg.model
+    f, s = m.d_filter_size, m.x_height
+    for _ in range(3):
+        s = -(-s // 2)
+    return {"lstm1": (s * s * f * 16, f * 8), "lstm2": (f * 8, f * 4), "lstm3": (f * 4, m.d_state_size)}
+
+
 LAYERS = convlstm_layers(get_preset(PRESET))
 
 
@@ -382,9 +383,6 @@ TRAIN_TOL = {"loss_rtol": 1e-3, "pm_rtol": 1e-4, "mu_rel": 1e-3, "param_atol": 1
 # of the port sums in a fixed order, the noise comes from the state's
 # key, and a checkpoint holds every bit of the state, so no tolerance.
 TRAINER_STEPS, TRAINER_EVERY, FIXTURE_VIDEOS = 8, 4, 64
-# Loop against the bare step, in turns (loop, bare, bare, loop), over this
-# many batches with no checkpoint or sample in the window.
-LOOP_STEPS = 10
 # Phase 10, the training options.  Smoothing, separable (the port) vs the
 # dense kernels (``dense_smoothing``), f32, TF32 off, at mmnist_full's
 # video and a 3-channel one: outputs in [0, 1] at 1e-5 abs; VJPs at 1e-5
@@ -396,20 +394,6 @@ SMOOTH_MODES = ("1d", "2d", "3d")
 SMOOTH_SHAPES = ((32, 64, 20, 64, 1), (8, 64, 15, 64, 3))
 SMOOTH_SIGMA, SMOOTH_TOL = 5.0, 1e-5
 DROPOUT = 0.1
-
-
-def cuda_ms(fn, reps):
-    """Mean device milliseconds of ``fn()`` over ``reps`` runs, by CUDA
-    events, after one warm-up run."""
-    fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def layer_inputs(hw, f, k, dtype, dev, seed, t=T, b=B):
@@ -431,7 +415,7 @@ def max_err(a, b):
 
 def check_layers(dev):
     """Phase 2: kernel vs plain at every layer shape, f32 and bf16."""
-    errs, times = {}, {}
+    errs = {}
     for i, (name, (hw, f, k)) in enumerate(LAYERS.items()):
         for dtype in (torch.float32, torch.bfloat16):
             args = layer_inputs(hw, f, k, dtype, dev, seed=i)
@@ -446,20 +430,7 @@ def check_layers(dev):
             if not err <= TOL[dtype]:
                 raise RuntimeError(f"{tag}: kernel disagrees with plain version: {err} > {TOL[dtype]}")
             errs[tag] = err
-        args = layer_inputs(hw, f, k, torch.bfloat16, dev, seed=i)
-        times[name] = {
-            "kernel_ms": cuda_ms(lambda: convlstm_scan(*args), reps=5),
-            "plain_ms": cuda_ms(lambda: convlstm_scan_reference(*args), reps=5),
-        }
-        times[name]["kernel_tflops"] = layer_tflops(name, T, times[name]["kernel_ms"])
-    return errs, times
-
-
-def layer_tflops(name, t, ms, backward=False):
-    """Achieved TFLOP/s of one layer's recurrence at batch B and t steps:
-    the operations ``roofline.convlstm_work`` counts, over ``ms``."""
-    ops, _ = convlstm_work({name: LAYERS[name]}, B, lambda _: t, backward=backward)
-    return ops / (ms * 1e-3) / 1e12
+    return errs
 
 
 # The bf16 engine's tensor-core kernels, by the name they show in a
@@ -469,9 +440,6 @@ TC_KERNELS = ("convlstm_step_tc_kernel", "convlstm_bwd_dh_tc_kernel", "recurrent
 # The bf16 LSTM kernels (tensor cores), by their trace names; the f32
 # ones are lstm_fwd_kernel and lstm_bwd_kernel (CUDA cores).
 LSTM_TC_KERNELS = ("lstm_fwd_tc_kernel", "lstm_bwd_tc_kernel")
-# Parts of one ConvLSTM backward call in a trace: the adjoint step, the
-# dh transposed conv, and the weight gradient (GEMM + finalize).
-BWD_PARTS = {"step": ("bwd_step",), "dh": ("bwd_dh",), "wgrad": ("wgrad", "finalize")}
 
 
 def check_rollout(cfg, params, context, z, dtype_name):
@@ -510,13 +478,12 @@ def check_rollout(cfg, params, context, z, dtype_name):
     )
     if not diff <= tol:
         raise RuntimeError(f"rollout {dtype_name}: kernel path disagrees with plain path: {diff}")
-    return launches, diff, rollout_k, rollout_p
+    return launches, rollout_k, rollout_p
 
 
 def profiled(fn, required=(), what="trace", attempts=5):
-    """One ``fn()`` under ``torch.profiler`` (CPU and CUDA activity): busy
-    time (union of device activity), span and count of its device events,
-    device ms by kernel name and device events by kernel name.  ``fn``
+    """One ``fn()`` under ``torch.profiler`` (CPU and CUDA activity): the
+    count of its device events and their count by kernel name.  ``fn``
     always launches device work, including every kernel named in
     ``required`` (its launch counters say so), so a trace without a
     device event, or without one of those kernels, is CUPTI's loss, not
@@ -531,11 +498,13 @@ def profiled(fn, required=(), what="trace", attempts=5):
             torch.cuda.synchronize()
         events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
         if events:
-            found = device_intervals_ms(events)
-            missing = [n for n in required if not any(n in k for k in found[3])]
+            n_by_name = {}
+            for e in events:
+                n_by_name[e.name] = n_by_name.get(e.name, 0) + 1
+            missing = [n for n in required if not any(n in k for k in n_by_name)]
             if not missing:
-                return found
-            note = f"no {missing} among {len(events)} device events ({sorted(found[3])[:8]})"
+                return len(events), n_by_name
+            note = f"no {missing} among {len(events)} device events ({sorted(n_by_name)[:8]})"
         else:
             note = "no device event"
         print(f"[profile] {what}: {note} in the trace, attempt {attempt} of {attempts}",
@@ -544,54 +513,14 @@ def profiled(fn, required=(), what="trace", attempts=5):
     raise RuntimeError(f"{what}: {note} in the trace, {attempts} attempts")
 
 
-def device_intervals_ms(events):
-    """Busy time (union of device activity), span and count of the
-    device ``events`` of a ``torch.profiler`` trace, and time and count
-    per name."""
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
-    busy, lo, hi = 0.0, spans[0][0], spans[0][1]
-    for start, end in spans[1:]:
-        if start > hi:
-            busy, lo = busy + hi - lo, start
-        hi = max(hi, end)
-    busy += hi - lo
-    by_name, n_by_name = {}, {}
-    for e in events:
-        by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
-        n_by_name[e.name] = n_by_name.get(e.name, 0) + 1
-    return busy / 1e3, (spans[-1][1] - spans[0][0]) / 1e3, len(events), by_name, n_by_name
-
-
-def profile_rollout(name, fn, tc, reps=5):
-    """Phase 5: where one rollout's device time goes."""
-    eager_ms = cuda_ms(fn, reps)
-    graph = torch.cuda.CUDAGraph()
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    with torch.cuda.graph(graph):
-        fn()
-    graph_ms = cuda_ms(graph.replay, reps)
-    del graph
-    busy_ms, span_ms, n_events, by_name, _ = profiled(
-        fn, TC_KERNELS[:1] if name == "kernel" and tc else (), f"{name} rollout")
-    convlstm_ms = sum(t for n, t in by_name.items() if "convlstm" in n)
-    if (convlstm_ms > 0) != (name == "kernel"):
-        raise RuntimeError(f"{name} path: {convlstm_ms} ms of ConvLSTM kernel in the trace")
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    print(json.dumps({"profile": {
-        "path": name,
-        "eager_ms": eager_ms,
-        "graph_ms": graph_ms,
-        "idle_share_eager": 1.0 - graph_ms / eager_ms,
-        "profiled_busy_ms": busy_ms,
-        "profiled_span_ms": span_ms,
-        "device_events": n_events,
-        "convlstm_kernel_ms": convlstm_ms,
-        "top_ms": [[n[:80], t] for n, t in top],
-    }}), flush=True)
+def check_rollout_trace(name, fn, tc):
+    """Phase 5: one rollout of the ``name`` path traced: the ConvLSTM
+    kernels on the kernel path alone, its tensor-core kernel by name
+    under ``tc``."""
+    n_by_name = profiled(fn, TC_KERNELS[:1] if name == "kernel" and tc else (), f"{name} rollout")[1]
+    convlstm = sum(n for k, n in n_by_name.items() if "convlstm" in k)
+    if (convlstm > 0) != (name == "kernel"):
+        raise RuntimeError(f"{name} path: {convlstm} ConvLSTM kernel events in the trace")
 
 
 def check_sinkhorn(dev):
@@ -599,11 +528,11 @@ def check_sinkhorn(dev):
     [3, B, B], L=100, eps 1, B in ``SINK_BATCHES``, and at
     ``SINK_UNSTAGED``: costs and histories against the plain forward, c_bar
     under a random cotangent against autograd through the plain loop, one
-    launch a call.  At the batches in ``SINK_TRACED`` each kernel's own
-    device time from the trace, per launch and per iteration, beside the
-    CUDA events around the wrapper; the plain versions timed at B = 32."""
+    launch a call.  At the batches in ``SINK_TRACED`` each kernel's path
+    (``reg_kernel<16, ...>`` up to B = 64, ``band_kernel`` past it) by name
+    in a trace."""
     errs = {"fwd": 0.0, "bwd": 0.0}
-    times, failed = {}, []
+    traces, failed = {}, []
     for k, b, steps in [(SINK_K, b, SINK_L) for b in SINK_BATCHES] + [SINK_UNSTAGED]:
         g = torch.Generator().manual_seed(b)
         c = (torch.randn(k, b, b, generator=g).abs() * 3.0 + 0.1).to(dev)
@@ -639,23 +568,17 @@ def check_sinkhorn(dev):
         del cp, cbar_p, uh_p, vh_p
         if b in SINK_TRACED:
             path = "reg_kernel<16," if b <= 64 else "band_kernel"
-            times[b] = session_trace({
-                "fwd": (lambda: sinkhorn_fwd(c, SINK_EPS, SINK_L), sinkhorn_fwd, (f"sinkhorn_fwd_{path}",),
-                        SINK_L),
+            traces[b] = session_trace({
+                "fwd": (lambda: sinkhorn_fwd(c, SINK_EPS, SINK_L), sinkhorn_fwd, (f"sinkhorn_fwd_{path}",)),
                 "bwd": (lambda: sinkhorn_bwd(c, uh_k, vh_k, cot, SINK_EPS), sinkhorn_bwd,
-                        (f"sinkhorn_bwd_{path}",), SINK_L),
+                        (f"sinkhorn_bwd_{path}",)),
             })
-            print(f"[sinkhorn trace] B={b}: " + json.dumps(times[b]), flush=True)
-        if b == 32:
-            times["plain"] = {
-                "fwd_plain_ms": cuda_ms(lambda: sinkhorn_fwd_reference(c, SINK_EPS, SINK_L), reps=3),
-                "bwd_plain_ms": cuda_ms(lambda: sinkhorn_bwd_reference(c, uh_k, vh_k, cot, SINK_EPS), reps=3),
-            }
+            print(f"[sinkhorn trace] B={b}: " + json.dumps(traces[b]), flush=True)
         del c, uh_k, vh_k, cbar_k
-    print(json.dumps({"sinkhorn_B_L100": {str(k): v for k, v in times.items()}}), flush=True)
+    print(json.dumps({"sinkhorn_B_L100": {str(k): v for k, v in traces.items()}}), flush=True)
     if failed:
         raise RuntimeError(f"Sinkhorn kernels disagree with their plain versions: {failed}")
-    return errs, times
+    return errs
 
 
 def _all_finite(state, metrics):
@@ -721,56 +644,19 @@ def check_training(cfg, dev):
     return state0, video, zs, step_k, step_p, launches
 
 
-def time_training(card, cfg, state0, video, zs, paths, marker, what, required=(), preset=PRESET):
-    """ms per iteration (CUDA events, the two paths in turns: reference,
-    kernel, kernel, reference), frames/s, peak memory, and one iteration
-    per path under ``torch.profiler``.  ``paths`` is ``((reference name,
-    step), (kernel name, step))``; device time in kernels whose name holds
-    ``marker`` must show in the kernel path's trace and only there, and
-    every kernel named in ``required`` in the kernel path's."""
-    (ref, _), (kern, _) = paths
-    fns = dict(paths)
-    ms = {ref: [], kern: []}
-    for path in (ref, kern, kern, ref):
-        ms[path].append(cuda_ms(lambda: fns[path](state0, video, z=zs[0]), reps=2))
-    step_ms = {p: sum(v) / len(v) for p, v in ms.items()}
-    frames = cfg.batch_size * cfg.total_time_steps
-    peak = {}
-    profiles = {}
-    for path in (ref, kern):
-        fn = fns[path]
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        fn(state0, video, z=zs[0])
-        torch.cuda.synchronize()
-        peak[path] = torch.cuda.max_memory_allocated() / 2**30
-        busy_ms, span_ms, n_events, by_name, _ = profiled(
-            lambda: fn(state0, video, z=zs[0]), required if path == kern else (), f"{what}, {path} path")
-        marked_ms = sum(t for n, t in by_name.items() if marker in n)
-        if (marked_ms > 0) != (path == kern):
-            raise RuntimeError(f"{what}, {path} path: {marked_ms} ms of '{marker}' kernels in the trace")
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-        profiles[path] = {
-            "eager_ms": step_ms[path],
-            "profiled_busy_ms": busy_ms,
-            "profiled_span_ms": span_ms,
-            "idle_share_eager": 1.0 - busy_ms / step_ms[path],
-            "device_events": n_events,
-            f"{marker}_kernel_ms": marked_ms,
-            "top_ms": [[n[:80], t] for n, t in top],
-        }
-        print(json.dumps({"profile_training": {"what": what, "path": path, **profiles[path]}}), flush=True)
-    print(json.dumps({what: {
-        "card": card,
-        "preset": preset,
-        "compute_dtype": cfg.compute_dtype,
-        "sinkhorn_l": cfg.sinkhorn_l,
-        "step_ms": step_ms,
-        "step_ms_runs": ms,
-        "training_frames_per_s": {p: frames / (t / 1e3) for p, t in step_ms.items()},
-        "peak_memory_gib": peak,
-    }}), flush=True)
-    return step_ms, profiles, peak
+def check_traces(state0, video, zs, paths, marker, what, required=()):
+    """One iteration of each path under ``torch.profiler``.  ``paths`` is
+    ``((reference name, step), (kernel name, step))``; kernels whose name
+    holds ``marker`` must show in the kernel path's trace and only there,
+    and every kernel named in ``required`` in the kernel path's."""
+    kern = paths[1][0]
+    for path, fn in paths:
+        n_events, n_by_name = profiled(lambda: fn(state0, video, z=zs[0]), required if path == kern else (),
+                                       f"{what}, {path} path")
+        marked = sum(n for k, n in n_by_name.items() if marker in k)
+        print(f"[trace] {what}, {path} path: {n_events} device events, {marked} of '{marker}' kernels", flush=True)
+        if (marked > 0) != (path == kern):
+            raise RuntimeError(f"{what}, {path} path: {marked} device events of '{marker}' kernels in the trace")
 
 
 COUNTED = {
@@ -801,9 +687,9 @@ def rel_err(got, want):
 def check_convlstm_bwd(dev):
     """The ConvLSTM backward kernels (and the forward's c stack) vs their
     plain versions at the 8 layer shapes with the training T (20 encoder,
-    10 decoder), nonzero h0, c0, dh_n and dc_n, f32 and bf16; bf16 times
-    of each layer's backward, kernel and plain."""
-    errs, times, failed = {}, {}, []
+    10 decoder), nonzero h0, c0, dh_n and dc_n, f32 and bf16; each layer's
+    bf16 backward traced, its tensor-core kernels (dh, drk) by name."""
+    errs, failed = {}, []
     for i, (name, (hw, f, k)) in enumerate(LAYERS.items()):
         t = train_t(name)
         for dtype in (torch.float32, torch.bfloat16):
@@ -831,19 +717,10 @@ def check_convlstm_bwd(dev):
         args = layer_inputs(hw, f, k, torch.bfloat16, dev, seed=100 + i, t=t)
         y, cs, h, c, gs = convlstm_fwd(*args, with_c_stack=True)
         cot = (torch.ones_like(y), torch.zeros_like(h), torch.zeros_like(c))
-        times[name] = {
-            "kernel_ms": cuda_ms(lambda: convlstm_bwd(gs, *args[1:4], y, cs, *cot), reps=3),
-            "plain_ms": cuda_ms(lambda: convlstm_bwd_reference(*args, y, cs, *cot), reps=1),
-        }
-        times[name]["kernel_tflops"] = layer_tflops(name, t, times[name]["kernel_ms"], backward=True)
-        by_name = profiled(lambda: convlstm_bwd(gs, *args[1:4], y, cs, *cot), TC_KERNELS[1:],
-                           f"{name} bf16 backward")[3]
-        for part, keys in BWD_PARTS.items():
-            times[name][f"{part}_ms"] = sum(v for n, v in by_name.items() if any(x in n for x in keys))
-    print(json.dumps({"convlstm_bwd_ms_bf16_B32": times}), flush=True)
+        profiled(lambda: convlstm_bwd(gs, *args[1:4], y, cs, *cot), TC_KERNELS[1:], f"{name} bf16 backward")
     if failed:
         raise RuntimeError(f"convlstm_bwd disagrees with its plain version: {failed}")
-    return errs, times
+    return errs
 
 
 def lstm_inputs(in_features, u, dtype, dev, seed, b=LSTM_B, t=LSTM_T):
@@ -859,56 +736,17 @@ def lstm_inputs(in_features, u, dtype, dev, seed, b=LSTM_B, t=LSTM_T):
     return xproj, h0, c0, rk, bias
 
 
-def time_cudnn(in_features, u, dtype, dev):
-    """cuDNN's LSTM (``torch.nn.LSTM``, batch-first) at one layer's shape:
-    forward, the backward call alone, and forward + backward."""
-    x = torch.randn(LSTM_B, LSTM_T, in_features, device=dev, dtype=dtype, requires_grad=True)
-    cudnn = torch.nn.LSTM(in_features, u, batch_first=True).to(dev, dtype)
-    cudnn.flatten_parameters()
-    out, _ = cudnn(x)
-    gout = torch.ones_like(out)
-    params = [x, *cudnn.parameters()]
-    with torch.no_grad():
-        fwd = cuda_ms(lambda: cudnn(x), reps=10)
-    return {
-        "cudnn_fwd_ms": fwd,
-        "cudnn_bwd_ms": cuda_ms(lambda: torch.autograd.grad(out, params, gout, retain_graph=True), reps=10),
-        "cudnn_fwd_bwd_ms": cuda_ms(lambda: cudnn(x)[0].backward(gout), reps=10),
-    }
-
-
-def time_port_layer(in_features, u, dtype, dev):
-    """The port's whole ``LSTM`` layer (hoisted product + kernels) at the
-    same shape: forward, and forward + backward."""
-    port = LSTM(in_features, u, compute_dtype=str(dtype).removeprefix("torch."))
-    port.reset_parameters(torch.Generator().manual_seed(0))
-    port = port.to(dev)
-    x = torch.randn(LSTM_B, LSTM_T, in_features, device=dev, requires_grad=True)
-
-    def fwd_bwd():
-        y = port(x)
-        y.backward(torch.ones_like(y))
-
-    with torch.no_grad():
-        fwd = cuda_ms(lambda: port(x), reps=10)
-    return {"port_layer_fwd_ms": fwd, "port_layer_fwd_bwd_ms": cuda_ms(fwd_bwd, reps=10)}
-
-
 def session_trace(calls, rounds=10):
     """Wrapper calls as the card sees them, from one ``torch.profiler``
     session (few sessions a process: CUPTI drops more events in each later
-    one).  ``calls`` maps a label to ``(fn, counter, keys, steps)``, each
-    key naming one kernel that a call launches once (the labels' kernels
+    one).  ``calls`` maps a label to ``(fn, counter, keys)``, each key
+    naming one kernel that a call launches once (the labels' kernels
     distinct); ``rounds`` times every fn runs once, in turn.  Per label:
-    each kernel's device µs per recorded event of its own (so a dropped
-    event of one kernel does not weigh another's), their sum, the device
-    time a call, and that per launch and per step; the launches a call (the
-    wrapper's counter) and the share of each kernel's launches the trace
-    recorded; the CUDA-events time of one call beside it (host enqueue
-    included when the host is slower than the device); and the device ops
-    a round that are no label's kernel."""
-    out = {label: {"events_ms_per_call": cuda_ms(fn, reps=20)} for label, (fn, *_) in calls.items()}
-    before = {label: c.launches for label, (_, c, _, _) in calls.items()}
+    the launches a call (the wrapper's counter), the share of each
+    kernel's launches the trace recorded, the kernels' names, and the
+    device ops a round that are no label's kernel."""
+    out = {}
+    before = {label: c.launches for label, (_, c, _) in calls.items()}
     made = [0]  # rounds run, a retaken trace's included
 
     def run():
@@ -917,29 +755,22 @@ def session_trace(calls, rounds=10):
                 fn()
         made[0] += rounds
 
-    required = tuple(k for _, _, keys, _ in calls.values() for k in keys)
-    _, _, n_events, by_name, n_by_name = profiled(run, required, f"{'/'.join(calls)} calls")
+    required = tuple(k for _, _, keys in calls.values() for k in keys)
+    n_events, n_by_name = profiled(run, required, f"{'/'.join(calls)} calls")
     matched = 0
-    for label, (_, counter, keys, steps) in calls.items():
-        by_kernel, share, names = {}, {}, []
+    for label, (_, counter, keys) in calls.items():
+        share, names = {}, []
         for key in keys:
-            kn = [n for n in by_name if key in n]
+            kn = [n for n in n_by_name if key in n]
             n_kernel = sum(n_by_name[n] for n in kn)
             matched += n_kernel
-            by_kernel[key] = 1e3 * sum(by_name[n] for n in kn) / n_kernel
             share[key] = n_kernel / rounds
             names += kn
-        launches = (counter.launches - before[label]) / made[0]
-        call_us = sum(by_kernel.values())
-        out[label].update({
-            "kernel_us_by_kernel": by_kernel,
-            "kernel_us_per_launch": call_us / launches,
-            "kernel_us_per_step": call_us / steps,
-            "kernel_launches_per_call": launches,
+        out[label] = {
+            "kernel_launches_per_call": (counter.launches - before[label]) / made[0],
             "recorded_share": share,
-            "device_ms_per_call": call_us / 1e3,
             "kernel_names": sorted({n[:60] for n in names}),
-        })
+        }
     for v in out.values():
         v["other_device_ops_per_call"] = (n_events - matched) / rounds
     return out
@@ -950,11 +781,10 @@ def check_lstm(dev):
     lstm1-3 (lstm3 with its sigmoid output), B=32, T=20, nonzero h0, c0
     and cotangents, f32 and bf16; each wrapper call traced in bf16 and f32
     (one kernel launch and no other device op a call, the tensor-core
-    kernels in bf16 and only there); bf16 plain times, and cuDNN's LSTM
-    at lstm1 and lstm2 (lstm3's sigmoid output has no cuDNN counterpart)."""
+    kernels in bf16 and only there)."""
     layers = lstm_layers(get_preset(PRESET))
     errs = {"fwd": 0.0, "bwd": 0.0}
-    times, failed = {}, []
+    failed = []
     for i, (name, (feat, u)) in enumerate(layers.items()):
         act = "sigmoid" if name == "lstm3" else "tanh"
         for dtype in (torch.float32, torch.bfloat16):
@@ -980,24 +810,14 @@ def check_lstm(dev):
                 failed.append(tag)
             errs["fwd"] = max(errs["fwd"], e_fwd)
             errs["bwd"] = max(errs["bwd"], max_err(got, want))
-        args = lstm_inputs(feat, u, torch.bfloat16, dev, seed=300 + i)
-        y, cs, h, c = lstm_fwd(*args, act, with_c_stack=True)
-        cot = (torch.ones_like(y), torch.zeros_like(h), torch.zeros_like(c))
-        times[name] = {
-            "fwd_plain_ms": cuda_ms(lambda: lstm_scan_reference(*args, act), reps=3),
-            "bwd_plain_ms": cuda_ms(lambda: lstm_bwd_reference(*args, y, cs, *cot, act), reps=3),
-            "fwd_bound_ms": bound_ms(*lstm_work({name: (feat, u)}, LSTM_B, LSTM_T), PEAK_BF16)[0],
-            "bwd_bound_ms": bound_ms(*lstm_work({name: (feat, u)}, LSTM_B, LSTM_T, backward=True),
-                                     PEAK_BF16)[0],
-        }
         for dtype in (torch.bfloat16, torch.float32):
             tag = str(dtype).removeprefix("torch.")
             args = lstm_inputs(feat, u, dtype, dev, seed=300 + i)
             y, cs, h, c = lstm_fwd(*args, act, with_c_stack=True)
             cot = (torch.ones_like(y), torch.zeros_like(h), torch.zeros_like(c))
-            times[name][f"trace_{tag}"] = trace = session_trace({
-                "fwd": (lambda: lstm_fwd(*args, act, with_c_stack=True), lstm_fwd, ("lstm_fwd",), LSTM_T),
-                "bwd": (lambda: lstm_bwd(*args, y, cs, *cot, act), lstm_bwd, ("lstm_bwd",), LSTM_T),
+            trace = session_trace({
+                "fwd": (lambda: lstm_fwd(*args, act, with_c_stack=True), lstm_fwd, ("lstm_fwd",)),
+                "bwd": (lambda: lstm_bwd(*args, y, cs, *cot, act), lstm_bwd, ("lstm_bwd",)),
             })
             print(f"[lstm trace] {name} U={u} {tag}: " + json.dumps(trace), flush=True)
             for part, tr in trace.items():
@@ -1007,18 +827,9 @@ def check_lstm(dev):
                 ):
                     failed.append(f"{name} {tag} {part}: a call launched {tr['kernel_names']} "
                                   f"and {tr['other_device_ops_per_call']} other device ops")
-        if act == "tanh":
-            for dtype in (torch.float32, torch.bfloat16):
-                tag = str(dtype).removeprefix("torch.")
-                times[name][f"port_layer_{tag}"] = time_port_layer(feat, u, dtype, dev)
-                try:  # the yardstick only: cuDNN may not take bf16 RNNs
-                    times[name][f"cudnn_{tag}"] = time_cudnn(feat, u, dtype, dev)
-                except RuntimeError as err:
-                    times[name][f"cudnn_{tag}"] = {"error": str(err)[:300]}
-    print(json.dumps({"lstm_ms_B32_T20": times}), flush=True)
     if failed:
         raise RuntimeError(f"LSTM kernels disagree with their plain versions: {failed}")
-    return errs, times
+    return errs
 
 
 def check_lstm_wide(dev):
@@ -1027,7 +838,7 @@ def check_lstm_wide(dev):
     backward's dR and db in a second launch) vs their plain versions,
     B=32, T=20, f32 and bf16, under the same tolerances; each wrapper
     call traced (forward one launch, backward two, no other device op)."""
-    times, failed = {}, []
+    checks, failed = {}, []
     for u in LSTM_WIDE:
         for dtype in (torch.float32, torch.bfloat16):
             tag = f"U={u} {str(dtype).removeprefix('torch.')}"
@@ -1049,19 +860,18 @@ def check_lstm_wide(dev):
             e_bwd = {n: rel_err([a], [b]) for n, a, b in zip(("dx", "dh0", "dc0", "dR", "db"), got, want)}
             path = "tc" if dtype == torch.bfloat16 and u <= 128 else "l2"
             trace = session_trace({
-                "fwd": (lambda: lstm_fwd(*args, with_c_stack=True), lstm_fwd, (f"lstm_fwd_{path}_kernel",),
-                        LSTM_T),
+                "fwd": (lambda: lstm_fwd(*args, with_c_stack=True), lstm_fwd, (f"lstm_fwd_{path}_kernel",)),
                 "bwd": (lambda: lstm_bwd(*args, y_p, cs_p, *cot), lstm_bwd,
-                        (f"lstm_bwd_{path}_kernel", "lstm_wgrad_l2_kernel"), LSTM_T),
+                        (f"lstm_bwd_{path}_kernel", "lstm_wgrad_l2_kernel")),
             })
-            times[tag] = {"fwd_max_abs_err": e_fwd, "grad_err_over_largest": e_bwd, "launches": launches, **trace}
-            print(f"[lstm wide] {tag}: " + json.dumps(times[tag]), flush=True)
+            checks[tag] = {"fwd_max_abs_err": e_fwd, "grad_err_over_largest": e_bwd, "launches": launches, **trace}
+            print(f"[lstm wide] {tag}: " + json.dumps(checks[tag]), flush=True)
             calls_ok = [(trace[p]["kernel_launches_per_call"], trace[p]["other_device_ops_per_call"])
                         for p in ("fwd", "bwd")] == [(1, 0), (2, 0)]
             if not (e_fwd <= TOL[dtype] and max(e_bwd.values()) <= GRAD_TOL[dtype] and launches == (1, 2)
                     and calls_ok):
                 failed.append(tag)
-    print(json.dumps({"lstm_wide_B32_T20": {k: {p: v[p] for p in ("fwd", "bwd")} for k, v in times.items()}}),
+    print(json.dumps({"lstm_wide_B32_T20": {k: {p: v[p] for p in ("fwd", "bwd")} for k, v in checks.items()}}),
           flush=True)
     if failed:
         raise RuntimeError(f"LSTM kernels past U = 64 disagree with their plain versions: {failed}")
@@ -1310,69 +1120,14 @@ def check_resume(tmp, train_path, base, tag="trainer_resume"):
     if not (same_losses and max(diff.values()) == 0.0 and s_state.step == r_state.step == TRAINER_STEPS
             and s_state.rng == r_state.rng):
         raise RuntimeError(f"resumed run differs from the straight run: {resume}")
-    return first.timings, batches
 
 
-def time_loop(tmp, batches, base):
-    """Phase 9c: the loop (Trainer.fit, no checkpoint or sample in the
-    window, its summary's rates) against the bare step on the same
-    batches staged on the card beforehand (host clock around the steps
-    and a final synchronize), in turns: loop, bare, bare, loop.  Per
-    loop window, the mean and the largest wait for a batch."""
-    cfg = dataclasses.replace(base, kernel_impl="pallas", ckpt_freq=10**9, save_freq=10**9,
-                              out_dir=str(tmp), run_name="loop")
-    batches = (batches * LOOP_STEPS)[:LOOP_STEPS]
-    trainer = Trainer(cfg)
-    state0 = create_train_state(cfg)
-    on_card = [torch.from_numpy(b).cuda() for b in batches]
-    runs = {"loop": [], "bare": []}
-    waits = {"mean_ms": [], "max_ms": []}
-    for kind in ("loop", "bare", "bare", "loop"):
-        torch.cuda.synchronize()
-        if kind == "loop":
-            _, summary = trainer.fit(iter(batches), state=state0)
-            if summary["steps"] != LOOP_STEPS:
-                raise RuntimeError(f"loop window: {summary}")
-            runs["loop"].append(summary["frames_per_sec"])
-            wait = trainer.timings["prefetch_wait"]
-            waits["mean_ms"].append(wait["sum_ms"] / LOOP_STEPS)
-            waits["max_ms"].append(wait["max_ms"])
-        else:
-            t0 = time.perf_counter()
-            state = state0
-            for batch in on_card:
-                state, _ = trainer.train_step(state, batch)
-            torch.cuda.synchronize()
-            runs["bare"].append(LOOP_STEPS * cfg.batch_size * cfg.total_time_steps / (time.perf_counter() - t0))
-    return {k: sum(v) / len(v) for k, v in runs.items()}, runs, waits
-
-
-def check_trainer(card, base, bare_pallas_ms):
+def check_trainer(base):
     """Phase 9: the trainer's path, through the CLI and through Trainer."""
     with tempfile.TemporaryDirectory() as tmp:
         train_path = write_fixture(Path(tmp) / "data")
-        summary, launched = check_trainer_cli(Path(tmp) / "runs", Path(tmp) / "data")
-        timings, batches = check_resume(Path(tmp) / "resume", train_path, base)
-        fps, fps_runs, waits = time_loop(Path(tmp) / "loop", batches, base)
-    ckpt = timings["checkpoints"][0]
-    frames = base.batch_size * base.total_time_steps
-    print(json.dumps({"trainer": {
-        "card": card,
-        "preset": PRESET,
-        "kernel_impl": "pallas",
-        "cli_summary": summary,
-        "loop_frames_per_s": fps["loop"],
-        "bare_step_frames_per_s": fps["bare"],
-        "loop_over_bare": fps["loop"] / fps["bare"],
-        "frames_per_s_runs": fps_runs,
-        "frames_per_s_of_bare_pallas_iteration": frames / bare_pallas_ms * 1e3,
-        "bare_pallas_iteration_ms": bare_pallas_ms,
-        "loop_steps_per_s": fps["loop"] / frames,
-        "checkpoint": {"host_copy_ms": ckpt["copy_ms"], "write_ms": ckpt["write_ms"], "mb": ckpt["bytes"] / 1e6},
-        "sample_ms": timings["sample_ms"],
-        "prefetch_wait_ms_per_step": waits["mean_ms"],
-        "prefetch_wait_max_ms": waits["max_ms"],
-    }}), flush=True)
+        _, launched = check_trainer_cli(Path(tmp) / "runs", Path(tmp) / "data")
+        check_resume(Path(tmp) / "resume", train_path, base)
     return launched
 
 
@@ -1432,20 +1187,15 @@ def check_smoothing(dev):
     bad = {k: e for k, e in errs.items() if e["out_max_abs_err"] > SMOOTH_TOL or e["vjp_err"] > SMOOTH_TOL}
     if bad:
         raise RuntimeError(f"separable smoothing vs dense: {bad}")
-    return errs
 
 
-def check_options_training(card, base, dev):
+def check_options_training(base, dev):
     """Phase 10b: 'pallas' iterations with each smoothing mode and
     decaying sigma, counted per iteration; '3d' under both engines in
-    f32; the modes timed against 'none' in turns, every one eager, and
-    the smoothing's own device time an iteration."""
+    f32."""
     state0, video, zs = training_inputs(base, dev)
-    # every mode eager (the identity placement), so that a mode's time over
-    # 'none' is its smoothing alone: 'none' would otherwise replay a graph
     steps = {mode: build_train_step(dataclasses.replace(
-        base, kernel_impl="pallas", kernel=mode, decaying_sigma=True), device=dev, placement=Placement())
-        for mode in ("none",) + SMOOTH_MODES}
+        base, kernel_impl="pallas", kernel=mode, decaying_sigma=True), device=dev) for mode in SMOOTH_MODES}
     want = {n: list(c) for n, c in PALLAS_COUNTS.items()}
     losses = {}
     for mode in SMOOTH_MODES:
@@ -1475,62 +1225,13 @@ def check_options_training(card, base, dev):
     if not ok:
         raise RuntimeError(f"'3d' f32: 'pallas' and 'scan' iterations disagree: {cmp}")
 
-    ms = {mode: [] for mode in steps}
-    order = ("none",) + SMOOTH_MODES
-    for mode in order + order[::-1]:
-        ms[mode].append(cuda_ms(lambda: steps[mode](state0, video, z=zs[0]), reps=2))
-    # '3d' against 'none' over a longer window: 4 turns each of 6 iterations
-    long = {"none": [], "3d": []}
-    for mode in ("none", "3d", "3d", "none") * 2:
-        long[mode].append(cuda_ms(lambda: steps[mode](state0, video, z=zs[0]), reps=6))
-    # and from one trace of each: the device's busy time and its events
-    traced = {}
-    for mode in ("none", "3d"):
-        busy, span, n_events, _, _ = profiled(lambda: steps[mode](state0, video, z=zs[0]),
-                                              what=f"'pallas' iteration, kernel {mode}")
-        traced[mode] = {"device_busy_ms": busy, "span_ms": span, "device_events": n_events}
-
-    def smoothing_work(mode):
-        def run():
-            # an iteration's smoothing: the real video once, the fake in
-            # each phase, the generator phase's differentiated
-            apply_smoothing(video, SMOOTH_SIGMA, mode)
-            apply_smoothing(video, SMOOTH_SIGMA, mode)
-            x = video.clone().requires_grad_()
-            y = apply_smoothing(x, SMOOTH_SIGMA, mode)
-            torch.autograd.grad(y, x, torch.ones_like(y))
-        return run
-
-    frames = base.batch_size * base.total_time_steps
-    out = {}
-    for mode in order:
-        step_ms = sum(ms[mode]) / len(ms[mode])
-        out[mode] = {"step_ms": step_ms, "step_ms_runs": ms[mode], "training_frames_per_s": frames / step_ms * 1e3,
-                     "over_none": step_ms / (sum(ms["none"]) / len(ms["none"]))}
-        if mode != "none":
-            run = smoothing_work(mode)
-            run()
-            busy, span, n_events, _, _ = profiled(run, what=f"smoothing {mode}")
-            out[mode].update({"smoothing_device_ms_per_iteration": busy, "smoothing_span_ms": span,
-                              "smoothing_device_events": n_events})
-    long_ms = {k: sum(v) / len(v) for k, v in long.items()}
-    print(json.dumps({"smoothing_timings": {
-        "card": card, "preset": PRESET, "compute_dtype": base.compute_dtype, "kernel_impl": "pallas",
-        "modes": out, "long_window_3d": {"step_ms": long_ms, "step_ms_runs": long,
-                                         "over_none": long_ms["3d"] / long_ms["none"]},
-        "traced_iteration": traced,
-        "traced_3d_minus_none": {k: traced["3d"][k] - traced["none"][k] for k in traced["none"]},
-    }}), flush=True)
-    return out
-
 
 def check_convlstm_dropout(dev):
     """Phase 10c: the ConvLSTM kernels' recurrent-dropout mode against the
     plain versions with the same masks (``[4, B, H, W, f]``, keep 0.9, gate
     g's conv over h_{t-1} * mask_g), forward with its hm stack and
-    backward, at the 8 layer shapes with the training T, f32 and bf16;
-    bf16 forward + backward times beside the unmasked kernels'."""
-    errs, times, failed = {}, {}, []
+    backward, at the 8 layer shapes with the training T, f32 and bf16."""
+    errs, failed = {}, []
     for i, (name, (hw, f, k)) in enumerate(LAYERS.items()):
         t = train_t(name)
         g = torch.Generator().manual_seed(300 + i)
@@ -1554,32 +1255,19 @@ def check_convlstm_dropout(dev):
             # the forward's bf16 tolerance is that of y times 1 / keep
             if not (e_fwd <= TOL[dtype] / (1 - DROPOUT) and max(e_bwd.values()) <= GRAD_TOL[dtype]):
                 failed.append(tag)
-        args = layer_inputs(hw, f, k, torch.bfloat16, dev, seed=300 + i, t=t)
-        leaves = [a.clone().requires_grad_() for a in args]
-
-        def fwd_bwd(rec_masks):
-            y, (h, c) = convlstm_scan(*leaves, rec_masks)
-            torch.autograd.grad(y, leaves, torch.ones_like(y))
-
-        times[name] = {"masked_ms": cuda_ms(lambda: fwd_bwd(masks), reps=2),
-                       "unmasked_ms": cuda_ms(lambda: fwd_bwd(None), reps=2)}
     tol = {str(d).removeprefix("torch."): {"forward_abs": TOL[d] / (1 - DROPOUT), "grad_of_largest": GRAD_TOL[d]}
            for d in TOL}
-    print(json.dumps({"convlstm_dropout_check": {"keep": 1 - DROPOUT, "tol": tol, "errors": errs,
-                                                 "fwd_bwd_ms_bf16_B32": times}}), flush=True)
+    print(json.dumps({"convlstm_dropout_check": {"keep": 1 - DROPOUT, "tol": tol, "errors": errs}}), flush=True)
     if failed:
         raise RuntimeError(f"the ConvLSTM kernels' masked mode disagrees with its plain version: {failed}")
-    return times
 
 
-def check_dropout_training(card, base, dev):
+def check_dropout_training(base, dev):
     """Phase 10d: 'pallas' iterations with dropout alone and with dropout
     and recurrent dropout: every kernel's calls and launches those of an
     iteration without dropout but for the context's second encoding
     (``DROPOUT_COUNTS``; the ConvLSTM kernels take the masks), held
-    against 'scan' from the same state and masks in f32; then the bf16
-    iteration with both dropouts timed against none in turns, both
-    eager."""
+    against 'scan' from the same state and masks in f32."""
     variants = {"dropout": (DROPOUT, 0.0), "dropout_rnn_dropout": (DROPOUT, DROPOUT)}
 
     def with_dropout(cfg, name):
@@ -1614,34 +1302,20 @@ def check_dropout_training(card, base, dev):
         engines[name] = cmp
         if not ok:
             raise RuntimeError(f"{name} f32: 'pallas' and 'scan' iterations disagree: {cmp}")
-    cfg = with_dropout(base, "dropout_rnn_dropout")
-    state0, video, zs = training_inputs(cfg, dev)
-    # both eager: without dropout the step would replay a graph
-    steps = {"none": build_train_step(dataclasses.replace(base, kernel_impl="pallas"), device=dev,
-                                      placement=Placement()),
-             "dropout": build_train_step(cfg, device=dev)}
-    ms = {"none": [], "dropout": []}
-    for name in ("none", "dropout", "dropout", "none"):
-        ms[name].append(cuda_ms(lambda: steps[name](state0, video, z=zs[0]), reps=3))
-    step_ms = {k: sum(v) / len(v) for k, v in ms.items()}
-    frames = base.batch_size * base.total_time_steps
     print(json.dumps({"dropout_training": {
-        "card": card, "preset": PRESET, "compute_dtype": base.compute_dtype, "kernel_impl": "pallas",
+        "preset": PRESET, "compute_dtype": base.compute_dtype, "kernel_impl": "pallas",
         "variants": variants, "per_iteration_counts": want, "losses": losses,
         "engines_float32": engines, "tol": ENGINE_TOL["float32"],
-        "timed": "dropout_rnn_dropout against none", "step_ms": step_ms, "step_ms_runs": ms,
-        "training_frames_per_s": {k: frames / v * 1e3 for k, v in step_ms.items()},
     }}), flush=True)
-    return step_ms
 
 
-def check_options(card, base, dev):
+def check_options(base, dev):
     """Phase 10: the paper's training options (smoothing, annealing,
     dropout) through the step, the CLI and a resume."""
-    errs = check_smoothing(dev)
-    smooth_times = check_options_training(card, base, dev)
+    check_smoothing(dev)
+    check_options_training(base, dev)
     check_convlstm_dropout(dev)
-    dropout_ms = check_dropout_training(card, base, dev)
+    check_dropout_training(base, dev)
     opts = dataclasses.replace(base, kernel="3d", decaying_sigma=True, model=dataclasses.replace(
         base.model, dropout=DROPOUT, rnn_dropout=DROPOUT))
     with tempfile.TemporaryDirectory() as tmp:
@@ -1650,7 +1324,6 @@ def check_options(card, base, dev):
                           options=("--kernel", "3d", "--decaying_sigma", "--dropout", str(DROPOUT),
                                    "--rnn_dropout", str(DROPOUT)))
         check_resume(Path(tmp) / "resume", train_path, opts, tag="options_resume")
-    return errs, smooth_times, dropout_ms
 
 
 # Phase 11, the datasets: the paper's RGB presets (B=8, 64x64x3, 5 context
@@ -1659,7 +1332,8 @@ def check_options(card, base, dev):
 # BAIR_SHARDS shards; flat-float 'animation': FLAT_RECORDS records over two
 # shards; GQN mazes (with PIL): GQN_FILES shards of GQN_RECORDS records of
 # GQN_FRAMES 84x84 JPEG frames, and the np_mazes_test.npy batch (with an
-# alpha channel).  Reader rates over READER_VIDEOS videos a backend.
+# alpha channel).  The loaders' samples compared over READER_VIDEOS
+# flat-float videos.
 DATA_PRESETS = ("robot_push", "mazes")
 BAIR_TRAIN, BAIR_TEST, BAIR_SHARDS = 64, 16, 4
 FLAT_RECORDS = 32
@@ -1750,7 +1424,7 @@ def check_readers(root, shards):
     """Phase 11b: the native backend on the card's host, byte-identical to
     the Python one on every fixture shard (records under verify_crc, each
     record's masked CRC32C, and the parse each loader uses) and in the
-    loaders' samples; records/s and videos/s of each backend."""
+    loaders' samples."""
     if data_io.backend() != "native":
         raise RuntimeError(f"data.io backend {data_io.backend()!r}: the native reader did not load")
     parse_of = {"bair": "parse_sequence_example", "animation": "parse_example_arrays", "mazes": "parse_example"}
@@ -1770,29 +1444,16 @@ def check_readers(root, shards):
     t, m = cfg.total_time_steps, cfg.model
     bair_root = str(root / "softmotion30_44k")
     pattern = str(root / "animation" / "*.tfrecord")
-    train_shards = [str(p) for p in shards["bair"][:BAIR_SHARDS]]
-    rates, samples = {}, {}
+    samples = {}
     for name in ("native", "python"):
         with io_backend(name):
-            t0 = time.perf_counter()
-            n = sum(1 for path in train_shards for _ in data_io.iter_tfrecord(path))
-            t1 = time.perf_counter()
-            for path in train_shards:
-                for rec in data_io.iter_tfrecord(path):
-                    data_io.parse_sequence_example(rec)
-            t2 = time.perf_counter()
             bair_videos = list(robot_push_samples(bair_root, t))
-            t3 = time.perf_counter()
             flat = list(itertools.islice(flat_feature_samples(pattern, m.x_height, m.x_width, t, m.n_channels,
                                                               seed=1), READER_VIDEOS))
-            t4 = time.perf_counter()
         samples[name] = (bair_videos, flat)
-        rates[name] = {"bair_records_per_s": n / (t1 - t0), "bair_records_parsed_per_s": n / (t2 - t1),
-                       "robot_push_videos_per_s": len(bair_videos) / (t3 - t2),
-                       "flat_feature_videos_per_s": len(flat) / (t4 - t3)}
     if len(samples["native"][0]) != BAIR_TRAIN or not same_values(samples["native"], samples["python"]):
         raise RuntimeError("the loaders' samples differ between the backends")
-    return {"backend": data_io.backend(), "records_checked": n_records, "rates": rates}
+    return {"backend": data_io.backend(), "records_checked": n_records}
 
 
 def rollout_counts(cfg, dev):
@@ -1886,114 +1547,35 @@ def check_kernels_at(cfg, dev):
         raise RuntimeError(f"kernels disagree with their plain versions at {cfg.dname}: {failed}")
 
 
-def time_data_loop(tmp, cfg, host_batches):
-    """Phase 11e: ``Trainer.fit`` reading the fixture through
-    ``make_dataset`` (the reader, its shuffle buffer, the pinning thread
-    and the copy to the card; LOOP_STEPS steps, no checkpoint or sample),
-    ``Trainer.fit`` over the same batches read beforehand (the loop
-    without the reader, as phase 9c times it), and the bare step on those
-    batches staged on the card (host clock and a final synchronize), in
-    turns: reader, memory, bare, bare, memory, reader.  Each reader
-    window's prefetch wait a step (the step's side), and the reader's time
-    for the first batch (the shuffle buffer's fill) and for each later one
-    (in the pinning thread)."""
-    cfg = dataclasses.replace(cfg, kernel_impl="pallas", ckpt_freq=10**9, save_freq=10**9, out_dir=str(tmp),
-                              run_name="data_loop")
-    trainer = Trainer(cfg)
-    state0 = create_train_state(cfg)
-    staged = [torch.from_numpy(b).cuda() for b in host_batches]
-    frames = LOOP_STEPS * cfg.batch_size * cfg.total_time_steps
-    runs, waits = {"reader": [], "memory": [], "bare": []}, []
-    for kind in ("reader", "memory", "bare", "bare", "memory", "reader"):
-        torch.cuda.synchronize()
-        if kind == "bare":
-            t0 = time.perf_counter()
-            state = state0
-            for batch in staged:
-                state, _ = trainer.train_step(state, batch)
-            torch.cuda.synchronize()
-            runs["bare"].append(frames / (time.perf_counter() - t0))
-            continue
-        batches = make_dataset(cfg)[0] if kind == "reader" else iter(host_batches)
-        read_ms = []
-
-        def clocked():  # each batch's time in the reader (in the pinning thread)
-            while True:
-                t0 = time.perf_counter()
-                batch = next(batches, None)
-                read_ms.append((time.perf_counter() - t0) * 1e3)
-                if batch is None:
-                    return
-                yield batch
-
-        _, summary = trainer.fit(clocked(), state=state0, max_steps=LOOP_STEPS)
-        if summary["steps"] != LOOP_STEPS:
-            raise RuntimeError(f"data loop window ({kind}): {summary}")
-        runs[kind].append(summary["frames_per_sec"])
-        if kind == "reader":
-            wait = trainer.timings["prefetch_wait"]
-            waits.append({"prefetch_wait_mean_ms": wait["sum_ms"] / LOOP_STEPS, "prefetch_wait_max_ms": wait["max_ms"],
-                          "reader_first_batch_ms": read_ms[0],
-                          "reader_mean_ms_after_first": sum(read_ms[1:LOOP_STEPS]) / (LOOP_STEPS - 1)})
-    return {k: sum(v) / len(v) for k, v in runs.items()}, runs, waits
-
-
-def check_data_preset(card, name, root, tmp, dev, check_kernels):
+def check_data_preset(name, root, tmp, dev, check_kernels):
     """Phase 11c-e at the preset ``name`` on the fixtures under ``root``:
     the CLI (TRAINER_STEPS 'pallas' steps, samples with PSNR/SSIM on the
     test batch, every kernel's calls and launches those of the steps and
     the samples, derived from the preset's T); 'pallas' against 'scan'
     from one state, z and the first batch the reader yields, f32 and bf16,
     counted; with ``check_kernels`` each kernel against its plain version
-    at this batch and T; the bf16 iteration timed against 'scan' in turns
-    and profiled; the loop through the reader against the bare step."""
-    seconds = {}
-    t0 = time.perf_counter()
+    at this batch and T; one bf16 iteration of each engine traced."""
     cfg = dataclasses.replace(get_preset(name), data_path=str(root))
     per_step = pallas_counts(cfg)
     batches, test = make_dataset(cfg)
-    host_batches = list(itertools.islice(batches, LOOP_STEPS))
-    first = host_batches[0]
+    first = next(batches)
     if test is None or test.shape != first.shape or first.shape[-1] != 3:
         raise RuntimeError(f"{name}: batch {first.shape}, test batch {None if test is None else test.shape}")
     summary, launched = check_trainer_cli(tmp / "runs", root, tag=f"{name}_cli", per_step=per_step, preset=name,
                                           dname=name)
-    seconds["cli"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
     state0, video, zs, steps, per_iter, _ = check_engines(cfg, dev, per_step=per_step, video=first, preset=name)
-    seconds["engines"] = time.perf_counter() - t0
     if check_kernels:
-        t0 = time.perf_counter()
         check_kernels_at(cfg, dev)
-        seconds["kernels"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    step_ms, profiles, peak = time_training(
-        card, cfg, state0, video, zs, (("scan", steps["scan"]), ("pallas", steps["pallas"])), "lstm",
-        f"{name}_engine_timings", required=TC_KERNELS + LSTM_TC_KERNELS, preset=name)
-    seconds["timings"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    fps, fps_runs, waits = time_data_loop(tmp / "loop", cfg, host_batches)
-    seconds["loop"] = time.perf_counter() - t0
-    frames = cfg.batch_size * cfg.total_time_steps
-    pallas = profiles["pallas"]
-    out = {
-        "card": card, "preset": name, "batch": list(first.shape), "kernel_impl": "pallas",
-        "compute_dtype": cfg.compute_dtype,
-        "cli_launches": {n: c for n, c in launched.items()}, "expected_per_iteration": per_step,
-        "per_iteration": per_iter[0],
-        "eager_ms": step_ms["pallas"], "scan_eager_ms": step_ms["scan"],
-        "busy_ms": pallas["profiled_busy_ms"], "idle_share": pallas["idle_share_eager"],
-        "device_events": pallas["device_events"], "peak_gib": peak["pallas"],
-        "training_frames_per_s": frames / (step_ms["pallas"] / 1e3),
-        "loop_frames_per_s": fps["reader"], "loop_from_memory_frames_per_s": fps["memory"],
-        "bare_step_frames_per_s": fps["bare"], "loop_over_bare": fps["reader"] / fps["bare"],
-        "memory_loop_over_bare": fps["memory"] / fps["bare"], "frames_per_s_runs": fps_runs, "loop_waits": waits,
-        "cli_summary": summary, "seconds": seconds,
-    }
-    print(json.dumps({f"{name}_dataset": out}), flush=True)
+    check_traces(state0, video, zs, (("scan", steps["scan"]), ("pallas", steps["pallas"])), "lstm",
+                 f"{name} bf16 iteration", required=TC_KERNELS + LSTM_TC_KERNELS)
+    print(json.dumps({f"{name}_dataset": {
+        "preset": name, "batch": list(first.shape), "kernel_impl": "pallas", "compute_dtype": cfg.compute_dtype,
+        "cli_launches": launched, "expected_per_iteration": per_step, "per_iteration": per_iter[0],
+        "cli_summary": summary,
+    }}), flush=True)
 
 
-def check_datasets(card, dev):
+def check_datasets(dev):
     """Phase 11: the readers and the RGB presets on the card."""
     have = {m: importlib.util.find_spec(m) is not None for m in ("PIL", "cv2")}
     print(f"[datasets] on this host: PIL {'present' if have['PIL'] else 'absent'}, "
@@ -2004,38 +1586,24 @@ def check_datasets(card, dev):
               flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp) / "data"
-        t0 = time.perf_counter()
         shards = write_data_fixtures(root, have["PIL"])
-        fixtures_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
         readers = check_readers(root, shards)
-        if have["PIL"]:
-            mazes = get_preset("mazes")
-            reader = GqnReader("mazes", mazes.total_time_steps, str(root), custom_frame_size=mazes.model.x_height,
-                               seed=1)
-            t1 = time.perf_counter()
-            n = len(list(itertools.islice(reader.samples(), READER_VIDEOS)))
-            readers["gqn_decode_videos_per_s"] = n / (time.perf_counter() - t1)
-            readers["gqn_decode_workers"] = reader.decode_workers
-        readers_s = time.perf_counter() - t0
         for i, name in enumerate(presets):
-            check_data_preset(card, name, root, Path(tmp) / name, dev, check_kernels=i == 0)
-    print(json.dumps({"datasets": {"card": card, "have": have, "readers": readers, "fixtures_s": fixtures_s,
-                                   "readers_s": readers_s,
+            check_data_preset(name, root, Path(tmp) / name, dev, check_kernels=i == 0)
+    print(json.dumps({"datasets": {"have": have, "readers": readers,
                                    "not_run": [] if have["PIL"] else ["mazes: no PIL on this host"]}}), flush=True)
 
 
 # Phase 12, serving: cli.sample draws SERVING_NUM videos with best-of-K
 # over SERVING_K rollouts; the graph rollout, the loaded artifact and the
-# live rollout are timed at each of SERVING_BATCHES, in turns.
+# live rollout are compared at each of SERVING_BATCHES.
 SERVING_NUM, SERVING_K = 32, 4
 SERVING_BATCHES = (32, 7)
 
 
 def direct_scan(xconv, h0, c0, rec_kernel, bias, rec_masks=None):
     """The inference recurrence as it ran before the registered operator:
-    ``convlstm_fwd`` called straight from the layer (its host time is what
-    the operator's dispatch is measured against)."""
+    ``convlstm_fwd`` called straight from the layer."""
     y, _, h, c, *_ = convlstm_fwd(xconv, h0, c0, rec_kernel, bias, rec_masks=rec_masks)
     return y, (h, c)
 
@@ -2049,11 +1617,6 @@ def recurrence(scan):
         yield
     finally:
         model_layers.convlstm_scan = saved
-
-
-def run_with(scan, rollout, params, context, z):
-    with recurrence(scan):
-        return rollout(params, context, z=z)
 
 
 def run_quiet(fn, *args, **kwargs):
@@ -2078,7 +1641,7 @@ def sample_without_png(argv, dev):
     return 0
 
 
-def check_serving(card, base, dev):
+def check_serving(base, dev):
     """Phase 12, the serving entry points at mmnist_full, B=32, bf16, from a
     checkpoint of the seeded state: cli.sample (--num 32 --metrics_k 4,
     the graph rollout) and cli.export --check (difference exactly 0),
@@ -2087,23 +1650,18 @@ def check_serving(card, base, dev):
     equal to the graph's; the graph rollout bit-equal to eager, the loaded
     artifact bit-equal to the live rollout and within ROLLOUT_TOL of the
     plain one, at B = 32 and 7; the ConvLSTM forward's tensor-core kernel
-    in a trace of the artifact's replay; then eager, eager without the
-    registered operator, graph, artifact and the artifact's program run
-    eagerly, timed in turns, and best-of-K timed.  Returns the main path's
-    counts."""
+    in a trace of the artifact's replay, once a step.  Returns the main
+    path's counts."""
     have_mpl = importlib.util.find_spec("matplotlib") is not None
     print(f"[serving] matplotlib {'present' if have_mpl else 'absent: cli.sample driven through its functions, no PNG'}",
           flush=True)
     calls = 4 + 8 * base.pred_time_steps
     launches = 4 * base.int_time_steps + 8 * base.pred_time_steps
-    seconds = {}
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        t0 = time.perf_counter()
         write_fixture(tmp / "data")
         state = create_train_state(base, device=dev)
         save_checkpoint(str(tmp / "ckpt"), state)
-        seconds["fixture_and_checkpoint"] = time.perf_counter() - t0
         sample_argv = ["--preset", PRESET, "--ckpt", str(tmp / "ckpt"), "--data_path", str(tmp / "data"),
                        "--out", str(tmp / "samples"), "--num", str(SERVING_NUM), "--metrics_k", str(SERVING_K)]
         export_argv = ["--preset", PRESET, "--ckpt", str(tmp / "ckpt"), "--out", str(tmp / "model.kccot"),
@@ -2113,17 +1671,12 @@ def check_serving(card, base, dev):
         # at B = 32, then replays) and the exporter's check (the artifact's
         # warm-up and capture at B = 2, and one live rollout).
         reset_counts()
-        t0 = time.perf_counter()
         if have_mpl:
             rc, sample_lines = run_quiet(sample_cli.main, sample_argv, device=dev)
         else:
             rc, sample_lines = run_quiet(sample_without_png, sample_argv, dev)
-        torch.cuda.synchronize()
-        seconds["cli_sample"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
         rc_export, export_lines = run_quiet(export_cli.main, export_argv, device=dev)
         torch.cuda.synchronize()
-        seconds["cli_export_check"] = time.perf_counter() - t0
         main_counts = counts()
         images = sorted(p.name for p in (tmp / "samples").iterdir())
         want_images = ["rollout.gif", "rollout_strips.png"] if have_mpl else ["rollout.gif"]
@@ -2159,14 +1712,12 @@ def check_serving(card, base, dev):
                                f"{sample_cli.metrics_line(metrics, SERVING_K)} against {sample_lines[0]}")
 
         # The graph and the artifact against the live and the plain rollouts.
-        t0 = time.perf_counter()
         serve = load_rollout(str(tmp / "model.kccot"))
-        seconds["load_artifact"] = time.perf_counter() - t0
         artifact_mb = (tmp / "model.kccot").stat().st_size / 1e6
         graphed = graph_rollout(cfg, params, device=dev)
         plain = build_rollout(cfg, device=dev, plain=True)
         m = cfg.model
-        diffs, timings, inputs = {}, {}, {}
+        diffs, inputs = {}, {}
         for b in SERVING_BATCHES:
             context = torch.rand(b, m.x_height, cfg.int_time_steps, m.x_width, m.n_channels,
                                  generator=torch.Generator().manual_seed(b)).to(dev)
@@ -2199,37 +1750,14 @@ def check_serving(card, base, dev):
         # The artifact's replay in a trace: the forward kernel, once a step.
         context, _ = inputs[SERVING_BATCHES[0]]
         serve(context, seed=0)
-        _, _, n_events, by_name, n_by_name = profiled(
-            lambda: serve(context, seed=0), TC_KERNELS[:1], "artifact replay")
+        n_events, n_by_name = profiled(lambda: serve(context, seed=0), TC_KERNELS[:1], "artifact replay")
         replay_launches = sum(n for name, n in n_by_name.items() if "convlstm" in name)
-        replay_kernel_ms = sum(t for name, t in by_name.items() if "convlstm" in name)
-
-        # Timings in turns, then reversed; best-of-K through the graph.
-        paths = {
-            "eager": lambda b: eager(params, inputs[b][0], z=inputs[b][1]),
-            "eager_without_operator": lambda b: run_with(direct_scan, eager, params, *inputs[b]),
-            "graph": lambda b: graphed(params, inputs[b][0], z=inputs[b][1]),
-            "artifact": lambda b: serve(inputs[b][0], seed=b),
-            "artifact_program_eager": lambda b: serve.run(*inputs[b]),
-        }
-        for b in SERVING_BATCHES:
-            runs = {name: [] for name in paths}
-            for name in [*paths, *reversed(paths)]:
-                runs[name].append(cuda_ms(lambda: paths[name](b), reps=3))
-            ms = {name: sum(v) / len(v) for name, v in runs.items()}
-            timings[b] = {"ms": ms, "ms_runs": runs,
-                          "frames_per_s": {n: b * cfg.pred_time_steps / (t / 1e3) for n, t in ms.items()}}
-        best_ms = cuda_ms(lambda: best_of_k(graphed, params, test_batch, cfg.int_time_steps,
-                                            torch.Generator(dev).manual_seed(1), k=SERVING_K), reps=2)
     out = {
-        "card": card, "preset": PRESET, "compute_dtype": cfg.compute_dtype, "batches": list(SERVING_BATCHES),
+        "preset": PRESET, "compute_dtype": cfg.compute_dtype, "batches": list(SERVING_BATCHES),
         "best_of_k_line": best, "main_path_launches": main_counts, "eager_sample_launches": eager_counts,
         "per_rollout": {"calls": calls, "launches": launches}, "checks": diffs,
-        "artifact_replay_trace": {"convlstm_kernel_events": replay_launches, "convlstm_kernel_ms": replay_kernel_ms,
-                                  "device_events": n_events},
-        "timings": timings, "best_of_k_ms": best_ms, "best_of_k_k": SERVING_K,
+        "artifact_replay_trace": {"convlstm_kernel_events": replay_launches, "device_events": n_events},
         "artifact_mb": artifact_mb,
-        "seconds": seconds,
     }
     print(json.dumps({"serving": out}), flush=True)
     if replay_launches != launches:
@@ -2277,31 +1805,10 @@ FUSED_TOL = {
 }
 
 
-def replay_ms(fn, calls=20):
-    """Device ms of one ``fn()`` from a CUDA graph of ``calls`` calls,
-    replayed: the card's time without the host's launches, and without a
-    profiler session (CUPTI drops more events in each later one)."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
-    ms = cuda_ms(graph.replay, reps=5) / calls
-    del graph
-    return ms
-
-
 def check_lstm_instanced(dev):
     """The instanced LSTM kernels (FUSED_N instances in one call) against
     their plain versions and against one-instance calls on each slice, to
-    the bit; launches a call (forward 1, backward 1 up to U = 64, else 2);
-    the instanced call against one and against FUSED_N one-instance
-    calls, timed by CUDA events (host time included), and at lstm1-3 in
-    bf16 the card's own time a call (``replay_ms``)."""
+    the bit; launches a call (forward 1, backward 1 up to U = 64, else 2)."""
     layers = [(n, u, "sigmoid" if n == "lstm3" else "tanh") for n, (_, u) in lstm_layers(get_preset(PRESET)).items()]
     layers += [(f"wide{u}", u, "tanh") for u in LSTM_WIDE]
     out, failed = {}, []
@@ -2327,25 +1834,8 @@ def check_lstm_instanced(dev):
                       for i in range(FUSED_N) for j, t in enumerate(got) if not torch.equal(t[i], single[i][j])]
             e_fwd = max_err(fwd_k, (y_p, cs_p, h_p, c_p))
             e_bwd = {n: rel_err([a], [b]) for n, a, b in zip(("dx", "dh0", "dc0", "dR", "db"), bwd_k, want)}
-            times = {
-                "instanced_fwd_ms": cuda_ms(lambda: lstm_fwd(*args, act, with_c_stack=True), reps=10),
-                "single_fwd_ms": cuda_ms(lambda: lstm_fwd(*(a[0] for a in args), act, with_c_stack=True), reps=10),
-                "singles_fwd_ms": cuda_ms(lambda: [lstm_fwd(*(a[i] for a in args), act, with_c_stack=True)
-                                                   for i in range(FUSED_N)], reps=10),
-                "instanced_bwd_ms": cuda_ms(lambda: lstm_bwd(*bwd_args, act), reps=10),
-                "single_bwd_ms": cuda_ms(lambda: lstm_bwd(*(a[0] for a in bwd_args), act), reps=10),
-                "singles_bwd_ms": cuda_ms(lambda: [lstm_bwd(*(a[i] for a in bwd_args), act)
-                                                   for i in range(FUSED_N)], reps=10),
-            }
-            if dtype == torch.bfloat16 and u <= 64:  # the flagship's: the card's own time a call
-                times["replay_ms_per_call"] = {
-                    "instanced_fwd": replay_ms(lambda: lstm_fwd(*args, act, with_c_stack=True)),
-                    "single_fwd": replay_ms(lambda: lstm_fwd(*(a[0] for a in args), act, with_c_stack=True)),
-                    "instanced_bwd": replay_ms(lambda: lstm_bwd(*bwd_args, act)),
-                    "single_bwd": replay_ms(lambda: lstm_bwd(*(a[0] for a in bwd_args), act)),
-                }
             out[tag] = {"launches": launches, "fwd_max_abs_err": e_fwd, "grad_err_over_largest": e_bwd,
-                        "bitwise_equal_to_single": not differ, **times}
+                        "bitwise_equal_to_single": not differ}
             print(f"[lstm instanced] {tag}: " + json.dumps(out[tag]), flush=True)
             if differ or launches != [1, 1 if u <= 64 else 2] or not (
                     e_fwd <= TOL[dtype] and max(e_bwd.values()) <= GRAD_TOL[dtype]):
@@ -2355,14 +1845,14 @@ def check_lstm_instanced(dev):
     return out
 
 
-def check_fused(card, base, dev):
+def check_fused(base, dev):
     """Phase 13: the instanced LSTM kernels, then one fused 'pallas'
     iteration against one sequential from the same state, video and z in
     f32 and bf16 (losses, pM, every group's Adam first moment, i.e. half
     the gradient, and both statistics chains), each counted from zero
-    around its run; then both timed in turns in the preset's bf16 (eager
-    ms, busy ms and device events of one profiled iteration, peak
-    memory).  Prints the ``fused_discriminators`` line."""
+    around its run; then one iteration of each traced in the preset's
+    dtype (in bf16 the LSTM tensor-core kernels by name).  Prints the
+    ``fused_discriminators`` line."""
     instanced = check_lstm_instanced(dev)
     checks, counted = {}, {}
     for cdt in ("float32", base.compute_dtype):
@@ -2400,29 +1890,20 @@ def check_fused(card, base, dev):
         if not ok:
             raise RuntimeError(f"{cdt}: fused and sequential iterations disagree: {cmp}")
 
-    # Timing, the preset's bf16 (the last loop's steps), in turns.
-    ms = {"sequential": [], "fused": []}
-    for name in ("sequential", "fused", "fused", "sequential"):
-        ms[name].append(cuda_ms(lambda: steps[name](state0, video, z=zs[0]), reps=2))
-    timing = {"eager_ms": {n: sum(v) / len(v) for n, v in ms.items()}, "eager_ms_runs": ms}
+    # One iteration of each traced, the preset's dtype (the last loop's steps).
+    traced = {}
     for name, step in steps.items():
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        step(state0, video, z=zs[0])
-        torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        busy, span, n_events, by_name, _ = profiled(
+        n_events, n_by_name = profiled(
             lambda: step(state0, video, z=zs[0]), LSTM_TC_KERNELS if base.compute_dtype == "bfloat16" else (),
             f"fused_discriminators, {name}")
-        timing[name] = {"busy_ms": busy, "span_ms": span, "device_events": n_events, "peak_memory_gib": peak,
-                        "idle_share_eager": 1.0 - busy / timing["eager_ms"][name],
-                        "lstm_kernel_ms": sum(t for n, t in by_name.items() if re.search(r"\blstm_(fwd|bwd|wgrad)", n)),
-                        "top_ms": [[n[:80], t] for n, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]]}
+        traced[name] = {"device_events": n_events,
+                        "lstm_kernel_events": sum(n for k, n in n_by_name.items()
+                                                  if re.search(r"\blstm_(fwd|bwd|wgrad)", k))}
     lstm_counts = {name: {k: counted[name][k] for k in ("lstm_fwd", "lstm_bwd")} for name in counted}
     print(json.dumps({"fused_discriminators": {
-        "card": card, "preset": PRESET, "compute_dtype": base.compute_dtype, "instances": FUSED_N,
+        "preset": PRESET, "compute_dtype": base.compute_dtype, "instances": FUSED_N,
         "lstm_calls_launches": lstm_counts, "counts": counted, "checks": checks,
-        "instanced_lstm": instanced, "timing": timing,
+        "instanced_lstm": instanced, "traced": traced,
     }}), flush=True)
 
 
@@ -2448,14 +1929,9 @@ def seq_counts(cfg, s):
 def state_checksum(state):
     """CRC of every tensor and integer of a train state (equal states,
     equal sums; compared across ranks)."""
-    import zlib
-
     crc = zlib.crc32(np.asarray([state.step, state.rng], np.int64).tobytes())
-    trees = [getattr(state, n) for n in ("enc_params", "dec_params", "h_params", "m_params", "h_stats", "m_stats")]
-    trees += [getattr(getattr(state, f"{g}_opt"), m) for g in ("enc", "dec", "h", "m") for m in ("mu", "nu")]
-    for tree in trees:
-        for v in tree.values():
-            crc = zlib.crc32(v.detach().cpu().numpy().tobytes(), crc)
+    for v in state_tensors(state).values():
+        crc = zlib.crc32(v.detach().cpu().numpy().tobytes(), crc)
     return crc
 
 
@@ -2473,7 +1949,7 @@ def mesh_mode(rank, dev, inputs, cfg, build, mesh, want_counts, inject_z=True):
     seeded state, video and z of phase 8, counted from zero; on rank 0 the
     one-device step's iteration too (eager, as the mode's), and their comparison (f32:
     ENGINE_TOL; bf16: the losses at PAR_BF16_LOSS_RTOL).  Returns the
-    record and what the timing needs."""
+    record."""
     state0, video, zs = inputs
     step = build(cfg, mesh)
     state = replicate_state(state0, mesh)
@@ -2486,8 +1962,8 @@ def mesh_mode(rank, dev, inputs, cfg, build, mesh, want_counts, inject_z=True):
     rec = {"counts": counts(), "comm_one_iteration": comm_counts(), "loss": float(met["sinkhorn_loss"]),
            "pm": float(met["pm"]), "finite": _all_finite(st, met), "checksum": state_checksum(st)}
     rec["counts_ok"] = want_counts is None or rec["counts"] == {n: list(c) for n, c in want_counts.items()}
-    one = build_train_step(cfg, device=dev, placement=Placement())  # eager, as the mesh steps are
     if rank == 0 and inject_z:
+        one = build_train_step(cfg, device=dev, placement=Placement())  # eager, as the mesh steps are
         st1, met1 = one(state0, video, z=zs[0])
         torch.cuda.synchronize()
         cmp, ok = compare_engines((met, st), (met1, st1), ENGINE_TOL[cfg.compute_dtype])
@@ -2497,82 +1973,43 @@ def mesh_mode(rank, dev, inputs, cfg, build, mesh, want_counts, inject_z=True):
         rec["vs_one_device"] = {**cmp, "ok": ok}
         del st1, met1
     del st, met
-    return rec, (step, state, rows, z, one, state0, video, zs[0])
-
-
-def time_mode(rank, name, run):
-    """The mode's iteration against the one-device step in turns (one
-    device on rank 0 alone, the mode on every rank: one, mode, mode, one),
-    by CUDA events on each rank; peak memory of an iteration on each rank;
-    each collective's calls, bytes and host seconds in one iteration."""
-    step, state, rows, z, one, state0, video, z0 = run
-    ms = {"one_device": [], name: []}
-    for which in ("one_device", name, name, "one_device"):
-        if which == name:
-            ms[name].append(cuda_ms(lambda: step(state, rows, z=z), reps=2))
-        elif rank == 0:
-            ms[which].append(cuda_ms(lambda: one(state0, video, z=z0), reps=2))
-    peak = {}
-    for which in (name, "one_device"):
-        if which == "one_device" and rank != 0:
-            continue
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        if which == name:
-            comm.reset_counters()
-            step(state, rows, z=z)
-        else:
-            one(state0, video, z=z0)
-        torch.cuda.synchronize()
-        peak[which] = torch.cuda.max_memory_allocated() / 2**30
-        if which == name:
-            per_iter = comm_counts()
-    return {"ms": {k: sum(v) / len(v) for k, v in ms.items() if v}, "ms_runs": ms, "peak_memory_gib": peak,
-            "comm_one_iteration": per_iter}
+    return rec
 
 
 def parallel_ranks(rank, dev, tmp):
     """Phase 14, one rank of a job whose ranks share the card over gloo:
-    at 2 ranks the exact mode (f32, checked; bf16, checked and timed),
-    the per-shard mode (bf16, timed), the seq mode at S = 2 (f32, checked;
-    bf16, timed) and the trainer's resume on the data mesh; at 4 ranks the
-    data 2 x seq 2 mesh (f32, checked; bf16, timed)."""
+    at 2 ranks the exact mode and the seq mode at S = 2 (f32 and bf16,
+    each against the one-device step), the per-shard mode (bf16) and the
+    trainer's resume on the data mesh; at 4 ranks the data 2 x seq 2 mesh
+    (f32 and bf16, each against the one-device step)."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     world = dist.get_world_size()
     base = dataclasses.replace(get_preset(PRESET), kernel_impl="pallas")
     f32 = dataclasses.replace(base, compute_dtype="float32")
-    out = {"rank": rank, "device": str(dev), "backend": dist.get_backend(), "modes": {}, "timing": {}}
+    out = {"rank": rank, "device": str(dev), "backend": dist.get_backend(), "modes": {}}
     if world == 2:
         data, seq = make_mesh(2, device=dev), seq_mesh(2, device=dev)
         plans = [
-            ("exact_f32", f32, build_sharded_train_step, data, PALLAS_COUNTS, True, False),
-            ("exact_bf16", base, build_sharded_train_step, data, PALLAS_COUNTS, True, True),
+            ("exact_f32", f32, build_sharded_train_step, data, PALLAS_COUNTS, True),
+            ("exact_bf16", base, build_sharded_train_step, data, PALLAS_COUNTS, True),
             ("local_bf16", dataclasses.replace(base, global_batch_sinkhorn=False), build_sharded_train_step, data,
-             PALLAS_COUNTS, False, True),
-            ("seq_f32", f32, build_seq_train_step, seq, seq_counts(base, 2), True, False),
-            ("seq_bf16", base, build_seq_train_step, seq, seq_counts(base, 2), True, True),
+             PALLAS_COUNTS, False),
+            ("seq_f32", f32, build_seq_train_step, seq, seq_counts(base, 2), True),
+            ("seq_bf16", base, build_seq_train_step, seq, seq_counts(base, 2), True),
         ]
     else:
         mesh = data_seq_mesh(2, 2, device=dev)
         plans = [
-            ("data2_seq2_f32", f32, build_seq_train_step, mesh, seq_counts(base, 2), True, False),
-            ("data2_seq2_bf16", base, build_seq_train_step, mesh, seq_counts(base, 2), True, True),
+            ("data2_seq2_f32", f32, build_seq_train_step, mesh, seq_counts(base, 2), True),
+            ("data2_seq2_bf16", base, build_seq_train_step, mesh, seq_counts(base, 2), True),
         ]
     inputs = training_inputs(base, dev)  # the state's parameters are f32 under either compute dtype
-    for name, cfg, build, mesh, want, inject_z, timed in plans:
-        t0 = time.perf_counter()
-        rec, run = mesh_mode(rank, dev, inputs, cfg, build, mesh, want, inject_z)
-        out["modes"][name] = rec
-        if timed:
-            out["timing"][name] = time_mode(rank, name, run)
-        rec["seconds"] = time.perf_counter() - t0
-        del run
+    for name, cfg, build, mesh, want, inject_z in plans:
+        out["modes"][name] = mesh_mode(rank, dev, inputs, cfg, build, mesh, want, inject_z)
         torch.cuda.empty_cache()
     if world == 2:
-        t0 = time.perf_counter()
         out["trainer_resume"] = mesh_resume(rank, dev, tmp, base, inputs[0])
-        out["trainer_resume"]["seconds"] = time.perf_counter() - t0
     return out
 
 
@@ -2640,15 +2077,13 @@ def check_cli_mesh(tmp):
             "--max_steps", str(PAR_STEPS), "--ckpt_freq", str(PAR_STEPS // 2), "--save_freq", str(10**9),
             "--out_dir", str(tmp), "--run_name", "cli_mesh"]
     out = io.StringIO()
-    t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
         rc = train_main(argv, device="cuda")
-    seconds = time.perf_counter() - t0
     summary = json.loads(out.getvalue().strip().splitlines()[-1])
     run_dir = Path(tmp) / "cli_mesh"
     losses = read_metrics(run_dir).get("Sinkhorn Loss", {})
     ckpts = sorted(int(p.stem.split("_")[1]) for p in (run_dir / "ckpt").glob("step_*.pt"))
-    rec = {"argv": argv, "rc": rc, "summary": summary, "losses": losses, "checkpoints": ckpts, "seconds": seconds}
+    rec = {"argv": argv, "rc": rc, "summary": summary, "losses": losses, "checkpoints": ckpts}
     if (rc != 0 or summary["status"] != "completed" or summary["steps"] != PAR_STEPS
             or summary["dist_backend"] != "gloo" or sorted(losses) != list(range(1, PAR_STEPS + 1))
             or not all(np.isfinite(list(losses.values()))) or ckpts != [PAR_STEPS // 2, PAR_STEPS]):
@@ -2656,7 +2091,7 @@ def check_cli_mesh(tmp):
     return rec
 
 
-def check_parallel(card, dev):
+def check_parallel(dev):
     """Phase 14: NCCL at world 1, the 2- and 4-rank gloo jobs on the card
     (``parallel_ranks``), the CLI on a 2-rank mesh.  Fails if any rank or
     check fails.  Prints the ``parallel`` line."""
@@ -2665,13 +2100,11 @@ def check_parallel(card, dev):
     jobs = {}
     with tempfile.TemporaryDirectory() as tmp:
         for world in PAR_WORLDS:
-            t0 = time.perf_counter()
-            ranks = run_ranks(parallel_ranks, world, (str(Path(tmp) / f"w{world}"),), device="cuda", timeout=600)
-            jobs[world] = {"seconds": time.perf_counter() - t0, "ranks": ranks}
+            jobs[world] = run_ranks(parallel_ranks, world, (str(Path(tmp) / f"w{world}"),), device="cuda",
+                                    timeout=600)
         cli = check_cli_mesh(Path(tmp) / "cli")
     failed = []
-    for world, job in jobs.items():
-        ranks = job["ranks"]
+    for world, ranks in jobs.items():
         for name in ranks[0]["modes"]:
             recs = [r["modes"][name] for r in ranks]
             if not all(r["finite"] and r["counts_ok"] for r in recs):
@@ -2690,16 +2123,14 @@ def check_parallel(card, dev):
                 failed.append(f"trainer resume on the mesh: {res}")
     line = {"note": "N ranks share one H100: gloo through the host, each rank's compute on the card; "
                     "NCCL at world 1 only, NCCL across several cards is not run",
-            "card": card, "preset": PRESET, "nccl_world1": nccl, "cli": cli}
-    for world, job in jobs.items():
-        ranks = job["ranks"]
+            "preset": PRESET, "nccl_world1": nccl, "cli": cli}
+    for world, ranks in jobs.items():
         line[f"{world}_ranks"] = {
-            "seconds": job["seconds"], "backend": ranks[0]["backend"],
-            "checks": {n: {"counts": rec["counts"], "loss": rec["loss"], "pm": rec["pm"],
-                           "vs_one_device": rec.get("vs_one_device"),
+            "backend": ranks[0]["backend"],
+            "checks": {n: {"counts": rec["counts"], "comm_one_iteration": rec["comm_one_iteration"],
+                           "loss": rec["loss"], "pm": rec["pm"], "vs_one_device": rec.get("vs_one_device"),
                            "ranks_equal": len({r["modes"][n]["checksum"] for r in ranks}) == 1}
                        for n, rec in ranks[0]["modes"].items()},
-            "timing": {n: [r["timing"][n] for r in ranks] for n in ranks[0]["timing"]},
             "trainer_resume": ranks[0].get("trainer_resume"),
         }
     print(json.dumps({"parallel": line}), flush=True)
@@ -2722,25 +2153,18 @@ def main():
     ).stdout.strip().splitlines()[0]
     print(f"[env] torch {torch.__version__}, CUDA {torch.version.cuda}, {card}", flush=True)
 
-    t0 = time.perf_counter()
     lib = load_library()
-    print(f"[build] kernels built and loaded in {time.perf_counter() - t0:.2f} s", flush=True)
-    phase_s, lap = {}, [t0]
+    print("[build] kernels built and loaded", flush=True)
 
-    def done(phase):  # seconds since the previous phase ended
-        now = time.perf_counter()
-        phase_s[phase] = now - lap[0]
-        lap[0] = now
-        print(f"[phase] {phase}: {phase_s[phase]:.1f} s", flush=True)
+    def done(phase):
+        print(f"[phase] {phase} passed", flush=True)
 
-    done("build")
     check_sass(lib)
     sinkhorn_registers()
-
     done("sass_and_registers")
-    errs, layer_times = check_layers(dev)
+    errs = check_layers(dev)
     done("2_layers")
-    sink_errs, sink_times = check_sinkhorn(dev)
+    sink_errs = check_sinkhorn(dev)
     done("sinkhorn")
 
     base = get_preset(PRESET)
@@ -2757,110 +2181,62 @@ def main():
         generator=torch.Generator(device=dev).manual_seed(0), device=dev,
     )
     check_rollout(dataclasses.replace(base, compute_dtype="float32"), params, context, z, "float32")
-    launches, rollout_diff, rollout_k, rollout_p = check_rollout(
-        base, params, context, z, base.compute_dtype
-    )
-
-    # Phase 4: timings, plain and kernel in turns.
-    ms = {"plain": [], "kernel": []}
-    for path in ("plain", "kernel", "kernel", "plain"):
-        fn = rollout_k if path == "kernel" else rollout_p
-        ms[path].append(cuda_ms(lambda: fn(params, context, z=z), reps=3))
-    frames = base.batch_size * base.pred_time_steps
-    rollout_ms = {p: sum(v) / len(v) for p, v in ms.items()}
-    timings = {
-        "card": card,
-        "preset": PRESET,
-        "compute_dtype": base.compute_dtype,
-        "rollout_ms": rollout_ms,
-        "rollout_ms_runs": ms,
-        "generated_frames_per_s": {p: frames / (t / 1e3) for p, t in rollout_ms.items()},
-        "layer_scan_ms_bf16_B32_T10": layer_times,
-        "max_abs_err_kernel_vs_plain": errs,
-        "rollout_max_abs_diff_kernel_vs_plain": rollout_diff,
-    }
-    print(json.dumps({"timings": timings}))
-    # Phase 5: per path, where the rollout's device time goes.
+    launches, rollout_k, rollout_p = check_rollout(base, params, context, z, base.compute_dtype)
+    # Phase 5: per path, the rollout's kernels in its trace.
     for path, fn in (("plain", rollout_p), ("kernel", rollout_k)):
-        profile_rollout(path, lambda: fn(params, context, z=z), tc=base.compute_dtype == "bfloat16")
+        check_rollout_trace(path, lambda: fn(params, context, z=z), tc=base.compute_dtype == "bfloat16")
     done("3-5_rollout")
 
     # Phase 6: the 'scan' training path, through the Sinkhorn kernels and plain.
     state0, video, zs, step_k, step_p, train_launches = check_training(base, dev)
-    time_training(card, base, state0, video, zs, (("plain", step_p), ("kernel", step_k)),
-                  "sinkhorn", "training_timings")
+    check_traces(state0, video, zs, (("plain", step_p), ("kernel", step_k)), "sinkhorn", "scan iteration")
     done("6_scan_training")
 
     # Phase 7: the recurrence kernels' backward and the LSTM kernels alone.
-    bwd_errs, bwd_times = check_convlstm_bwd(dev)
-    lstm_errs, lstm_times = check_lstm(dev)
+    bwd_errs = check_convlstm_bwd(dev)
+    lstm_errs = check_lstm(dev)
     check_lstm_wide(dev)
     done("7_backward_and_lstm")
 
     # Phase 8: the 'pallas' training path (every recurrence through its
-    # kernels) against 'scan', counted per iteration, then timed.
+    # kernels) against 'scan', counted per iteration, then traced.
     state0, video, zs, steps, per_iter, pallas_counts = check_engines(base, dev)
-    engine_ms, _, _ = time_training(
-        card, base, state0, video, zs, (("scan", steps["scan"]), ("pallas", steps["pallas"])),
-        "lstm", "engine_timings",
-        required=TC_KERNELS + LSTM_TC_KERNELS if base.compute_dtype == "bfloat16" else ())
+    check_traces(state0, video, zs, (("scan", steps["scan"]), ("pallas", steps["pallas"])), "lstm",
+                 "'pallas' iteration",
+                 required=TC_KERNELS + LSTM_TC_KERNELS if base.compute_dtype == "bfloat16" else ())
     done("8_pallas_training")
 
-    # Phase 9: the trainer's path (CLI, resume, loop against the bare step),
-    # every kernel counted over the CLI's run.
-    trainer_counts = check_trainer(card, base, engine_ms["pallas"])
+    # Phase 9: the trainer's path (CLI, resume), every kernel counted over
+    # the CLI's run.
+    trainer_counts = check_trainer(base)
     done("9_trainer")
 
     # Phase 10: the training options (smoothing, sigma annealing, dropout),
     # each path counted from zero around its run.
-    check_options(card, base, dev)
+    check_options(base, dev)
     done("10_options")
 
     # Phase 11: the readers and the RGB presets robot_push (and mazes, with
     # PIL) through the CLI, each path counted from zero around its run.
-    check_datasets(card, dev)
+    check_datasets(dev)
     done("11_datasets")
 
     # Phase 12: the serving entry points (cli.sample with best-of-K, the
     # graph rollout, cli.export and the loaded artifact), counted from zero
     # around cli.sample and cli.export --check.
-    serving_counts = check_serving(card, base, dev)
+    serving_counts = check_serving(base, dev)
     done("12_serving")
 
     # Phase 13: the fused discriminators (the LSTM kernels' instance axis,
     # then the fused iteration against the sequential one, each counted
-    # from zero around its run, and both timed).
-    check_fused(card, base, dev)
+    # from zero around its run, and both traced).
+    check_fused(base, dev)
     done("13_fused_discriminators")
 
     # Phase 14: the meshes (NCCL at world 1, 2 and 4 gloo ranks sharing the
     # card, the CLI on a 2-rank mesh), every rank counted from zero.
-    check_parallel(card, dev)
+    check_parallel(dev)
     done("14_parallel")
-    print(json.dumps({"phase_seconds": phase_s}), flush=True)
-
-    # Bounds of the work timed: the 8 T=10 layer scans of phase 2, one
-    # Sinkhorn launch at the training step's [3, B, B], L, the 8 layer
-    # backwards at the training T, and lstm1 + lstm2 at B=32, T=20.
-    c_bound, c_by = bound_ms(*convlstm_work(LAYERS, B, lambda _: T), PEAK_BF16)
-    f_bound, f_by = bound_ms(*sinkhorn_work(SINK_K, base.batch_size, base.sinkhorn_l), PEAK_F32)
-    b_bound, b_by = bound_ms(
-        *sinkhorn_work(SINK_K, base.batch_size, base.sinkhorn_l, backward=True), PEAK_F32
-    )
-    cb_bound, cb_by = bound_ms(*convlstm_work(LAYERS, B, train_t, backward=True), PEAK_BF16)
-    tanh_layers = {n: v for n, v in lstm_layers(base).items() if n != "lstm3"}
-    lf_bound, lf_by = bound_ms(*lstm_work(tanh_layers, LSTM_B, LSTM_T), PEAK_BF16)
-    lb_bound, lb_by = bound_ms(*lstm_work(tanh_layers, LSTM_B, LSTM_T, backward=True), PEAK_BF16)
-
-    def tanh_sum(key):
-        return sum(lstm_times[n][key] for n in tanh_layers)
-
-    def trace_sum(part):  # device time of a wrapper call, from the trace (bf16)
-        return sum(lstm_times[n]["trace_bfloat16"][part]["device_ms_per_call"] for n in tanh_layers)
-
-    def cudnn_sum(key):
-        runs = [lstm_times[n]["cudnn_bfloat16"] for n in tanh_layers]
-        return sum(r[key] for r in runs) if all(key in r for r in runs) else None
 
     n_samples = len([1] + list(range(TRAINER_EVERY, TRAINER_STEPS + 1, TRAINER_EVERY)))
     launches_over = (f"trainer_cli: {TRAINER_STEPS} 'pallas' iterations + {n_samples} sampling rollouts; "
@@ -2868,24 +2244,17 @@ def main():
                      "warm-up and capture) + cli.export --check (the artifact's warm-up and capture, "
                      "one live rollout)")
 
-    def entry(name, ms, plain_ms, bound, by, library_ms, max_abs_err):
+    def entry(name, max_abs_err):
         return dict(KERNELS[name], launches=trainer_counts[name][1] + serving_counts[name][1],
-                    launches_over=launches_over, max_abs_err=max_abs_err, ms=ms,
-                    plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=library_ms)
+                    launches_over=launches_over, max_abs_err=max_abs_err)
 
     kernels = [
-        entry("convlstm_fwd", sum(t["kernel_ms"] for t in layer_times.values()),
-              sum(t["plain_ms"] for t in layer_times.values()), c_bound, c_by, None, max(errs.values())),
-        entry("convlstm_bwd", sum(t["kernel_ms"] for t in bwd_times.values()),
-              sum(t["plain_ms"] for t in bwd_times.values()), cb_bound, cb_by, None, max(bwd_errs.values())),
-        entry("lstm_fwd", trace_sum("fwd"), tanh_sum("fwd_plain_ms"), lf_bound, lf_by,
-              cudnn_sum("cudnn_fwd_ms"), lstm_errs["fwd"]),
-        entry("lstm_bwd", trace_sum("bwd"), tanh_sum("bwd_plain_ms"), lb_bound, lb_by,
-              cudnn_sum("cudnn_bwd_ms"), lstm_errs["bwd"]),
-        entry("sinkhorn_fwd", sink_times[32]["fwd"]["kernel_us_per_launch"] / 1e3,
-              sink_times["plain"]["fwd_plain_ms"], f_bound, f_by, None, sink_errs["fwd"]),
-        entry("sinkhorn_bwd", sink_times[32]["bwd"]["kernel_us_per_launch"] / 1e3,
-              sink_times["plain"]["bwd_plain_ms"], b_bound, b_by, None, sink_errs["bwd"]),
+        entry("convlstm_fwd", max(errs.values())),
+        entry("convlstm_bwd", max(bwd_errs.values())),
+        entry("lstm_fwd", lstm_errs["fwd"]),
+        entry("lstm_bwd", lstm_errs["bwd"]),
+        entry("sinkhorn_fwd", sink_errs["fwd"]),
+        entry("sinkhorn_bwd", sink_errs["bwd"]),
     ]
     missing = [k["name"] for k in kernels if not k["launches"]]
     if missing:

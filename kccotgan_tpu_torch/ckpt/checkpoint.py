@@ -21,8 +21,6 @@ import torch
 
 __all__ = ["CheckpointWriter", "latest_step", "restore_checkpoint", "save_checkpoint"]
 
-_GROUPS = ("enc", "dec", "h", "m")
-_STATS = ("h_stats", "m_stats")
 _NAME = re.compile(r"step_(\d+)\.pt")
 _MAX_TO_KEEP = 3
 
@@ -37,14 +35,16 @@ def _steps(ckpt_dir: str) -> list[int]:
     return sorted(int(m[1]) for name in os.listdir(ckpt_dir) if (m := _NAME.fullmatch(name)))
 
 
-# ``train.loop`` imports this module, so the train state's classes are
-# imported where they are used.
+# ``train.loop`` imports this module, so the train state's layout and
+# classes are imported where they are used.
 
 
 def _to_host(state) -> dict:
     """The state as a nested dict of CPU tensors and ints.  From the card
     every tensor is copied into pinned memory on the current stream, and
     the host waits for those copies alone."""
+    from ..train.state import GROUPS, STATS
+
     on_card = []
 
     def host(tree):
@@ -59,11 +59,11 @@ def _to_host(state) -> dict:
         return out
 
     d = {"step": int(state.step), "rng": int(state.rng)}
-    for g in _GROUPS:
+    for g in GROUPS:
         opt = getattr(state, f"{g}_opt")
         d[f"{g}_params"] = host(getattr(state, f"{g}_params"))
         d[f"{g}_opt"] = {"count": int(opt.count), "mu": host(opt.mu), "nu": host(opt.nu)}
-    for name in _STATS:
+    for name in STATS:
         d[name] = host(getattr(state, name))
     if on_card:
         done = torch.cuda.Event()
@@ -144,7 +144,7 @@ def _shapes(template_or_cfg):
     it is a state, else one made on the meta device from the config."""
     from ..models.video import discriminator_modules, generator_modules
     from ..train.keras_adam import KerasAdamState
-    from ..train.state import TrainState
+    from ..train.state import GROUPS, TrainState
 
     if isinstance(template_or_cfg, TrainState):
         return template_or_cfg
@@ -156,8 +156,8 @@ def _shapes(template_or_cfg):
         trees = {"enc": encoder.state_dict(), "dec": decoder.state_dict(),
                  "h": disc_h.state_dict(), "m": disc_m.state_dict()}
         stats = {"h_stats": disc_h.init_stats(), "m_stats": disc_m.init_stats()}
-    opts = {f"{g}_opt": KerasAdamState(0, trees[g], trees[g]) for g in _GROUPS}
-    return TrainState(step=0, rng=0, **{f"{g}_params": trees[g] for g in _GROUPS}, **stats, **opts)
+    opts = {f"{g}_opt": KerasAdamState(0, trees[g], trees[g]) for g in GROUPS}
+    return TrainState(step=0, rng=0, **{f"{g}_params": trees[g] for g in GROUPS}, **stats, **opts)
 
 
 def restore_checkpoint(ckpt_dir: str, template_or_cfg, step: int | None = None, *, device="cuda"):
@@ -168,7 +168,7 @@ def restore_checkpoint(ckpt_dir: str, template_or_cfg, step: int | None = None, 
     if step is None:
         raise FileNotFoundError(f"no checkpoint found in {ckpt_dir}")
     from ..train.keras_adam import KerasAdamState
-    from ..train.state import TrainState
+    from ..train.state import GROUPS, STATS, TrainState
 
     d = torch.load(_path(ckpt_dir, step), map_location="cpu", weights_only=True)
     want = _shapes(template_or_cfg)
@@ -181,13 +181,13 @@ def restore_checkpoint(ckpt_dir: str, template_or_cfg, step: int | None = None, 
         return {k: v.to(device) for k, v in got.items()}
 
     fields = {}
-    for g in _GROUPS:
+    for g in GROUPS:
         ref = getattr(want, f"{g}_params")
         fields[f"{g}_params"] = tree(d[f"{g}_params"], ref, f"{g}_params")
         o = d[f"{g}_opt"]
         fields[f"{g}_opt"] = KerasAdamState(
             count=int(o["count"]), mu=tree(o["mu"], ref, f"{g}_opt.mu"), nu=tree(o["nu"], ref, f"{g}_opt.nu"),
         )
-    for name in _STATS:
+    for name in STATS:
         fields[name] = tree(d[name], getattr(want, name), name)
     return TrainState(step=int(d["step"]), rng=int(d["rng"]), **fields)

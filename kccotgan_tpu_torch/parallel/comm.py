@@ -59,7 +59,7 @@ import torch
 import torch.distributed as dist
 
 __all__ = [
-    "COUNTERS", "all_reduce_sum", "all_reduce_sum_", "broadcast_", "broadcast_replicated", "gather_replicated",
+    "COUNTERS", "all_reduce_sum", "all_reduce_sum_", "all_reduce_sum_flat", "broadcast_", "broadcast_replicated", "gather_replicated",
     "gather_resharded", "global_amax", "recv_carry", "reset_counters", "send_carry", "tag_of",
 ]
 
@@ -96,6 +96,14 @@ def all_reduce_sum_(x: torch.Tensor, group) -> torch.Tensor:
     dist.all_reduce(x, group=group)
     _count("all_reduce", 2 * x.numel() * x.element_size(), t0)
     return x
+
+
+def all_reduce_sum_flat(tensors, group) -> list:
+    """``tensors`` summed over ``group`` in one all-reduce of their
+    concatenation in f32, outside autograd; each comes back in its own
+    shape and dtype."""
+    flat = all_reduce_sum_(torch.cat([t.reshape(-1).float() for t in tensors]), group)
+    return [part.view(t.shape).to(t.dtype) for part, t in zip(flat.split([t.numel() for t in tensors]), tensors)]
 
 
 def broadcast_(x: torch.Tensor, src: int, group) -> torch.Tensor:

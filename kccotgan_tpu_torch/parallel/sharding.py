@@ -36,38 +36,12 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..train.keras_adam import KerasAdamState
-from ..train.state import TrainState
-from ..train.steps import Placement, _flat_sum, build_train_step
-from .comm import broadcast_, gather_replicated
+from ..train.state import GROUPS, TrainState, state_tensors, state_with_tensors
+from ..train.steps import Placement, build_train_step
+from .comm import all_reduce_sum_flat, broadcast_, gather_replicated
 from .mesh import Mesh
 
 __all__ = ["MeshPlacement", "build_sharded_train_step", "replicate_state", "shard_batch"]
-
-_TREES = ("enc_params", "dec_params", "h_params", "m_params", "h_stats", "m_stats")
-_GROUPS = ("enc", "dec", "h", "m")
-
-
-def _tensors(state: TrainState) -> list[torch.Tensor]:
-    out = [v for name in _TREES for v in getattr(state, name).values()]
-    for g in _GROUPS:
-        opt = getattr(state, f"{g}_opt")
-        out += list(opt.mu.values()) + list(opt.nu.values())
-    return out
-
-
-def _with_tensors(state: TrainState, tensors, ints) -> TrainState:
-    it = iter(tensors)
-
-    def tree(d):
-        return {k: next(it) for k in d}
-
-    trees = {name: tree(getattr(state, name)) for name in _TREES}
-    opts = {}
-    for g, count in zip(_GROUPS, ints[2:]):
-        opt = getattr(state, f"{g}_opt")
-        opts[f"{g}_opt"] = KerasAdamState(count=count, mu=tree(opt.mu), nu=tree(opt.nu))
-    return TrainState(step=ints[0], rng=ints[1], **trees, **opts)
 
 
 def replicate_state(state: TrainState, mesh: Mesh) -> TrainState:
@@ -76,9 +50,9 @@ def replicate_state(state: TrainState, mesh: Mesh) -> TrainState:
     which must be the same everywhere (else ``RuntimeError``)."""
     if mesh.world is None:
         return state
-    tensors = _tensors(state)
+    tensors = list(state_tensors(state).values())
     flat = torch.cat([t.reshape(-1).float() for t in tensors])
-    ints = [state.step, state.rng] + [getattr(state, f"{g}_opt").count for g in _GROUPS]
+    ints = [state.step, state.rng] + [getattr(state, f"{g}_opt").count for g in GROUPS]
     ints_t = torch.tensor(ints, dtype=torch.int64, device=flat.device)
     broadcast_(flat, 0, mesh.world)
     broadcast_(ints_t, 0, mesh.world)
@@ -90,7 +64,7 @@ def replicate_state(state: TrainState, mesh: Mesh) -> TrainState:
     if len({int(s) for s in sums}) != 1:
         raise RuntimeError(f"replicate_state: the ranks' checksums differ: {[int(s) for s in sums]}")
     parts = [p.view(t.shape).to(t.dtype) for p, t in zip(flat.split([t.numel() for t in tensors]), tensors)]
-    return _with_tensors(state, parts, ints)
+    return state_with_tensors(state, parts, step=ints[0], rng=ints[1], counts=ints[2:])
 
 
 def shard_batch(batch, mesh: Mesh):
@@ -153,7 +127,7 @@ class MeshPlacement(Placement):
         if self.mesh.world is None:
             return grads
         replicas = self.mesh.seq if phase == "disc" else 1
-        sums = iter(_flat_sum(self.mesh.world, [v for g in grads for v in g.values()]))
+        sums = iter(all_reduce_sum_flat([v for g in grads for v in g.values()], self.mesh.world))
         return [{k: next(sums) / replicas for k in g} for g in grads]
 
 

@@ -12,6 +12,11 @@ dropout on, a step takes a further split for its masks (``dropout_keys``),
 so the dropout-free key sequence is the same with or without it in the
 code.  The two packages' random streams differ, so the port's keys are
 its own.
+
+The state's tensors have one layout, which the graphed step's buffers, the
+mesh's broadcast and the card checks read: ``state_tensors`` lists them,
+``state_with_tensors`` puts a list back.  A checkpoint nests the same
+trees by ``GROUPS`` and ``STATS`` (``ckpt/checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -25,9 +30,12 @@ from .keras_adam import KerasAdam, KerasAdamState
 from .schedule import warmup_staircase_exponential_decay
 
 __all__ = [
-    "TrainState", "create_train_state", "dropout_keys", "fold_in", "key_from_seed", "make_optimizers",
-    "split_key",
+    "GROUPS", "STATS", "TrainState", "create_train_state", "dropout_keys", "fold_in", "key_from_seed",
+    "make_optimizers", "split_key", "state_tensors", "state_with_tensors",
 ]
+
+GROUPS = ("enc", "dec", "h", "m")  # the parameter groups, each with its Adam
+STATS = ("h_stats", "m_stats")  # the discriminators' BatchNorm statistics
 
 _M64 = (1 << 64) - 1
 _KEY_BITS = (1 << 63) - 1  # a key fits an int64 and any torch.Generator seed
@@ -79,6 +87,44 @@ class TrainState:
     dec_opt: KerasAdamState
     h_opt: KerasAdamState
     m_opt: KerasAdamState
+
+
+def _trees(state: TrainState) -> dict:
+    """The state's dicts of tensors by name, in the layout's order: each
+    group's parameters, the statistics, then each group's Adam moments."""
+    trees = {f"{g}_params": getattr(state, f"{g}_params") for g in GROUPS}
+    trees.update((name, getattr(state, name)) for name in STATS)
+    for g in GROUPS:
+        opt = getattr(state, f"{g}_opt")
+        trees.update({f"{g}_opt.mu": opt.mu, f"{g}_opt.nu": opt.nu})
+    return trees
+
+
+def state_tensors(state: TrainState) -> dict:
+    """Every tensor of ``state`` by its path (``"enc_params/<key>"``,
+    ``"h_stats/<key>"``, ``"enc_opt.mu/<key>"``), in the layout's order:
+    the parameters of each group of ``GROUPS``, the statistics ``STATS``,
+    then each group's Adam moments mu and nu."""
+    return {f"{name}/{k}": v for name, tree in _trees(state).items() for k, v in tree.items()}
+
+
+def state_with_tensors(state: TrainState, tensors, *, step: int | None = None, rng: int | None = None,
+                       counts=None) -> TrainState:
+    """``state`` with ``tensors`` (in ``state_tensors`` order) in place of
+    its own, and ``step``, ``rng`` and the Adams' ``counts`` (in ``GROUPS``
+    order) in place of its own where given."""
+    it = iter(tensors)
+    trees = {name: {k: next(it) for k in tree} for name, tree in _trees(state).items()}
+    if counts is None:
+        counts = [getattr(state, f"{g}_opt").count for g in GROUPS]
+    return TrainState(
+        step=state.step if step is None else step,
+        rng=state.rng if rng is None else rng,
+        **{f"{g}_params": trees[f"{g}_params"] for g in GROUPS},
+        **{name: trees[name] for name in STATS},
+        **{f"{g}_opt": KerasAdamState(count=count, mu=trees[f"{g}_opt.mu"], nu=trees[f"{g}_opt.nu"])
+           for g, count in zip(GROUPS, counts)},
+    )
 
 
 def make_optimizers(cfg) -> dict:

@@ -73,11 +73,12 @@ from ..models.layers import BatchNorm, bernoulli_source
 from ..models.video import discriminator_modules, generator_modules
 from ..ot import compute_sinkhorn_loss, martingale_regularization
 from ..ot.cuda_sinkhorn import sinkhorn_bwd, sinkhorn_fwd
-from ..parallel.comm import COUNTERS, all_reduce_sum_
+from ..parallel.comm import COUNTERS, all_reduce_sum_flat
 from ..smoothing import annealing_sigma, apply_smoothing
 from .graph import StepGraph
-from .keras_adam import KerasAdamState
-from .state import TrainState, dropout_keys, fold_in, make_optimizers, split_key
+from .state import (
+    GROUPS, TrainState, dropout_keys, fold_in, make_optimizers, split_key, state_tensors, state_with_tensors,
+)
 
 __all__ = ["GanModules", "Placement", "build_train_step", "fused_discriminators", "gan_forward", "replays_graph"]
 
@@ -231,56 +232,21 @@ def _grads(loss, *groups):
     return [{k: next(grads) for k in g} for g in groups]
 
 
-def _flat_sum(group, tensors):
-    """``tensors`` summed over ``group`` in one flattened all-reduce."""
-    flat = all_reduce_sum_(torch.cat([t.reshape(-1).float() for t in tensors]), group)
-    return [part.view(t.shape).to(t.dtype) for part, t in zip(flat.split([t.numel() for t in tensors]), tensors)]
-
-
 def _pmean(group, *trees):
     """Each dict or tensor of ``trees`` averaged over ``group``: JAX's
     ``pmean``, in one all-reduce."""
     leaves = [v for t in trees for v in (t.values() if isinstance(t, dict) else (t,))]
     n = torch.distributed.get_world_size(group)
-    means = iter(x / n for x in _flat_sum(group, leaves))
+    means = iter(x / n for x in all_reduce_sum_flat(leaves, group))
     return [{k: next(means) for k in t} if isinstance(t, dict) else next(means) for t in trees]
 
 
-_GROUPS = ("enc", "dec", "h", "m")
-_TREES = ("enc_params", "dec_params", "h_params", "m_params", "h_stats", "m_stats")
 # what the kernels' wrappers and the collectives count; a graph replay
 # adds what its capture counted
 _KERNEL_COUNTERS = tuple(
     (fn, name) for fn in (convlstm_fwd, convlstm_bwd, lstm_fwd, lstm_bwd) for name in ("calls", "launches")
 ) + ((convlstm_fwd, "gate_stacks"), (sinkhorn_fwd, "launches"), (sinkhorn_bwd, "launches"))
 _COMM_COUNTERS = tuple((COUNTERS[op], name) for op in COUNTERS for name in ("calls", "bytes"))
-
-
-def _state_trees(state: TrainState) -> list:
-    """The state's dicts of tensors in a fixed order: parameters,
-    statistics, then each group's Adam moments."""
-    opts = [getattr(state, f"{g}_opt") for g in _GROUPS]
-    return [getattr(state, name) for name in _TREES] + [d for o in opts for d in (o.mu, o.nu)]
-
-
-def _state_tensors(state: TrainState) -> list:
-    return [v for d in _state_trees(state) for v in d.values()]
-
-
-def _state_like(state: TrainState, tensors) -> TrainState:
-    """``state`` with ``tensors`` (in ``_state_tensors`` order) in place
-    of its own."""
-    it = iter(tensors)
-
-    def tree(d):
-        return {k: next(it) for k in d}
-
-    trees = {name: tree(getattr(state, name)) for name in _TREES}
-    opts = {}
-    for g in _GROUPS:
-        o = getattr(state, f"{g}_opt")
-        opts[f"{g}_opt"] = KerasAdamState(count=o.count, mu=tree(o.mu), nu=tree(o.nu))
-    return TrainState(step=state.step, rng=state.rng, **trees, **opts)
 
 
 def replays_graph(cfg, device, *, group=None, encode=None, decode=None, placement=None) -> bool:
@@ -403,7 +369,7 @@ def build_train_step(cfg, *, device="cuda", group=None, encode=None, decode=None
         counts advanced, gen_loss, pm)``.  ``alphas``: each Adam's step
         size by group, 0-d tensors on the card; without them each Adam
         computes its own on the host."""
-        alpha = alphas or dict.fromkeys(_GROUPS)
+        alpha = alphas or dict.fromkeys(GROUPS)
         z1, z2 = place.noise(z1), place.noise(z2)
         enc_p = _leaves(state.enc_params)
         if share_ctx:
@@ -480,19 +446,19 @@ def build_train_step(cfg, *, device="cuda", group=None, encode=None, decode=None
 
         def fn(carried, fresh):
             real, z1, z2, alphas = fresh
-            new, gen_loss, pm = iterate(_state_like(state, carried), real, z1, z2, sigma,
-                                        alphas=dict(zip(_GROUPS, alphas.unbind())))
-            return _state_tensors(new) + [gen_loss, pm]
+            new, gen_loss, pm = iterate(state_with_tensors(state, carried), real, z1, z2, sigma,
+                                        alphas=dict(zip(GROUPS, alphas.unbind())))
+            return [*state_tensors(new).values(), gen_loss, pm]
 
-        return StepGraph(fn, _state_tensors(state), [real_data, *z, torch.empty(len(_GROUPS))],
+        return StepGraph(fn, list(state_tensors(state).values()), [real_data, *z, torch.empty(len(GROUPS))],
                          _KERNEL_COUNTERS + _COMM_COUNTERS)
 
     def graphed_step(state: TrainState, real_data, generator=None, z=None, masks=None):
-        trees = _state_trees(state)
+        tensors = state_tensors(state)
         key = (
             tuple(real_data.shape), real_data.dtype, real_data.device,
             None if z is None else tuple((tuple(x.shape), x.dtype) for x in z),
-            tuple((k, tuple(v.shape), v.dtype) for d in trees for k, v in d.items()),
+            tuple((k, tuple(v.shape), v.dtype) for k, v in tensors.items()),
         )
         if key not in graphs:
             graphs[key] = None
@@ -503,13 +469,12 @@ def build_train_step(cfg, *, device="cuda", group=None, encode=None, decode=None
             counts["captures"] += 1
         rng, z1, z2 = noise(state.rng, real_data, generator, z, out=graph.buffers[1:3])
         # computed in float32 on the host, as each Adam computes its own eagerly
-        alphas = torch.stack([opts[g].alpha(getattr(state, f"{g}_opt").count) for g in _GROUPS])
-        outs = graph([v for d in trees for v in d.values()], [real_data, z1, z2, alphas])
+        adam_counts = [getattr(state, f"{g}_opt").count for g in GROUPS]
+        alphas = torch.stack([opts[g].alpha(c) for g, c in zip(GROUPS, adam_counts)])
+        outs = graph(list(tensors.values()), [real_data, z1, z2, alphas])
         counts["replays"] += 1
-        new_state = _state_like(state, outs[:-2])
-        new_state.step, new_state.rng = state.step + 1, rng
-        for g in _GROUPS:
-            getattr(new_state, f"{g}_opt").count += 1
+        new_state = state_with_tensors(state, outs[:-2], step=state.step + 1, rng=rng,
+                                       counts=[c + 1 for c in adam_counts])
         return new_state, metrics(outs[-2], outs[-1], step_sigma(state.step))
 
     graphed = replays_graph(cfg, device, group=group, encode=encode, decode=decode, placement=placement)

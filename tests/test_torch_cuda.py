@@ -109,7 +109,8 @@ from kccotgan_tpu_torch.ot.cuda_sinkhorn import (
 )
 
 from kccotgan_tpu_torch.train import build_train_step, create_train_state
-from kccotgan_tpu_torch.train.steps import _KERNEL_COUNTERS, Placement, _state_trees, replays_graph
+from kccotgan_tpu_torch.train.state import state_tensors
+from kccotgan_tpu_torch.train.steps import _KERNEL_COUNTERS, Placement, replays_graph
 
 pytestmark = pytest.mark.cuda
 
@@ -667,11 +668,7 @@ GRAPHED = {
 
 
 def _step_tensors(state, metrics):
-    names = [f"{tree} {k}" for tree, d in zip(
-        ("enc", "dec", "h", "m", "h_stats", "m_stats", "enc mu", "enc nu", "dec mu", "dec nu",
-         "h mu", "h nu", "m mu", "m nu"), _state_trees(state)) for k in d]
-    return dict(zip(names + ["loss", "pm"], [v for d in _state_trees(state) for v in d.values()]
-                    + [metrics["sinkhorn_loss"], metrics["pm"]]))
+    return {**state_tensors(state), "loss": metrics["sinkhorn_loss"], "pm": metrics["pm"]}
 
 
 def _eager_step(cfg, dev):

@@ -46,7 +46,8 @@ from kccotgan_tpu_torch.parallel.mesh import Mesh, data_seq_mesh, make_mesh, seq
 from kccotgan_tpu_torch.parallel.seqtrain import build_seq_train_step
 from kccotgan_tpu_torch.parallel.sharding import MeshPlacement, build_sharded_train_step, replicate_state, shard_batch
 from kccotgan_tpu_torch.train import build_train_step, create_train_state
-from kccotgan_tpu_torch.train.steps import _KERNEL_COUNTERS, _state_trees
+from kccotgan_tpu_torch.train.state import state_tensors
+from kccotgan_tpu_torch.train.steps import _KERNEL_COUNTERS
 
 pytestmark = pytest.mark.cuda
 
@@ -97,7 +98,7 @@ def _run(step, cfg, mesh, dev, inject=True):
         before = _counters()
         state, met = step(state, rows, z=z)
         torch.cuda.synchronize()
-        leaves = {f"{j} {k}": v.clone() for j, d in enumerate(_state_trees(state)) for k, v in d.items()}
+        leaves = {k: v.clone() for k, v in state_tensors(state).items()}
         leaves.update(loss=met["sinkhorn_loss"].clone(), pm=met["pm"].clone())
         out.append((leaves, [a - n for a, n in zip(_counters(), before)]))
     return out, state
@@ -123,7 +124,7 @@ def _graphed_against_eager(dev, world):
                 e2, _ = _run(build_train_step(cfg, device=dev, placement=_EagerPlacement(mesh)), cfg, mesh, dev)
                 step = build_sharded_train_step(cfg, mesh)
                 graphed, state = _run(step, cfg, mesh, dev)
-                final = torch.cat([v.detach().float().reshape(-1) for d in _state_trees(state) for v in d.values()])
+                final = torch.cat([v.detach().float().reshape(-1) for v in state_tensors(state).values()])
                 out[f"{variant}-{dtype}"] = {
                     "eager_gap": _largest_gap(e1, e2),
                     "graph_gap": {k: max(a, b) for (k, a), b in

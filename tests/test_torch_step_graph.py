@@ -34,6 +34,7 @@ from kccotgan_tpu_torch.train import Trainer, build_train_step, create_train_sta
 from kccotgan_tpu_torch.train import steps
 from kccotgan_tpu_torch.train.keras_adam import KerasAdam
 from kccotgan_tpu_torch.train.schedule import warmup_staircase_exponential_decay
+from kccotgan_tpu_torch.train.state import GROUPS, state_tensors
 from kccotgan_tpu_torch.parallel.mesh import Mesh
 from kccotgan_tpu_torch.parallel.sharding import MeshPlacement
 from kccotgan_tpu_torch.train.steps import Placement, replays_graph
@@ -172,7 +173,7 @@ def test_adam_step_size_as_a_tensor_equals_the_host_form(double_step, offset):
 
 
 def _tensors(state, metrics):
-    return steps._state_tensors(state) + [metrics["sinkhorn_loss"], metrics["pm"], metrics["sigma"]]
+    return [*state_tensors(state).values(), metrics["sinkhorn_loss"], metrics["pm"], metrics["sigma"]]
 
 
 @pytest.mark.parametrize("over,inject", [
@@ -194,8 +195,8 @@ def test_graph_path_equals_the_eager_step(monkeypatch, over, inject):
         s_e, m_e = eager(s_e, batch, z=z)
         s_g, m_g = graphed(s_g, batch, z=z)
         assert (s_g.step, s_g.rng) == (s_e.step, s_e.rng)
-        assert [getattr(s_g, f"{g}_opt").count for g in steps._GROUPS] == \
-            [getattr(s_e, f"{g}_opt").count for g in steps._GROUPS]
+        assert [getattr(s_g, f"{g}_opt").count for g in GROUPS] == \
+            [getattr(s_e, f"{g}_opt").count for g in GROUPS]
         got, want = _tensors(s_g, m_g), _tensors(s_e, m_e)
         assert all(torch.equal(a, b) for a, b in zip(got, want))
         kept.append((got, [t.clone() for t in got]))
